@@ -1,0 +1,114 @@
+"""Port parity, fused RHT + dequant GEMM: the plain PyTorch version (what the
+CUDA kernel is held against on the card) against the reference's Pallas
+kernel in interpret mode and its pure-jnp oracle, over bits {1,2,3,4,8} x
+d {power of 2, not a power of 2, a d_keep whose last packed byte holds pad
+codes} x n {1, batched}.
+
+Tolerance: rtol 1e-4 in f32 (the reference kernel's own, tests/
+test_kernels.py:29); the products are f32 in every version, only the
+summation order differs.  TF32 is off.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.qmatmul.qmatmul import rht_quantized_matmul_pallas  # noqa: E402
+from repro.kernels.qmatmul.ref import rht_quantized_matmul_ref  # noqa: E402
+from repro_torch.core import packing  # noqa: E402
+from repro_torch.kernels.qmatmul import ops as qops  # noqa: E402
+from repro_torch.kernels.qmatmul.ref import (  # noqa: E402
+    rht_quantized_matmul_ref as torch_ref)
+
+BITS = [1, 2, 3, 4, 8]
+# 256: power of 2; 300: overlapped Alg. 5; 301: d_keep whose last packed
+# byte holds pad codes at b in {1, 2, 4} (code 0 - c_b is not 0)
+DIMS = [256, 300, 301]
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _inputs(bits, d, n, c=40, seed=0):
+    rng = np.random.default_rng(seed + 100 * bits + d + n)
+    rows = packing.packed_rows(d, bits)
+    hi = 256 if packing.codes_per_byte(bits) > 1 or bits == 8 else 1 << bits
+    packed = rng.integers(0, hi, size=(rows, c)).astype(np.uint8)
+    rescale = rng.uniform(0.01, 0.1, size=c).astype(np.float16)
+    dh = 1 << (d.bit_length() - 1)
+    s1 = rng.choice([-1.0, 1.0], size=dh).astype(np.float32)
+    s2 = rng.choice([-1.0, 1.0], size=dh).astype(np.float32) if dh != d else None
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    return x, packed, rescale, s1, s2
+
+
+def _torch_args(x, packed, rescale, s1, s2):
+    return (torch.from_numpy(x), torch.from_numpy(packed),
+            torch.from_numpy(rescale), torch.from_numpy(s1),
+            None if s2 is None else torch.from_numpy(s2))
+
+
+def _jax_args(x, packed, rescale, s1, s2):
+    return (jnp.asarray(x), jnp.asarray(packed), jnp.asarray(rescale),
+            jnp.asarray(s1), None if s2 is None else jnp.asarray(s2))
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * (np.abs(want).max() + 1))
+
+
+@pytest.mark.parametrize("n", [1, 7])
+@pytest.mark.parametrize("d", DIMS)
+@pytest.mark.parametrize("bits", BITS)
+def test_plain_matches_reference_oracle(bits, d, n):
+    args = _inputs(bits, d, n)
+    want = rht_quantized_matmul_ref(*_jax_args(*args), bits=bits, d=d)
+    got = qops.rht_quantized_matmul(*_torch_args(*args), bits=bits, d=d)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("d", DIMS)
+@pytest.mark.parametrize("bits", BITS)
+def test_plain_matches_pallas_interpret(bits, d):
+    args = _inputs(bits, d, 5, seed=1)
+    want = rht_quantized_matmul_pallas(*_jax_args(*args), bits=bits, d=d,
+                                       interpret=True)
+    got = torch_ref(*_torch_args(*args), bits=bits, d=d)
+    _close(got.numpy(), want)
+
+
+def test_cpu_tensor_takes_plain_path_and_kernel_path_refuses_cpu():
+    args = _torch_args(*_inputs(4, 300, 3))
+    before = qops.launches
+    y = qops.rht_quantized_matmul(*args, bits=4, d=300)
+    assert y.shape == (3, 40) and qops.launches == before
+    qops.set_forced_path("kernel")
+    try:
+        with pytest.raises(RuntimeError):
+            qops.rht_quantized_matmul(*args, bits=4, d=300)
+    finally:
+        qops.set_forced_path(None)
+    with pytest.raises(ValueError):
+        qops.rht_quantized_matmul_cuda(*args, bits=4, d=300)
+
+
+@pytest.mark.parametrize("n,d,c,bits", [(1, 4083, 4096, 4), (8, 4083, 4096, 4),
+                                        (64, 4083, 22016, 4),
+                                        (8, 10974, 4096, 3), (3, 301, 40, 2)])
+def test_split_plan_covers_every_packed_row(n, d, c, bits):
+    """The split-K plan the wrapper hands the kernel: every packed row in
+    exactly one split, rows per CTA a power of 2 up to 8, and enough tiles
+    to give each of 132 SMs work at the main path's shapes."""
+    bn, rps, splits = qops.split_plan(n, d, c, bits, n_sm=132)
+    prow = packing.packed_rows(d, bits)
+    assert bn in (1, 2, 4, 8) and bn >= min(n, 8)
+    assert (splits - 1) * rps < prow <= splits * rps
+    tiles = -(-c // qops.COLS_PER_CTA) * -(-n // bn) * splits
+    if prow >= 132 * qops.MIN_ROWS_PER_SPLIT // 4:
+        assert tiles >= 132
