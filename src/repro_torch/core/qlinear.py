@@ -9,7 +9,9 @@ product stay plain torch outside the kernel, as in the reference.
 
 ``quantize_linear`` takes the Rademacher signs as arguments because torch
 cannot reproduce ``jax.random`` streams: parity tests pass the reference's
-signs, and ``draw_signs`` draws fresh ones from a ``torch.Generator``.
+signs, and ``draw_signs`` draws fresh ones from a ``torch.Generator``.  Its
+code search goes through ``kernels/rabitq_quant/ops.quantize`` (the CUDA
+kernel on the card, ``core/rabitq.quantize`` for CPU tensors).
 The grouped (MoE) form waits for the MoE slice (ROADMAP).
 """
 from __future__ import annotations
@@ -21,8 +23,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels.rabitq_quant import ops as rq_ops
 
-from . import hadamard, packing, rabitq, tricks
+from . import hadamard, packing, tricks
 
 __all__ = ["QuantizedLinear", "quantize_linear", "reconstruct_weight",
            "draw_signs"]
@@ -42,6 +45,20 @@ class QuantizedLinear:
     d: int = 0
     d_keep: int = 0
     c: int = 0
+
+    def overhead_bits(self) -> int:
+        """Side-information cost in bits, at actual storage width (counted
+        against the AllocateBits budget; signs are 1 bit each)."""
+        n = self.rescale.numel() * self.rescale.element_size() * 8
+        n += self.signs1.numel()
+        if self.signs2 is not None:
+            n += self.signs2.numel()
+        if self.mean_col is not None:
+            n += self.mean_col.numel() * self.mean_col.element_size() * 8
+        if self.w_out is not None:
+            n += (self.w_out.numel() * self.w_out.element_size() * 8
+                  + self.out_idx.numel() * 32)
+        return int(n)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """Estimate x @ W for x of shape (..., d) — Alg. 3 + corrections."""
@@ -109,7 +126,7 @@ def quantize_linear(w: torch.Tensor, bits: int, signs1: torch.Tensor,
     s2 = (signs2.to(device=dev, dtype=torch.float32)
           if signs2 is not None else None)
     w_rot = hadamard.practical_rht(w_rest, s1, s2, axis=0)
-    q = rabitq.quantize(w_rot, bits, n_candidates=n_candidates)
+    q = rq_ops.quantize(w_rot, bits, n_candidates=n_candidates)
     packed = packing.pack_codes(q.codes, bits)
     return QuantizedLinear(
         packed=packed, rescale=q.rescale.to(torch.float16),

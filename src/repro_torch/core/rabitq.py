@@ -13,6 +13,11 @@ The candidate scales are ``numpy.geomspace`` in float64 rounded to f32; the
 reference computes them in f32 and lands within one ulp, so codes agree
 except at round-half ties (the same off-by-one the reference's own kernel
 test tolerates).
+
+Every division here divides by a tensor: PyTorch on CUDA multiplies by the
+reciprocal when the divisor is a Python scalar, which moves delta0 by an
+ulp against the CPU and against the CUDA kernel
+(``csrc/rabitq_quant.cu``), which divides as IEEE does.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["RabitqCodes", "quantize", "dequantize", "estimate_matmul", "C_ERROR"]
+__all__ = ["RabitqCodes", "quantize", "dequantize", "estimate_matmul",
+           "candidate_scales", "C_ERROR"]
 
 # Empirical constant of the RaBitQ error bound (paper eq. 11), P >= 99.9%
 C_ERROR = 5.75
@@ -39,6 +45,12 @@ def _codes_v(w: torch.Tensor, delta: torch.Tensor, c_b: float,
     return torch.clamp(torch.round(w / delta + c_b), 0.0, float(levels)) - c_b
 
 
+def candidate_scales(n_candidates: int, lo: float = 0.3,
+                     hi: float = 1.05) -> np.ndarray:
+    """The f32 grid-step multipliers of the per-column search."""
+    return np.geomspace(lo, hi, n_candidates).astype(np.float32)
+
+
 def quantize(w: torch.Tensor, bits: int, n_candidates: int = 12,
              lo: float = 0.3, hi: float = 1.05) -> RabitqCodes:
     """Quantize columns of ``w`` (d, c) to ``bits``-bit codes + rescale."""
@@ -48,9 +60,9 @@ def quantize(w: torch.Tensor, bits: int, n_candidates: int = 12,
     levels = (1 << bits) - 1
     c_b = levels / 2.0
     absmax = torch.amax(torch.abs(w), dim=0)                    # (c,)
-    delta0 = torch.clamp(absmax, min=1e-30) / c_b
+    delta0 = torch.clamp(absmax, min=1e-30) / torch.full_like(absmax, c_b)
     scales = torch.from_numpy(
-        np.geomspace(lo, hi, n_candidates).astype(np.float32)).to(w.device)
+        candidate_scales(n_candidates, lo, hi)).to(w.device)
     errs = []
     for s in scales:
         v = _codes_v(w, delta0 * s, c_b, levels)

@@ -1,21 +1,21 @@
-// Fused practical RHT + dequant GEMM for RaanA-quantized linears (Hopper).
+// Dequant GEMMs for RaanA-quantized linears (Hopper), two C entries:
 //
-//   Y = practical_rht(X) @ (r * (codes - c_b))
-//     = (X_rot @ codes - c_b * rowsum(X_rot)) * r
+//   rht_qmatmul: Y = practical_rht(X) @ (r * (codes - c_b))
+//                  = (X_rot @ codes - c_b * rowsum(X_rot)) * r
+//   qmatmul:     Y = (X_rot @ codes - c_b * rowsum(X_rot)) * r, X_rot given
 //
-// Replaces repro/kernels/qmatmul/qmatmul.py:rht_quantized_matmul_pallas
-// (_fused_kernel, _rht_rows, _unpack_tile).  The Pallas kernel rotates once at
+// rht_qmatmul replaces repro/kernels/qmatmul/qmatmul.py:
+// rht_quantized_matmul_pallas (_fused_kernel, _rht_rows, _unpack_tile);
+// qmatmul replaces quantized_matmul_pallas (_kernel), the second half of the
+// reference's unfused A/B pair.  The Pallas fused kernel rotates once at
 // grid step (j=0, k=0) and keeps the rotated row tile in VMEM across the
 // sequential grid; CTAs on the H100 run concurrently and the rotated tile
-// (351 KB at n=8, d=10974) does not fit a block's shared memory, so this
-// file launches, on one stream:
+// (351 KB at n=8, d=10974) does not fit a block's shared memory, so
+// rht_qmatmul launches, on one stream:
 //
-//   1. rht_rotate: one CTA per row.  Sign flip with signs1, in-shared-memory
-//      butterfly FWHT over [0, d_hat), scale 1/sqrt(d_hat); for d not a
-//      power of 2 (Alg. 5) the same with signs2 over [d - d_hat, d).  The
-//      butterfly computes the Sylvester H_{d_hat} = H_{d1} (x) H_{d2}, equal
-//      to the reference's Kronecker matmuls up to rounding.  Writes x_rot
-//      (n, d) f32 and rowsum (n,) to scratch.
+//   1. fwht::rotate_kernel (fwht.cuh): one CTA per row, sign flip and
+//      in-shared-memory butterfly FWHT (Alg. 5); writes x_rot (n, d) f32
+//      and rowsum (n,) to scratch.  qmatmul launches rowsum_kernel instead.
 //   2. dequant_gemm: CTA tile = BN rows x 128 columns x one split of the
 //      packed rows; its 8 warps share the columns and take interleaved
 //      packed rows, and sum their partials through shared memory in a fixed
@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fwht.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -44,82 +46,7 @@ constexpr int kCols = 4;            // columns per thread (one 4-byte load)
 constexpr int kColsPerCta = 32 * kCols;
 constexpr int kKChunk = 512;        // d values of x_rot staged per pass
 constexpr int kBatch = 8;           // packed rows a thread loads at once
-constexpr int kRotThreads = 512;
-
-// Global loads issued kRotBatch at a time per thread, so a row costs a few
-// memory latencies rather than one per element a thread touches.
-constexpr int kRotBatch = 8;
-
-__device__ void load_row(float* dst, const float* __restrict__ src, int n) {
-  for (int base = 0; base < n; base += kRotBatch * blockDim.x) {
-    float tmp[kRotBatch];
-#pragma unroll
-    for (int u = 0; u < kRotBatch; ++u) {
-      const int i = base + u * blockDim.x + threadIdx.x;
-      tmp[u] = i < n ? __ldg(src + i) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kRotBatch; ++u) {
-      const int i = base + u * blockDim.x + threadIdx.x;
-      if (i < n) dst[i] = tmp[u];
-    }
-  }
-}
-
-// In-place sign flip, unnormalized butterfly H_n and 1/sqrt(n) scale of v[0, n)
-// (n a power of 2); signs_s already sits in shared memory.
-__device__ void fwht_block(float* v, const float* signs_s, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) v[i] *= signs_s[i];
-  __syncthreads();
-  int lg = 0;
-  for (int h = 1; h < n; h <<= 1, ++lg) {
-    for (int p = threadIdx.x; p < (n >> 1); p += blockDim.x) {
-      const int i = ((p >> lg) << (lg + 1)) | (p & (h - 1));
-      const float a = v[i], b = v[i + h];
-      v[i] = a + b;
-      v[i + h] = a - b;
-    }
-    __syncthreads();
-  }
-  const float scale = 1.0f / sqrtf((float)n);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) v[i] *= scale;
-  __syncthreads();
-}
-
-__global__ void rht_rotate_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ signs1,
-                                  const float* __restrict__ signs2,
-                                  float* __restrict__ xrot,
-                                  float* __restrict__ rowsum, int d,
-                                  int d_hat) {
-  extern __shared__ float smem[];
-  float* sx = smem;                   // d
-  float* s1 = sx + d;                 // d_hat
-  float* s2 = s1 + d_hat;             // d_hat when d is not a power of 2
-  __shared__ float warp_sums[kRotThreads / 32];
-  const size_t row = blockIdx.x;
-  load_row(sx, x + row * d, d);
-  load_row(s1, signs1, d_hat);
-  if (d_hat != d) load_row(s2, signs2, d_hat);
-  __syncthreads();
-  fwht_block(sx, s1, d_hat);
-  if (d_hat != d) fwht_block(sx + (d - d_hat), s2, d_hat);
-  float part = 0.f;
-  float* out = xrot + row * d;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    out[i] = sx[i];
-    part += sx[i];
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    part += __shfl_down_sync(0xffffffffu, part, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = part;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += warp_sums[w];
-    rowsum[row] = s;
-  }
-}
+constexpr int kSumThreads = 256;
 
 template <int BITS, int BN>
 __global__ void __launch_bounds__(kGemmThreads)
@@ -255,30 +182,35 @@ cudaError_t launch_gemm_bits(int bn, dim3 grid, const float* xrot,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int rht_qmatmul(const float* x, const float* signs1,
-                           const float* signs2, const uint8_t* packed,
-                           const __half* rescale, float* xrot, float* rowsum,
-                           float* partial, float* out, int n, int d, int d_hat,
-                           int c, int bits, int bn, int rows_per_split,
-                           int splits, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem =
-      (size_t)(d + (d_hat != d ? 2 : 1) * d_hat) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        rht_rotate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
+// rowsum[row] = sum(x[row]) for the unfused entry, whose x is already
+// rotated: one CTA per row, summed in a fixed order (deterministic).
+__global__ void __launch_bounds__(kSumThreads)
+rowsum_kernel(const float* __restrict__ x, float* __restrict__ rowsum, int d) {
+  __shared__ float warp_sums[kSumThreads / 32];
+  const float* src = x + (size_t)blockIdx.x * d;
+  float part = 0.f;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) part += __ldg(src + i);
+  for (int off = 16; off > 0; off >>= 1)
+    part += __shfl_down_sync(0xffffffffu, part, off);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = part;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int w = 0; w < kSumThreads / 32; ++w) s += warp_sums[w];
+    rowsum[blockIdx.x] = s;
   }
-  rht_rotate_kernel<<<n, kRotThreads, smem, st>>>(x, signs1, signs2, xrot,
-                                                  rowsum, d, d_hat);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+}
 
+// Split-K dequant GEMM over an already-rotated x, then the fixed-order
+// reduction of the splits and the Alg. 3 epilogue.
+cudaError_t launch_gemm_epilogue(const float* xrot, const float* rowsum,
+                                 const uint8_t* packed, const __half* rescale,
+                                 float* partial, float* out, int n, int d,
+                                 int c, int bits, int bn, int rows_per_split,
+                                 int splits, cudaStream_t st) {
   const int col_tiles = (c + kColsPerCta - 1) / kColsPerCta;
   dim3 grid(col_tiles, (n + bn - 1) / bn, splits);
+  cudaError_t e;
   switch (bits) {
     case 1: e = launch_gemm_bits<1>(bn, grid, xrot, packed, partial, n, d, c, rows_per_split, st); break;
     case 2: e = launch_gemm_bits<2>(bn, grid, xrot, packed, partial, n, d, c, rows_per_split, st); break;
@@ -298,4 +230,37 @@ extern "C" int rht_qmatmul(const float* x, const float* signs1,
   splitk_epilogue_kernel<<<blocks, 256, 0, st>>>(partial, rowsum, rescale, out,
                                                  n, c, splits, c_b);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// Fused: Y = practical_rht(x) @ (r * (codes - c_b)).  xrot, rowsum and
+// partial are scratch.
+extern "C" int rht_qmatmul(const float* x, const float* signs1,
+                           const float* signs2, const uint8_t* packed,
+                           const __half* rescale, float* xrot, float* rowsum,
+                           float* partial, float* out, int n, int d, int d_hat,
+                           int c, int bits, int bn, int rows_per_split,
+                           int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = fwht::launch_rotate(x, signs1, signs2, xrot, rowsum, n, d,
+                                      d_hat, st);
+  if (e != cudaSuccess) return e;
+  return launch_gemm_epilogue(xrot, rowsum, packed, rescale, partial, out, n,
+                              d, c, bits, bn, rows_per_split, splits, st);
+}
+
+// Unfused second half: Y = (xrot @ codes - c_b * rowsum(xrot)) * r on an
+// already-rotated xrot.  Replaces repro/kernels/qmatmul/qmatmul.py:
+// quantized_matmul_pallas (_kernel).  rowsum and partial are scratch.
+extern "C" int qmatmul(const float* xrot, const uint8_t* packed,
+                       const __half* rescale, float* rowsum, float* partial,
+                       float* out, int n, int d, int c, int bits, int bn,
+                       int rows_per_split, int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  rowsum_kernel<<<n, kSumThreads, 0, st>>>(xrot, rowsum, d);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_gemm_epilogue(xrot, rowsum, packed, rescale, partial, out, n,
+                              d, c, bits, bn, rows_per_split, splits, st);
 }

@@ -3,9 +3,10 @@ plain C interface, loaded with ``ctypes``).
 
 Sources live in ``src/repro_torch/csrc/``.  A library is built at first use
 into ``build/kernels/`` at the repository root, named by a hash of its
-source and flags, so an edited ``.cu`` rebuilds and an unchanged one is
-reused.  ``build`` starts one ``nvcc`` per missing source, all at once, and
-waits for them together.  Nothing here runs at import time.
+source, every shared header (``csrc/*.cuh``) and the flags, so an edited
+``.cu`` or header rebuilds and an unchanged one is reused.  ``build``
+starts one ``nvcc`` per missing source, all at once, and waits for them
+together.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"rht_qmatmul": "rht_qmatmul.cu",
-           "paged_attention": "paged_attention.cu"}
+           "paged_attention": "paged_attention.cu",
+           "hadamard": "hadamard.cu",
+           "rabitq_quant": "rabitq_quant.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,8 +41,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -1,4 +1,10 @@
-"""Paged-cache attention helpers (port of ``repro/models/attention.py:145-266``).
+"""Attention: sequence-mode GQA for calibration and the paged-cache helpers
+(port of ``repro/models/attention.py:23-101, 145-266``).
+
+``flash_attention`` is the reference's jnp scan as plain torch: an einsum,
+a masked softmax in f32, autograd through it (calibration differentiates
+the loss through every layer).  It is not SDPA, so the flash-attention
+kernel's later port has a plain counterpart.
 
 The serving engine stores K/V in a fixed arena of (num_blocks, block_size,
 KV, hd) blocks shared by all requests; each request owns a row of a block
@@ -15,6 +21,27 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd), H = KV*G -> (B,Sq,H,hd); queries at
+    positions 0..Sq-1.  ``window``: attend to the last ``window`` keys."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qf = q.to(torch.float32).reshape(b, sq, kv, g, hd) * hd ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(torch.float32))
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+    if window is not None:
+        mask = mask & ((qpos - kpos) < window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
 def paged_gather_kv(arena: torch.Tensor, block_table: torch.Tensor

@@ -1,23 +1,61 @@
-"""Shared building blocks: the linear chokepoint, norms, RoPE, init.
+"""Shared building blocks: the linear chokepoint, norms, RoPE, loss, init.
 
 Port of the parts of ``repro/models/common.py`` the attention-decoder path
 uses.  Every weight multiplication goes through ``linear``, which dispatches
 on ``QuantizedLinear`` (the fused RHT + dequant GEMM) or multiplies a plain
-(d, c) tensor.  The calibration taps (``LinearCtx``) come with the
-quantization pipeline (ROADMAP).
+(d, c) tensor, so that RaanA calibration can tap per-layer statistics and
+inject output perturbations through a ``LinearCtx``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.core.qlinear import QuantizedLinear
 
 
-def linear(w, x: torch.Tensor) -> torch.Tensor:
+class LinearCtx:
+    """Calibration collector (port of ``repro/models/common.py:LinearCtx``,
+    without the GPTQ baseline's ``collect_hessian``).
+
+    ``collect`` records per-linear taps in ``taps``.  ``perturb`` maps a
+    linear's name to an additive perturbation of its output; when
+    ``collect`` is on as well, a linear missing from ``perturb`` gets a zero
+    perturbation that requires grad, so one forward and backward yields the
+    taps and d loss / d output (``core/calibrate.py``)."""
+
+    def __init__(self, perturb: dict | None = None, collect: bool = False):
+        self.perturb = perturb
+        self.collect = collect
+        self.taps: dict[str, dict] = {}
+
+
+def linear(w, x: torch.Tensor, ctx: Optional[LinearCtx] = None,
+           name: str | None = None) -> torch.Tensor:
     """y = x @ w for w either a raw (d, c) tensor or a QuantizedLinear."""
     if isinstance(w, QuantizedLinear):
         return w.apply(x)
-    return x @ w.to(x.dtype)
+    y = x @ w.to(x.dtype)
+    if ctx is not None and name is not None:
+        if ctx.collect:
+            with torch.no_grad():
+                xf = x.detach().to(torch.float32)
+                sq = xf * xf
+                ctx.taps[name] = dict(
+                    x_fro_sq=torch.sum(sq),
+                    x_col_sq=torch.sum(sq.reshape(-1, x.shape[-1]), dim=0),
+                    w_fro=torch.linalg.norm(w.to(torch.float32)),
+                    n_rows=float(x.numel() // x.shape[-1]),
+                    d=int(w.shape[0]), c=int(w.shape[1]),
+                    h_shape=tuple(y.shape))
+            if ctx.perturb is not None and name not in ctx.perturb:
+                ctx.perturb[name] = torch.zeros(
+                    y.shape, dtype=torch.float32, device=y.device,
+                    requires_grad=True)
+        if ctx.perturb is not None and name in ctx.perturb:
+            y = y + ctx.perturb[name].to(y.dtype)
+    return y
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -74,3 +112,16 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int, device,
     w = torch.randn((d_in, d_out), generator=generator, device=device,
                     dtype=torch.float32)
     return (w * scale).to(dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean NLL; logits (..., V) computed in f32 for stability."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,8 +1,12 @@
-"""Parameter init and the layer blocks the serving path needs.
+"""Parameter init, the sequence-mode forward and loss, and the layer blocks
+the serving path needs.
 
-Port of the parts of ``repro/models/transformer.py`` that decode uses:
-``init_params`` for dense attention decoders with GLU/GELU FFNs,
-``embed_tokens``, ``_qk_normalize`` and ``_ffn_apply``.
+Port of the parts of ``repro/models/transformer.py`` that decode and
+calibration use: ``init_params`` for dense attention decoders with GLU/GELU
+FFNs, ``embed_tokens``, ``_qk_normalize``, ``_ffn_apply``, and the
+unrolled ``forward`` / ``loss_fn`` with their ``LinearCtx`` taps (layer
+names ``L{i}``, so tap names equal the reference's: ``L3.attn.wq``,
+``L3.mlp.wi``, ..., ``lm_head``).
 
 Param layout (the reference's, with the layers unrolled):
 
@@ -17,14 +21,16 @@ Weights come from a ``torch.Generator``; they differ from the reference's
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from repro_torch import resolve_device
 
+from . import attention as attnmod
 from . import ffn as ffnmod
-from .common import dense_init, norm_params, rms_norm
+from .common import (LinearCtx, apply_norm, apply_rope, cross_entropy,
+                     dense_init, linear, norm_params, rms_norm)
 from .config import ModelConfig
 
 
@@ -100,7 +106,64 @@ def embed_tokens(cfg: ModelConfig, params: dict,
     return params["embed"][tokens.to(torch.int64)]
 
 
-def _ffn_apply(cfg: ModelConfig, lp: dict, h2: torch.Tensor) -> torch.Tensor:
+def _ffn_apply(cfg: ModelConfig, lp: dict, h2: torch.Tensor,
+               ctx: LinearCtx | None = None,
+               name: str = "layer") -> torch.Tensor:
     if cfg.ffn_kind() == "gelu":
-        return ffnmod.gelu_ffn(lp["mlp"], h2)
-    return ffnmod.glu_ffn(lp["mlp"], h2, act=cfg.act)
+        return ffnmod.gelu_ffn(lp["mlp"], h2, ctx, f"{name}.mlp")
+    return ffnmod.glu_ffn(lp["mlp"], h2, act=cfg.act, ctx=ctx,
+                          name=f"{name}.mlp")
+
+
+def _attn_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              positions: torch.Tensor, ctx, name: str) -> torch.Tensor:
+    """Self-attention over a whole sequence x (B, S, d)."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    q = linear(p["wq"], x, ctx, f"{name}.wq").reshape(b, s, h, hd)
+    k = linear(p["wk"], x, ctx, f"{name}.wk").reshape(b, s, kv, hd)
+    v = linear(p["wv"], x, ctx, f"{name}.wv").reshape(b, s, kv, hd)
+    q, k = _qk_normalize(p, q, k)
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = attnmod.flash_attention(q, k, v, window=cfg.window)
+    return linear(p["wo"], out.reshape(b, s, h * hd), ctx, f"{name}.wo")
+
+
+def layer_seq(cfg: ModelConfig, lp: dict, h: torch.Tensor,
+              positions: torch.Tensor, ctx=None,
+              name: str = "layer") -> torch.Tensor:
+    """One attention layer in sequence mode (the reference's ``layer_seq``
+    for the ``attn`` mixer; no MoE, so no aux loss)."""
+    hn = apply_norm(cfg.norm, h, lp["ln1"])
+    mix = _attn_seq(cfg, lp["attn"], hn, positions, ctx, f"{name}.attn")
+    h = h + mix.to(h.dtype)
+    h2 = apply_norm(cfg.norm, h, lp["ln2"])
+    return h + _ffn_apply(cfg, lp, h2, ctx, name).to(h.dtype)
+
+
+def _default_positions(cfg: ModelConfig, b: int, s: int, device,
+                       offset: int = 0) -> torch.Tensor:
+    pos = offset + torch.arange(s, dtype=torch.int32, device=device)[None, :]
+    return pos.expand(b, s)
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            ctx: Optional[LinearCtx] = None) -> torch.Tensor:
+    """Sequence-mode forward, layers unrolled -> logits (B, S, V)."""
+    h = embed_tokens(cfg, params, tokens)
+    b, s, _ = h.shape
+    positions = _default_positions(cfg, b, s, h.device)
+    for i, lp in enumerate(params["layers"]):
+        h = layer_seq(cfg, lp, h, positions, ctx, f"L{i}")
+    h = apply_norm(cfg.norm, h, params["final_norm"])
+    return linear(params["lm_head"], h, ctx, "lm_head")
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            ctx: Optional[LinearCtx] = None) -> torch.Tensor:
+    """Mean next-token NLL.  batch: tokens (B, S+1) [, mask (B, S)]."""
+    tokens = batch["tokens"]
+    logits = forward(cfg, params, tokens[:, :-1], ctx=ctx)
+    return cross_entropy(logits, tokens[:, 1:], batch.get("mask"))

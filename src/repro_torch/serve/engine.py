@@ -9,7 +9,8 @@ mid-flight.
 
 The decode step takes fixed-shape (tokens, pos, active, block_tables,
 ring_cap) tensors, so batch churn changes contents only.  On the card every
-quantized projection runs the fused RHT + dequant GEMM kernel and every
+quantized projection runs the fused RHT + dequant GEMM kernel (with
+``fused=False`` the RHT kernel, then the unfused GEMM kernel) and every
 decode attention read the paged flash-decode kernel; on the CPU their plain
 versions run.
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels.qmatmul import ops as qops
 from repro_torch.models import decode as decmod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import check_supported
@@ -79,13 +81,16 @@ class PagedServer:
     """Continuous-batching engine over the paged KV pool; greedy or
     temperature sampling.  Runs on ``device`` (CUDA unless ``"cpu"``);
     ``params`` must already live there (see ``bridge.py`` or
-    ``models.transformer.init_params``).  Construct once per (model,
-    PoolConfig); ``run`` drains a workload to completion."""
+    ``models.transformer.init_params``).  ``fused`` selects the RHT + GEMM
+    fusion for every step of this engine (``qops.fusion``; False runs the
+    unfused A/B pair).  Construct once per (model, PoolConfig); ``run``
+    drains a workload to completion."""
 
     def __init__(self, cfg: ModelConfig, params: dict,
-                 pool: PoolConfig | None = None, *, temperature: float = 0.0,
-                 seed: int = 0, device=None):
+                 pool: PoolConfig | None = None, *, fused: bool = True,
+                 temperature: float = 0.0, seed: int = 0, device=None):
         self.device = resolve_device(device)
+        self.fused = fused
         check_supported(cfg)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -272,10 +277,11 @@ class PagedServer:
         requests that finished during this call."""
         results: dict[int, RequestResult] = {}
         self._try_admit(self.now())
-        if self._prefilling:
-            self._prefill_one(self._t0, results)
-        if self._active:
-            self._decode_once(self._t0, results)
+        with qops.fusion(self.fused):
+            if self._prefilling:
+                self._prefill_one(self._t0, results)
+            if self._active:
+                self._decode_once(self._t0, results)
         return results
 
     def finalize_stats(self) -> dict:

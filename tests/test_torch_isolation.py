@@ -28,8 +28,9 @@ _PROBE = textwrap.dedent("""
     import repro_torch
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
+    assert "repro_torch.launch.serve" in names
     for name in names:
-        importlib.import_module(name)
+        importlib.import_module(name)       # the CLI's main() must not run
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   sys.argv[1])
     mod = importlib.util.module_from_spec(spec)
@@ -47,7 +48,8 @@ def test_port_imports_without_jax_or_reference():
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 15    # every module was imported
+    assert not res.stdout.startswith("calibrating")
+    assert int(res.stdout.split()[-1]) >= 25    # every module was imported
 
 
 def test_entry_points_refuse_host_without_card(monkeypatch):

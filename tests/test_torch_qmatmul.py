@@ -1,8 +1,11 @@
-"""Port parity, fused RHT + dequant GEMM: the plain PyTorch version (what the
-CUDA kernel is held against on the card) against the reference's Pallas
-kernel in interpret mode and its pure-jnp oracle, over bits {1,2,3,4,8} x
-d {power of 2, not a power of 2, a d_keep whose last packed byte holds pad
-codes} x n {1, batched}.
+"""Port parity, dequant GEMMs: the plain PyTorch versions (what the CUDA
+kernels are held against on the card) against the reference's Pallas
+kernels in interpret mode and their pure-jnp oracles.  The fused RHT + GEMM
+over bits {1,2,3,4,8} x d {power of 2, not a power of 2, a d_keep whose last
+packed byte holds pad codes} x n {1, batched}; the unfused GEMM on an
+already-rotated X over the reference kernel test's sweep
+(tests/test_kernels.py:16-20); the unfused A/B composition under
+``fusion(False)`` against the reference's under its own ``fusion(False)``.
 
 Tolerance: rtol 1e-4 in f32 (the reference kernel's own, tests/
 test_kernels.py:29); the products are f32 in every version, only the
@@ -14,7 +17,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro.kernels.qmatmul.qmatmul import rht_quantized_matmul_pallas  # noqa: E402
+from repro.kernels.qmatmul import ops as jqops  # noqa: E402
+from repro.kernels.qmatmul.qmatmul import (  # noqa: E402
+    quantized_matmul_pallas, rht_quantized_matmul_pallas)
 from repro.kernels.qmatmul.ref import rht_quantized_matmul_ref  # noqa: E402
 from repro_torch.core import packing  # noqa: E402
 from repro_torch.kernels.qmatmul import ops as qops  # noqa: E402
@@ -112,3 +117,47 @@ def test_split_plan_covers_every_packed_row(n, d, c, bits):
     tiles = -(-c // qops.COLS_PER_CTA) * -(-n // bn) * splits
     if prow >= 132 * qops.MIN_ROWS_PER_SPLIT // 4:
         assert tiles >= 132
+
+
+@pytest.mark.parametrize("bits,n,d,c", [
+    (1, 5, 256, 33), (2, 33, 700, 130), (3, 9, 300, 50),
+    (4, 64, 512, 96), (4, 1, 4096, 16), (8, 17, 1024, 64),
+])
+def test_quantized_matmul_matches_pallas_interpret(bits, n, d, c):
+    x, packed, rescale, _, _ = _inputs(bits, d, n, c=c, seed=2)
+    want = quantized_matmul_pallas(jnp.asarray(x), jnp.asarray(packed),
+                                   jnp.asarray(rescale), bits=bits, d=d,
+                                   interpret=True)
+    before = qops.unfused_launches
+    got = qops.quantized_matmul(torch.from_numpy(x), torch.from_numpy(packed),
+                                torch.from_numpy(rescale), bits=bits, d=d)
+    assert qops.unfused_launches == before        # CPU: the plain version
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("d", DIMS)
+@pytest.mark.parametrize("bits", BITS + [5, 6, 7])
+def test_unfused_composition_matches_reference(bits, d):
+    args = _inputs(bits, d, 3, seed=3)
+    with jqops.fusion(False):
+        want = jqops.rht_quantized_matmul(*_jax_args(*args), bits=bits, d=d)
+    x = torch.from_numpy(args[0]).reshape(1, 3, d)
+    with qops.fusion(False):
+        got = qops.rht_quantized_matmul(x, *_torch_args(*args)[1:], bits=bits,
+                                        d=d)
+    assert got.shape == (1, 3, 40)
+    _close(got.reshape(3, 40).numpy(), want)
+
+
+def test_fusion_scope_nests_and_unwinds():
+    assert qops.fused_enabled()
+    with qops.fusion(False):
+        assert not qops.fused_enabled()
+        with qops.fusion(True):
+            assert qops.fused_enabled()
+        assert not qops.fused_enabled()
+        with pytest.raises(KeyError):
+            with qops.fusion(True):
+                raise KeyError("unwinds on error")
+        assert not qops.fused_enabled()
+    assert qops.fused_enabled()
