@@ -13,7 +13,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      the tolerance stated beside each check, then timed (kernel, plain
      version, one PyTorch library call computing the same function where
      there is one): the fused RHT + dequant GEMM, the unfused GEMM, the RHT,
-     the RaBitQ code search and paged flash-decode;
+     the RaBitQ code search, paged flash-decode, the grouped (MoE expert)
+     GEMM fused and unfused at Mixtral's decode and prefill shapes, and the
+     flash-attention forward at Mixtral's and llama2's shapes;
   4. quantize: llama2-7b at its published width (32 layers, d_model 4096,
      32 heads, d_ff 11008, vocab 32000) in fp32, random weights from a
      seeded generator on the card; calibrated on the paper's zero-shot
@@ -25,7 +27,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      three ways -- fused with the kernels, fused with the plain versions
      forced, and unfused (the RHT kernel, then the unfused GEMM kernel);
      greedy tokens must match;
-  6. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
+  6. Mixtral: mixtral-8x7b at its published width (d_model 4096, 32 heads
+     over 8 KV heads, 8 experts top-2 of width 14336, capacity factor 1.25,
+     window 4096, vocab 32000) with the depth cut to 4 of its 32 layers
+     (the reference pipeline calibrates the whole fp32 model, 186 GB at 32
+     layers, and one 80 GB card holds 24.3 GB at 4); calibrated, allocated
+     (4.0 bits) and quantized with grouped experts, then quantized again
+     with the plain code search and compared; the fp weights dropped and
+     the 8 requests plus one of 4160 prompt tokens (its window
+     ring wraps in prefill and in decode) served fused, with the plain
+     versions and unfused; greedy tokens must match;
+  7. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
+     path's runs counted from zero), the nvidia-smi line, and as the last
      line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the reference package.  Exits non-zero with no
@@ -35,6 +48,7 @@ output go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -52,17 +66,22 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import calibrate as cal  # noqa: E402
 from repro_torch.core import hadamard, packing, rabitq  # noqa: E402
 from repro_torch.core import pipeline as pipe  # noqa: E402
-from repro_torch.core.qlinear import draw_signs  # noqa: E402
+from repro_torch.core.qlinear import QuantizedGrouped, draw_signs  # noqa: E402
 from repro_torch.core.tricks import centralize  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.hadamard import ops as hops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.qmatmul import ops as qops  # noqa: E402
 from repro_torch.kernels.qmatmul.ref import (  # noqa: E402
+    grouped_quantized_matmul_ref, grouped_rht_quantized_matmul_ref,
     quantized_matmul_ref, rht_quantized_matmul_ref)
 from repro_torch.kernels.rabitq_quant import ops as rq_ops  # noqa: E402
+from repro_torch.models import attention as attnmod  # noqa: E402
 from repro_torch.models import decode as decmod  # noqa: E402
+from repro_torch.models import moe as moemod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve import PagedServer, PoolConfig, Request  # noqa: E402
 
@@ -75,6 +94,10 @@ F32_FLOPS = 67e12
 # |kernel - plain| <= RTOL * max|plain|.  bf16 arenas are read as the same
 # bf16 values by both versions and computed in f32, so the same bound holds.
 RTOL = 1e-4
+# bf16 flash attention: both versions compute in f32 from the same bf16
+# inputs and round the output to bf16 once; the reference kernel test's
+# bf16 tolerance (tests/test_flash_kernel.py).
+BF16_RTOL = 2e-2
 # The RHT: butterfly vs Kronecker matmuls, the reference kernel test's atol
 # (tests/test_kernels.py:56) on unit-normal rows.
 RHT_ATOL = 2e-4
@@ -95,12 +118,33 @@ AVG_BITS = 4.0
 OUT_DIR = ROOT / "chiprun_out"
 
 GEMM_SHAPES = [(4083, 4096), (4083, 22016), (10974, 4096), (4096, 4096)]
+# the code search also at Mixtral's weights: an expert's wi and wo (no
+# outlier rows are split off the grouped form) and wk/wv over 8 KV heads
+SEARCH_SHAPES = GEMM_SHAPES + [(4096, 28672), (14336, 4096), (4083, 1024)]
 GEMM_BITS = list(range(1, 9))
 GEMM_NS = [1, 8, 64]
 RHT_NS = [1, 8, 64]
 RHT_DIMS = [2048, 4096, 8192, 16384, 4083, 10974]
 TIME_SHAPES = [(1, 4083, 4096), (8, 4083, 4096), (8, 4083, 22016),
                (8, 10974, 4096), (64, 4083, 4096)]
+# Mixtral's expert GEMMs (E, C, d, c): wi and wo at decode (8 slots, top-2:
+# C = 2) and at a 64-token prefill chunk (C = 20)
+GROUPED_SHAPES = [(8, 2, 4096, 28672), (8, 2, 14336, 4096),
+                  (8, 20, 4096, 28672), (8, 20, 14336, 4096)]
+FLASH_CASES = [  # name, b, s, h, kv, hd, causal, window, dtype
+    ("mixtral S=4608 G=4 window 4096", 1, 4608, 32, 8, 128, True, 4096,
+     torch.float32),
+    ("llama2 S=2048 causal", 1, 2048, 32, 32, 128, True, None,
+     torch.float32),
+    ("non-causal ragged S=1000 G=4 hd=64", 2, 1000, 8, 2, 64, False, None,
+     torch.float32),
+    ("bf16 S=2048 G=4 window 1024", 1, 2048, 32, 8, 128, True, 1024,
+     torch.bfloat16),
+]
+# Mixtral: depth cut to MOE_LAYERS of 32 (widths as published); the extra
+# request is longer than the 4096-token window, so its ring wraps
+MOE_LAYERS = 4
+MOE_LONG_PROMPT = 4160
 
 
 class SmokeFailure(RuntimeError):
@@ -394,7 +438,7 @@ def check_code_search(gen, dev) -> dict:
            "max_rescale_abs_err": 0.0, "max_rescale_rel_err": 0.0,
            "scalar_vs_tensor_division_differ":
                int((scalar_div != tensor_div).sum())}
-    for d, c in GEMM_SHAPES:
+    for d, c in SEARCH_SHAPES:
         # columns of different scale, as rotated weights have
         w = (torch.randn((d, c), generator=gen, device=dev)
              * (torch.rand((1, c), generator=gen, device=dev) + 0.1))
@@ -409,8 +453,8 @@ def check_code_search(gen, dev) -> dict:
                       "max_rescale_rel_err"):
                 out[k] = max(out[k], res[k])
         del w
-    log(f"rabitq_quant: {len(GEMM_SHAPES) * len(GEMM_BITS)} cases ((d, c) "
-        f"{GEMM_SHAPES} x bits 1-8); codes identical where the step agrees; "
+    log(f"rabitq_quant: {len(SEARCH_SHAPES) * len(GEMM_BITS)} cases ((d, c) "
+        f"{SEARCH_SHAPES} x bits 1-8); codes identical where the step agrees; "
         f"{out['differing_columns']} of {out['columns']} columns chose "
         f"another step, all near-ties (max objective gap "
         f"{out['max_objective_gap']:.2e} <= {OBJ_TIE}); rescale max rel err "
@@ -440,7 +484,10 @@ def time_code_search(gen, dev, d, c, bits=4) -> dict:
 
 
 def attn_inputs(gen, dev, b, w, h, kv, hd, bs, mb, ctx_max, dtype, window,
-                ring_blocks=None, full=False):
+                ring_blocks=None, full=False, ctx_lo=None):
+    """Paged-attention inputs: every slot's ring of ``ring_blocks`` blocks
+    (default the whole table) full; positions drawn from [w, ctx_max], all
+    ctx_max (``full``), or spread evenly over [ctx_lo, ctx_max]."""
     ring_blocks = ring_blocks or mb
     n_phys = 1 + b * ring_blocks
     k = torch.randn((n_phys, bs, kv, hd), generator=gen, device=dev).to(dtype)
@@ -452,29 +499,37 @@ def attn_inputs(gen, dev, b, w, h, kv, hd, bs, mb, ctx_max, dtype, window,
     ring = torch.full((b,), ring_blocks * bs, dtype=torch.int32, device=dev)
     if full:
         pos = torch.full((b,), ctx_max, dtype=torch.int32, device=dev)
+    elif ctx_lo is not None:
+        pos = torch.linspace(ctx_lo, ctx_max, b, device=dev).round().to(
+            torch.int32)
     else:
         pos = torch.randint(w, ctx_max + 1, (b,), generator=gen, device=dev,
                             dtype=torch.int32)
     return q, k, v, bt, pos, ring
 
 
-ATTN_CASES = [  # name, w, h, kv, dtype, window, ring_blocks, ctx_max
-    ("f32 W=1", 1, 32, 32, torch.float32, None, None, 1024),
-    ("bf16 W=1", 1, 32, 32, torch.bfloat16, None, None, 1024),
-    ("f32 W=3", 3, 32, 32, torch.float32, None, None, 1024),
-    ("bf16 W=3 G=4", 3, 32, 8, torch.bfloat16, None, None, 1024),
+ATTN_CASES = [  # name, w, h, kv, dtype, window, ring_blocks, ctx_max, ctx_lo
+    ("f32 W=1", 1, 32, 32, torch.float32, None, None, 1024, None),
+    ("bf16 W=1", 1, 32, 32, torch.bfloat16, None, None, 1024, None),
+    ("f32 W=3", 3, 32, 32, torch.float32, None, None, 1024, None),
+    ("bf16 W=3 G=4", 3, 32, 8, torch.bfloat16, None, None, 1024, None),
     ("f32 window 200, ring of 16 blocks wrapped", 1, 32, 32, torch.float32,
-     200, 16, 1024),
-    ("f32 G=4", 1, 32, 8, torch.float32, None, None, 1024),
+     200, 16, 1024, None),
+    ("f32 G=4", 1, 32, 8, torch.float32, None, None, 1024, None),
+    # Mixtral's decode: G = 4, window 4096 over a 256-block ring; positions
+    # 3900-4192 (the long request's context), the last three past the ring
+    ("mixtral f32 G=4 window 4096, ring of 256 blocks", 1, 32, 8,
+     torch.float32, 4096, 256, 4192, 3900),
 ]
 
 
 def check_attention(gen, dev) -> float:
     worst = 0.0
-    b, hd, bs, mb = 8, 128, 16, 64
-    for name, w, h, kv, dtype, window, ring_blocks, ctx in ATTN_CASES:
+    b, hd, bs = 8, 128, 16
+    for name, w, h, kv, dtype, window, ring_blocks, ctx, ctx_lo in ATTN_CASES:
+        mb = max(64, ring_blocks or 0)           # the block table's width
         args = attn_inputs(gen, dev, b, w, h, kv, hd, bs, mb, ctx, dtype,
-                           window, ring_blocks)
+                           window, ring_blocks, ctx_lo=ctx_lo)
         got = pops.paged_attention_cuda(*args, window=window)
         want = paged_attention_ref(*args, window=window)
         torch.cuda.synchronize()
@@ -512,14 +567,207 @@ def time_attention(gen, dev) -> dict:
             "bound_ms": b_ms, "bound_by": by}
 
 
+# ------------------------------------------------------ grouped (MoE) GEMM
+
+
+def grouped_inputs(gen, dev, e, cap, d, c, bits):
+    """Random codes, rescales and signs for E experts; each expert's last
+    capacity row is zero, as dispatch leaves an unfilled row."""
+    rows = packing.packed_rows(d, bits)
+    hi = 256 if packing.codes_per_byte(bits) > 1 or bits == 8 else 1 << bits
+    packed = torch.randint(0, hi, (e, rows, c), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    rescale = (torch.rand((e, c), generator=gen, device=dev) * 0.09
+               + 0.01).to(torch.float16)
+    s1, s2 = draw_signs(d, gen)
+    x = torch.randn((e, cap, d), generator=gen, device=dev)
+    x[:, -1] = 0.0
+    return x, packed, rescale, s1, s2
+
+
+def grouped_bound(e, cap, d, c, bits, fused=True):
+    dh = hadamard.largest_pow2_leq(d)
+    passes = (1 if dh == d else 2) if fused else 0
+    nbytes = (e * cap * d * 4 + e * packing.packed_rows(d, bits) * c
+              + e * c * 2 + passes * dh * 4 + e * cap * c * 4)
+    ops = 2 * e * cap * d * c + passes * e * cap * dh * (dh.bit_length() - 1)
+    return bound(nbytes, ops)
+
+
+def check_grouped(gen, dev) -> tuple[float, float]:
+    """The grouped GEMM kernels against their plain versions (the
+    reference's vmap over experts written out), bits 1-8 at Mixtral's
+    shapes: the fused entry, the unfused entry on an already-rotated x, and
+    the unfused dispatch (RHT kernel over the E*C rows, then the grouped
+    GEMM) against the fused plain version.  A zero row must come out 0."""
+    worst = {"fused": 0.0, "unfused": 0.0}
+    for e, cap, d, c in GROUPED_SHAPES:
+        for bits in GEMM_BITS:
+            x, packed, rescale, s1, s2 = grouped_inputs(gen, dev, e, cap, d,
+                                                        c, bits)
+            want = grouped_rht_quantized_matmul_ref(x, packed, rescale, s1,
+                                                    s2, bits=bits, d=d)
+            with qops.fusion(False):
+                dispatched = qops.grouped_rht_quantized_matmul(
+                    x, packed, rescale, s1, s2, bits=bits, d=d)
+            cases = {
+                "fused": (qops.grouped_rht_quantized_matmul_cuda(
+                    x, packed, rescale, s1, s2, bits=bits, d=d), want),
+                "unfused": (qops.grouped_quantized_matmul_cuda(
+                    x, packed, rescale, bits=bits, d=d),
+                    grouped_quantized_matmul_ref(x, packed, rescale,
+                                                 bits=bits, d=d)),
+                "unfused dispatch": (dispatched, want)}
+            torch.cuda.synchronize()
+            for name, (got, ref) in cases.items():
+                err, scale = err_and_scale(got, ref)
+                check(bool(torch.isfinite(got).all()) and err <= RTOL * scale
+                      and not got[:, -1].any(),
+                      f"grouped {name} E={e} C={cap} d={d} c={c} bits={bits}:"
+                      f" max|err| {err} > {RTOL} * {scale} or a zero row "
+                      f"gave a non-zero output")
+                key = "fused" if name == "fused" else "unfused"
+                worst[key] = max(worst[key], err)
+            del x, packed, want, cases, dispatched
+    n_cases = len(GROUPED_SHAPES) * len(GEMM_BITS)
+    log(f"grouped rht_qmatmul and qmatmul: {n_cases} cases each (bits 1-8 x "
+        f"(E, C, d, c) {GROUPED_SHAPES}) plus the unfused dispatch, within "
+        f"{RTOL} * max|plain|, zero rows exact; max|err| fused "
+        f"{worst['fused']:.3e}, unfused {worst['unfused']:.3e}")
+    return worst["fused"], worst["unfused"]
+
+
+def time_grouped(gen, dev, e, cap, d, c, bits=4, fused=True) -> dict:
+    """Kernel, plain and library times; the library call is torch.bmm with
+    the dense f32 (E, d, c) equivalent weights (timing only).  The codes of
+    one call exceed the 50 MB L2, so every replay reads them from HBM."""
+    x, packed, rescale, s1, s2 = grouped_inputs(gen, dev, e, cap, d, c, bits)
+    if fused:
+        def kernel():
+            return qops.grouped_rht_quantized_matmul_cuda(
+                x, packed, rescale, s1, s2, bits=bits, d=d)
+
+        def plain():
+            return grouped_rht_quantized_matmul_ref(x, packed, rescale, s1,
+                                                    s2, bits=bits, d=d)
+    else:
+        def kernel():
+            return qops.grouped_quantized_matmul_cuda(x, packed, rescale,
+                                                      bits=bits, d=d)
+
+        def plain():
+            return grouped_quantized_matmul_ref(x, packed, rescale, bits=bits,
+                                                d=d)
+    k_ms = graph_ms(kernel)
+    call_ms = time_ms(kernel)
+    p_ms = time_ms(plain, iters=3, warmup=1)
+    dense = torch.empty((e, d, c), dtype=torch.float32, device=dev)
+    c_b = ((1 << bits) - 1) / 2.0
+    for i in range(e):
+        w = ((packing.unpack_codes(packed[i], bits, d).to(torch.float32) - c_b)
+             * rescale[i].float()[None, :])
+        dense[i] = (hadamard.practical_rht_inverse(w, s1, s2, axis=0)
+                    if fused else w)
+        del w
+    l_ms = graph_ms(lambda: torch.bmm(x, dense), iters=10)
+    b_ms, by = grouped_bound(e, cap, d, c, bits, fused)
+    del dense, packed, x
+    return {"e": e, "cap": cap, "d": d, "c": c, "bits": bits, "ms": k_ms,
+            "call_ms": call_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": b_ms, "bound_by": by}
+
+
+# --------------------------------------------------------- flash attention
+
+
+def flash_inputs(gen, dev, b, s, h, kv, hd, dtype):
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+
+
+def flash_pairs(s, causal, window) -> int:
+    """Unmasked (query, key) pairs of one head: the work this call needs."""
+    q = np.arange(s)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    hi = q + 1 if causal else np.full_like(q, s)
+    return int(np.sum(hi - lo))
+
+
+def check_flash(gen, dev) -> dict:
+    """The flash-attention kernel against its plain version (the port's
+    sequence attention): |kernel - plain| <= tol * max|plain|, tol RTOL in
+    f32 and BF16_RTOL in bf16."""
+    worst = {"f32": 0.0, "bf16": 0.0}
+    for name, b, s, h, kv, hd, causal, window, dtype in FLASH_CASES:
+        q, k, v = flash_inputs(gen, dev, b, s, h, kv, hd, dtype)
+        got = fops.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err, scale = err_and_scale(got.float(), want.float())
+        bf16 = dtype == torch.bfloat16
+        tol = BF16_RTOL if bf16 else RTOL
+        check(got.dtype == dtype and bool(torch.isfinite(got).all())
+              and err <= tol * scale,
+              f"flash_attention {name}: max|err| {err} > {tol} * {scale}")
+        key = "bf16" if bf16 else "f32"
+        worst[key] = max(worst[key], err)
+        del q, k, v, got, want
+    log(f"flash_attention: {len(FLASH_CASES)} cases within {RTOL} (f32) / "
+        f"{BF16_RTOL} (bf16) * max|plain|; max|err| f32 {worst['f32']:.3e}, "
+        f"bf16 {worst['bf16']:.3e}")
+    return worst
+
+
+def sdpa(q, k, v, causal, window):
+    """One PyTorch call computing the same attention (timing only)."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    s = q.shape[1]
+    mask = None
+    if window is not None:
+        pos = torch.arange(s, device=q.device)
+        mask = (pos[:, None] - pos[None, :]) < window
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+    return F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=kt.shape[1] != qt.shape[1])
+
+
+def time_flash(gen, dev, name, b, s, h, kv, hd, causal, window, dtype) -> dict:
+    q, k, v = flash_inputs(gen, dev, b, s, h, kv, hd, dtype)
+    k_ms = graph_ms(lambda: fops.flash_attention_cuda(
+        q, k, v, causal=causal, window=window), iters=5)
+    p_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal,
+                                         window=window), iters=2, warmup=1)
+    l_ms = graph_ms(lambda: sdpa(q, k, v, causal, window), iters=5)
+    pairs = flash_pairs(s, causal, window)
+    b_ms, by = bound((q.numel() * 2 + k.numel() * 2) * q.element_size(),
+                     4 * hd * pairs * h * b)
+    del q, k, v
+    return {"case": name, "b": b, "s": s, "h": h, "kv": kv, "hd": hd,
+            "causal": causal, "window": window, "dtype": str(dtype),
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": b_ms, "bound_by": by, "pairs_per_head": pairs}
+
+
 # ---------------------------------------------------------------- quantize
 
 
 def quantized_linears(params) -> dict:
-    """name -> QuantizedLinear, under the pipeline's names."""
+    """name -> QuantizedLinear (or QuantizedGrouped), under the pipeline's
+    names."""
     return {f"L{i}.{g}.{k}": lp[g][k] for i, lp in enumerate(params["layers"])
-            for g in ("attn", "mlp") for k in lp[g]
+            for g in ("attn", "mlp", "moe") if g in lp for k in lp[g]
             if hasattr(lp[g][k], "packed")}
+
+
+QUANT_TENSORS = ("packed", "rescale", "signs1", "signs2", "mean_col", "w_out",
+                 "out_idx", "keep_idx")
+
+
+def quant_bytes(q, names=QUANT_TENSORS) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (getattr(q, n, None) for n in names) if t is not None)
 
 
 def rotated_weight(fp_params, name, q) -> torch.Tensor:
@@ -532,33 +780,58 @@ def rotated_weight(fp_params, name, q) -> torch.Tensor:
     return hadamard.practical_rht(w, q.signs1, q.signs2, axis=0)
 
 
+def code_searches(fp_params, name, q) -> list:
+    """(packed, rescale, d, rotated weight thunk) of each code search that
+    made ``q``: one for a QuantizedLinear, one per expert of a
+    QuantizedGrouped (each expert rotated with the shared signs, nothing
+    centralized or split off)."""
+    if isinstance(q, QuantizedGrouped):
+        i, group, key = name.split(".")
+        w = fp_params["layers"][int(i[1:])][group][key]
+        return [(q.packed[e], q.rescale[e], q.d,
+                 lambda e=e: hadamard.practical_rht(w[e], q.signs1, q.signs2,
+                                                    axis=0))
+                for e in range(q.packed.shape[0])]
+    return [(q.packed, q.rescale, q.d_keep,
+             lambda: rotated_weight(fp_params, name, q))]
+
+
 def compare_quantizations(fp_params, kernel_q, plain_q) -> dict:
-    """Per layer, the kernel run's codes against the plain run's: columns
-    that differ must be near-ties of the plain objective on the same w."""
+    """Per code search, the kernel run's codes against the plain run's:
+    columns that differ must be near-ties of the plain objective on the same
+    w."""
     n_diff, n_cols, gap, rescale_ulps = 0, 0, 0.0, 0
     for name, kq in kernel_q.items():
-        pq = plain_q[name]
-        kc = packing.unpack_codes(kq.packed, kq.bits, kq.d_keep)
-        pc = packing.unpack_codes(pq.packed, pq.bits, pq.d_keep)
-        differ = (kc != pc).any(dim=0)
-        n_cols += kq.c
-        rescale_ulps += int((kq.rescale != pq.rescale)[~differ].sum())
-        if not differ.any():
-            continue
-        n_diff += int(differ.sum())
-        w = rotated_weight(fp_params, name, kq)[:, differ].double()
-        c_b = ((1 << kq.bits) - 1) / 2.0
-
-        def objective(codes):
-            v = codes[:, differ].double() - c_b
-            wv, vv = (w * v).sum(0), (v * v).sum(0)
-            return -(wv * wv) / vv.clamp(min=1e-30)
-        ek, ep = objective(kc), objective(pc)
-        gap = max(gap, float(((ek - ep).abs() / ep.abs()).max()))
-        del w
+        for kern, plain in zip(code_searches(fp_params, name, kq),
+                               code_searches(fp_params, name, plain_q[name])):
+            k_packed, k_rescale, d, rotated = kern
+            p_packed, p_rescale = plain[:2]
+            kc = packing.unpack_codes(k_packed, kq.bits, d)
+            pc = packing.unpack_codes(p_packed, kq.bits, d)
+            differ = (kc != pc).any(dim=0)
+            n_cols += kq.c
+            rescale_ulps += int((k_rescale != p_rescale)[~differ].sum())
+            if not differ.any():
+                continue
+            n_diff += int(differ.sum())
+            gap = max(gap, near_tie_gap(rotated()[:, differ].double(),
+                                        kc[:, differ], pc[:, differ], kq.bits))
     return {"differing_columns": n_diff, "columns": n_cols,
             "max_objective_gap": gap,
             "rescale_f16_differ_same_columns": rescale_ulps}
+
+
+def near_tie_gap(w, kc, pc, bits) -> float:
+    """Largest relative gap between the kernel's and the plain version's
+    objective -<w,v>^2/<v,v> over the columns of ``w`` (f64)."""
+    c_b = ((1 << bits) - 1) / 2.0
+
+    def objective(codes):
+        v = codes.double() - c_b
+        wv, vv = (w * v).sum(0), (v * v).sum(0)
+        return -(wv * wv) / vv.clamp(min=1e-30)
+    ek, ep = objective(kc), objective(pc)
+    return float(((ek - ep).abs() / ep.abs()).max())
 
 
 def quantize_phase(dev) -> tuple[dict, dict]:
@@ -581,7 +854,7 @@ def quantize_phase(dev) -> tuple[dict, dict]:
         f"{init_s:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    rq_ops.launches = 0
+    zero_counts()
     t0 = time.monotonic()
     toks = torch.from_numpy(cal.zero_shot_tokens(cfg.vocab, 256)).to(dev)
     stats = cal.calibrate(lambda p, b, ctx: tf.loss_fn(cfg, p, b, ctx=ctx),
@@ -592,15 +865,13 @@ def quantize_phase(dev) -> tuple[dict, dict]:
         cfg, params, stats, AVG_BITS,
         generator=torch.Generator(device=dev).manual_seed(SEED + 1),
         device=dev)
-    launches = rq_ops.launches
+    launches = counts()["rabitq_quant"]
     peak = torch.cuda.max_memory_allocated()
     qls = quantized_linears(qparams)
     hist = collections.Counter(rep.per_layer_bits.values())
     packed_gb = sum(q.packed.numel() for q in qls.values()) / 1e9
-    side_gb = sum(t.numel() * t.element_size() for q in qls.values()
-                  for t in (q.rescale, q.signs1, q.signs2, q.mean_col,
-                            q.w_out, q.out_idx, q.keep_idx)
-                  if t is not None) / 1e9
+    side_gb = sum(quant_bytes(q, QUANT_TENSORS[1:])
+                  for q in qls.values()) / 1e9
     out = {"calibrate_s": calibrate_s, "allocate_s": rep.allocate_s,
            "quantize_s": rep.quantize_s,
            "pipeline_s": calibrate_s + rep.wall_time_s,
@@ -625,7 +896,17 @@ def quantize_phase(dev) -> tuple[dict, dict]:
     check(all(np.isfinite(st.alpha) and st.alpha > 0
               for st in stats.values()), "calibration gave a bad alpha")
 
-    # the same layers with the code search's plain version, same signs
+    out["plain_comparison"] = quantize_plain_and_compare(
+        cfg, params, stats, rep, qls, dev)
+    del params, stats
+    torch.cuda.empty_cache()
+    return out, qparams
+
+
+def quantize_plain_and_compare(cfg, params, stats, rep, qls, dev) -> dict:
+    """Quantize the same weights again with the code search's plain version
+    and the kernel run's signs; the allocation must not move, and every
+    column whose codes differ must be a near-tie."""
     signs = {name: (q.signs1, q.signs2) for name, q in qls.items()}
     t0 = time.monotonic()
     rq_ops.set_forced_path("ref")
@@ -635,39 +916,56 @@ def quantize_phase(dev) -> tuple[dict, dict]:
     finally:
         rq_ops.set_forced_path(None)
     check(plain_rep.per_layer_bits == rep.per_layer_bits,
-          "the allocation moved with the code search")
+          f"{cfg.name}: the allocation moved with the code search")
     cmp = compare_quantizations(params, qls, quantized_linears(plain_params))
     cmp["plain_quantize_s"] = plain_rep.quantize_s
-    log(f"quantize with the plain code search: quantize_s "
+    log(f"{cfg.name} quantize with the plain code search: quantize_s "
         f"{plain_rep.quantize_s:.2f}; {cmp['differing_columns']} of "
         f"{cmp['columns']} columns differ from the kernel run, max relative "
         f"objective gap {cmp['max_objective_gap']:.2e} (<= {OBJ_TIE}); "
         f"{cmp['rescale_f16_differ_same_columns']} f16 rescales differ in "
         f"agreeing columns ({time.monotonic() - t0:.1f} s)")
     check(cmp["max_objective_gap"] <= OBJ_TIE,
-          "a column differs between kernel and plain quantization without "
-          "a near-tie")
-    out["plain_comparison"] = cmp
-    del plain_params, params, stats, signs
-    torch.cuda.empty_cache()
-    return out, qparams
+          f"{cfg.name}: a column differs between kernel and plain "
+          f"quantization without a near-tie")
+    return cmp
 
 
 # ------------------------------------------------------------------ serve
 
 
+def zero_counts() -> None:
+    """Every kernel wrapper's launch counter to 0."""
+    qops.launches = qops.unfused_launches = 0
+    qops.grouped_launches = qops.grouped_unfused_launches = 0
+    hops.launches = pops.launches = fops.launches = rq_ops.launches = 0
+
+
+def counts() -> dict:
+    """Every kernel wrapper's launch counter, by kernel."""
+    return {"rht_qmatmul": qops.launches, "qmatmul": qops.unfused_launches,
+            "grouped_rht_qmatmul": qops.grouped_launches,
+            "grouped_qmatmul": qops.grouped_unfused_launches,
+            "rht": hops.launches, "paged_attention": pops.launches,
+            "flash_attention": fops.launches, "rabitq_quant": rq_ops.launches}
+
+
 class GapRecordingServer(PagedServer):
-    """Records each greedy step's top-2 logit gap and logit scale, and the
-    tokens held in the KV arena at each decode step."""
+    """Records each greedy step's top-2 logit gap and logit scale, the
+    tokens held in the KV arena at each decode step (a windowed request
+    holds at most its ring), and how far a request ran past its ring."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
         self.gaps: dict = {}
         self.step_tokens: list = []
+        self.past_ring = 0
 
     def _decode_once(self, t0, results):
-        self.step_tokens.append(sum(len(st.served) + len(st.out)
-                                    for st in self._active.values()))
+        lens = [(len(st.served) + len(st.out), st.ring_cap)
+                for st in self._active.values()]
+        self.step_tokens.append(sum(min(n, cap) for n, cap in lens))
+        self.past_ring = max([self.past_ring] + [n - cap for n, cap in lens])
         return super()._decode_once(t0, results)
 
     def _sample(self, logits, rid, step):
@@ -683,38 +981,39 @@ GEN_LEN = 32
 
 def decode_step_bound_ms(cfg, params, tokens_in_arena: float) -> float:
     """Least time of one decode step: every weight byte (packed codes, side
-    info, the f32 lm_head, the embedding rows read) and every live K/V byte
-    once, over the HBM rate."""
+    info, every expert's codes, the MoE routers, the f32 lm_head, the
+    embedding rows read) and every live K/V byte once, over the HBM rate."""
     nbytes = params["lm_head"].numel() * 4 + 8 * cfg.d_model * 4
-    for q in quantized_linears(params).values():
-        nbytes += sum(t.numel() * t.element_size() for t in
-                      (q.packed, q.rescale, q.signs1, q.signs2, q.mean_col,
-                       q.w_out, q.out_idx, q.keep_idx) if t is not None)
+    nbytes += sum(quant_bytes(q) for q in quantized_linears(params).values())
+    nbytes += sum(lp["moe"]["router"].numel() * 4
+                  for lp in params["layers"] if "moe" in lp)
     kv_per_token = cfg.n_layers * 2 * cfg.n_kv * cfg.hd * 4
     return (nbytes + tokens_in_arena * kv_per_token) / HBM_BYTES_PER_S * 1e3
 
 
-def requests(cfg) -> list:
+def requests(cfg, prompt_lens=PROMPT_LENS) -> list:
     rng = np.random.default_rng(SEED)
     return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
-                    max_new=GEN_LEN) for i, n in enumerate(PROMPT_LENS)]
+                    max_new=GEN_LEN) for i, n in enumerate(prompt_lens)]
 
 
-def serve(cfg, params, dev, pool, fused=True) -> tuple:
+def serve(cfg, params, dev, pool, fused=True,
+          prompt_lens=PROMPT_LENS) -> tuple:
     engine = GapRecordingServer(cfg, params, pool, fused=fused, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    results = engine.run(requests(cfg))
+    results = engine.run(requests(cfg, prompt_lens))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     return engine, results, wall
 
 
-def serve_summary(engine, results, wall, cfg, params) -> dict:
+def serve_summary(engine, results, wall, cfg, params,
+                  prompt_lens=PROMPT_LENS) -> dict:
     st = engine.stats
     n_tok = sum(len(r.tokens) for r in results.values())
-    check(len(results) == len(PROMPT_LENS)
+    check(len(results) == len(prompt_lens)
           and all(len(r.tokens) == GEN_LEN for r in results.values())
           and all(0 <= int(t) < cfg.vocab for r in results.values()
                   for t in r.tokens), "serve produced malformed output")
@@ -746,12 +1045,35 @@ def divergences(base, other_results, other_engine) -> list:
     return out
 
 
-def profile_decode(cfg, params, dev, pool, steps: int = 8) -> dict:
+@contextlib.contextmanager
+def labelled(patches):
+    """Wrap module functions in ``torch.profiler.record_function`` ranges
+    for one profile: [(module, attribute, label)]."""
+    from torch.profiler import record_function
+    saved = []
+    for mod, attr, label in patches:
+        fn = getattr(mod, attr)
+
+        def wrapped(*a, _fn=fn, _label=label, **kw):
+            with record_function(_label):
+                return _fn(*a, **kw)
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, wrapped)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def profile_decode(cfg, params, dev, pool, steps: int = 8,
+                   labels=()) -> dict:
     """Where a decode step's time goes: 8 requests (prompt 128, 64 new
     tokens) are admitted and prefilled, then ``steps`` pure decode steps
     run under torch.profiler.  Device time is the sum of kernel times (one
     stream, so kernels do not overlap); the idle share is the rest of the
-    host-clock step time."""
+    host-clock step time.  ``labels`` (see ``labelled``) name ranges whose
+    device time is reported too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     engine = PagedServer(cfg, params, pool, device=dev)
@@ -762,23 +1084,39 @@ def profile_decode(cfg, params, dev, pool, steps: int = 8) -> dict:
     for _ in range(pool.max_slots * 128 // pool.prefill_chunk):
         engine.step()                 # one prompt chunk + one decode each
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with labelled(labels), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for _ in range(steps):
             engine.step()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    wanted = {label for _, _, label in labels}
+    # a labelled range shows up twice: as a host range and as a span on the
+    # device timeline; neither is a kernel
+    kern = [e for e in averages if e.device_type == DeviceType.CUDA
+            and e.key not in wanted]
     dev_us = sum(e.self_device_time_total for e in kern)
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:40]
     out = {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
            "device_ms_per_step": dev_us / 1e3 / steps if dev_us else None,
            "idle_share": 1 - dev_us / 1e6 / wall if dev_us else None,
            "launches_per_step": sum(e.count for e in kern) / steps,
-           "top_kernels": [{"name": e.key[:80], "count": e.count,
+           "top_kernels": [{"name": e.key[:100], "count": e.count,
                             "ms_per_step": e.self_device_time_total / 1e3 / steps}
                            for e in top]}
+    out["ranges"] = {label: {} for label in sorted(wanted)}
+    for e in averages:
+        if e.key not in wanted:
+            continue
+        r = out["ranges"][e.key]
+        if e.device_type == DeviceType.CUDA:   # first to last kernel, gaps too
+            r["device_span_ms_per_step"] = e.device_time_total / 1e3 / steps
+        else:                                  # host range and its kernels
+            r["count_per_step"] = e.count / steps
+            r["host_ms_per_step"] = e.cpu_time_total / 1e3 / steps
+            r["kernel_ms_per_step"] = e.device_time_total / 1e3 / steps
     log(f"decode profile: {json.dumps(out)}")
     return out
 
@@ -792,10 +1130,9 @@ def serve_phase(dev, params) -> dict:
         PagedServer(cfg, params, pool, fused=fused, device=dev).run(
             [Request(rid=-1, prompt=np.arange(16, dtype=np.int32), max_new=2)])
 
-    qops.launches = 0
-    pops.launches = 0
+    zero_counts()
     engine, results, wall = serve(cfg, params, dev, pool)
-    launches = {"rht_qmatmul": qops.launches, "paged_attention": pops.launches}
+    launches = counts()
     out = serve_summary(engine, results, wall, cfg, params)
     out["weights_only_bound_ms"] = decode_step_bound_ms(cfg, params, 0.0)
     out["launches"] = launches
@@ -805,43 +1142,20 @@ def serve_phase(dev, params) -> dict:
         f"({out['decode_step_ms']:.2f} ms/step, bound "
         f"{out['decode_step_bound_ms']:.3f} ms); peak "
         f"{out['peak_mem_gib']:.2f} GiB; launches {launches}")
-    check(all(v > 0 for v in launches.values()),
+    check(launches["rht_qmatmul"] > 0 and launches["paged_attention"] > 0,
           f"a kernel of the fused path never launched: {launches}")
 
-    # launches one decode step makes, counted on a direct call, fused and
-    # unfused
-    s = pool.max_slots
-    z = torch.zeros(s, dtype=torch.int32, device=dev)
-    per_step = {}
-    for fused in (True, False):
-        qops.launches = qops.unfused_launches = 0
-        hops.launches = pops.launches = 0
-        with qops.fusion(fused):
-            logits, _ = decmod.decode_step_paged(
-                cfg, params, engine.caches, z[:, None], z,
-                torch.zeros(s, dtype=torch.bool, device=dev),
-                torch.zeros((s, engine.table_width), dtype=torch.int32,
-                            device=dev),
-                torch.ones(s, dtype=torch.int32, device=dev))
-        check(bool(torch.isfinite(logits).all()),
-              "decode step logits not finite")
-        per_step["fused" if fused else "unfused"] = {
-            "rht_qmatmul": qops.launches, "qmatmul": qops.unfused_launches,
-            "rht": hops.launches, "paged_attention": pops.launches}
+    # launches one decode step makes, counted on a direct call
+    per_step = launches_per_decode_step(cfg, params, dev, engine)
     out["launches_per_decode_step"] = per_step
     log(f"launches per decode step: {per_step}")
-    del engine, logits          # its arena; later peaks count their own
+    del engine                  # its arena; later peaks count their own
     out["decode_profile"] = profile_decode(cfg, params, dev, pool)
 
     # the unfused A/B path: the RHT kernel, then the unfused GEMM kernel
-    hops.launches = 0
-    qops.unfused_launches = 0
-    qops.launches = 0
-    pops.launches = 0
+    zero_counts()
     unf, unf_results, unf_wall = serve(cfg, params, dev, pool, fused=False)
-    unf_launches = {"rht": hops.launches, "qmatmul": qops.unfused_launches,
-                    "paged_attention": pops.launches,
-                    "rht_qmatmul": qops.launches}
+    unf_launches = counts()
     unfused = serve_summary(unf, unf_results, unf_wall, cfg, params)
     unfused["launches"] = unf_launches
     unfused["divergences"] = divergences(results, unf_results, unf)
@@ -869,6 +1183,206 @@ def serve_phase(dev, params) -> dict:
     out["divergences"] = divergences(results, plain_results, plain)
     log(f"serve fused (plain versions): {plain_wall:.2f} s; greedy tokens "
         f"identical for {len(results) - len(out['divergences'])}/"
+        f"{len(results)} requests; accepted near-tie divergences: "
+        f"{len(out['divergences'])}")
+    return out
+
+
+# ------------------------------------------------------------------ Mixtral
+
+
+def moe_config():
+    """mixtral-8x7b at its published width, the depth cut to MOE_LAYERS."""
+    return get_config("mixtral-8x7b").with_(n_layers=MOE_LAYERS)
+
+
+MOE_PROMPT_LENS = PROMPT_LENS + [MOE_LONG_PROMPT]
+
+
+def moe_quantize_phase(dev) -> tuple[dict, dict]:
+    """fp32 Mixtral (4 layers, published widths) on the card, calibrated,
+    allocated (4.0 bits) and quantized, the experts as QuantizedGrouped with
+    one code-search launch per expert (the main path, counted); then the
+    same weights again with the plain code search, compared column by
+    column.  The fp weights are dropped after."""
+    cfg = moe_config()
+    t0 = time.monotonic()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 2), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    layer_gb = sum(t.numel() * 4 for g in ("attn", "moe")
+                   for t in params["layers"][0][g].values()) / 1e9
+    total_gb = (layer_gb * cfg.n_layers + (params["embed"].numel()
+                + params["lm_head"].numel()) * 4 / 1e9)
+    log(f"mixtral-8x7b fp32, {cfg.n_layers} of 32 layers: d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads, {cfg.moe.n_experts} "
+        f"experts top-{cfg.moe.top_k} of width {cfg.moe.d_ff_expert}, window "
+        f"{cfg.window}; {layer_gb:.2f} GB per layer, {total_gb:.2f} GB with "
+        f"embedding and lm_head, built in {init_s:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.monotonic()
+    toks = torch.from_numpy(cal.zero_shot_tokens(cfg.vocab, 256)).to(dev)
+    stats = cal.calibrate(lambda p, b, ctx: tf.loss_fn(cfg, p, b, ctx=ctx),
+                          params, [{"tokens": toks}])
+    torch.cuda.synchronize()
+    calibrate_s = time.monotonic() - t0
+    grouped = sorted(n for n, st in stats.items() if st.grouped)
+    check(grouped == sorted(f"L{i}.moe.{k}" for i in range(cfg.n_layers)
+                            for k in ("wi", "wo"))
+          and all(np.isfinite(st.alpha) and st.alpha > 0
+                  for st in stats.values()),
+          f"calibration: grouped taps {grouped} or a bad alpha")
+    qparams, rep = pipe.quantize_model(
+        cfg, params, stats, AVG_BITS,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 3),
+        device=dev)
+    launches = counts()["rabitq_quant"]
+    peak = torch.cuda.max_memory_allocated()
+    qls = quantized_linears(qparams)
+    n_entries = cfg.n_layers * 6
+    expected_searches = cfg.n_layers * (4 + 2 * cfg.moe.n_experts)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "depth_cut": f"{cfg.n_layers} of 32 layers (fp32: 186 GB at 32, "
+                        f"{total_gb:.1f} GB at {cfg.n_layers})",
+           "calibrate_s": calibrate_s, "allocate_s": rep.allocate_s,
+           "quantize_s": rep.quantize_s,
+           "pipeline_s": calibrate_s + rep.wall_time_s,
+           "avg_bits": rep.avg_bits, "requested_avg_bits": AVG_BITS,
+           "n_quantized": rep.n_layers, "per_layer_bits": rep.per_layer_bits,
+           "packed_gb": sum(q.packed.numel() for q in qls.values()) / 1e9,
+           "side_info_gb": sum(quant_bytes(q, QUANT_TENSORS[1:])
+                               for q in qls.values()) / 1e9,
+           "peak_mem_gib": peak / 2**30, "code_search_launches": launches,
+           "fp_layer_gb": layer_gb, "fp_total_gb": total_gb,
+           "init_s": init_s}
+    log(f"mixtral quantize: calibrate_s {calibrate_s:.2f}, allocate_s "
+        f"{rep.allocate_s:.2f}, quantize_s {rep.quantize_s:.2f}; achieved "
+        f"{rep.avg_bits:.4f} bits over {rep.n_layers} weights; widths "
+        f"{rep.per_layer_bits}; packed codes {out['packed_gb']:.3f} GB + side "
+        f"info {out['side_info_gb']:.4f} GB; code-search launches {launches};"
+        f" peak {out['peak_mem_gib']:.2f} GiB")
+    check(rep.n_layers == n_entries and launches == expected_searches,
+          f"mixtral: {rep.n_layers} weights quantized with {launches} code "
+          f"searches, expected {n_entries} and {expected_searches}")
+    check(AVG_BITS - 0.5 < rep.avg_bits <= AVG_BITS,
+          f"mixtral: achieved {rep.avg_bits} bits for a {AVG_BITS}-bit budget")
+    check(all(isinstance(lp["moe"][k], QuantizedGrouped)
+              and lp["moe"]["router"].dtype == torch.float32
+              for lp in qparams["layers"] for k in ("wi", "wo")),
+          "mixtral: experts not grouped-quantized or router not fp32")
+    out["plain_comparison"] = quantize_plain_and_compare(
+        cfg, params, stats, rep, qls, dev)
+    del params, stats
+    torch.cuda.empty_cache()
+    return out, qparams
+
+
+def moe_pool():
+    return PoolConfig(max_slots=8, block_size=16,
+                      max_context=MOE_LONG_PROMPT + GEN_LEN, prefill_chunk=64)
+
+
+def launches_per_decode_step(cfg, params, dev, engine) -> dict:
+    """Kernel launches of one decode step (a direct call over inert slots),
+    fused and unfused."""
+    s = engine.pool.max_slots
+    z = torch.zeros(s, dtype=torch.int32, device=dev)
+    per_step = {}
+    for fused in (True, False):
+        zero_counts()
+        with qops.fusion(fused):
+            logits, _ = decmod.decode_step_paged(
+                cfg, params, engine.caches, z[:, None], z,
+                torch.zeros(s, dtype=torch.bool, device=dev),
+                torch.zeros((s, engine.table_width), dtype=torch.int32,
+                            device=dev),
+                torch.ones(s, dtype=torch.int32, device=dev))
+        check(bool(torch.isfinite(logits).all()),
+              "decode step logits not finite")
+        per_step["fused" if fused else "unfused"] = counts()
+    return per_step
+
+
+def moe_serve_phase(dev, params) -> dict:
+    cfg = moe_config()
+    pool = moe_pool()
+    for fused in (True, False):     # warm-up outside the counts
+        PagedServer(cfg, params, pool, fused=fused, device=dev).run(
+            [Request(rid=-1, prompt=np.arange(16, dtype=np.int32), max_new=2)])
+
+    zero_counts()
+    engine, results, wall = serve(cfg, params, dev, pool,
+                                  prompt_lens=MOE_PROMPT_LENS)
+    launches = counts()
+    out = serve_summary(engine, results, wall, cfg, params, MOE_PROMPT_LENS)
+    out["weights_only_bound_ms"] = decode_step_bound_ms(cfg, params, 0.0)
+    out["launches"] = launches
+    out["tokens_past_ring"] = engine.past_ring
+    log(f"mixtral serve fused (kernels): {out['tokens']} tokens in "
+        f"{wall:.2f} s = {out['tok_per_s']:.1f} tok/s; prefill "
+        f"{out['prefill_s']:.2f} s over {out['prefill_chunks']} chunks, decode "
+        f"{out['decode_s']:.2f} s over {out['decode_steps']} steps "
+        f"({out['decode_step_ms']:.2f} ms/step, bound "
+        f"{out['decode_step_bound_ms']:.3f} ms); peak "
+        f"{out['peak_mem_gib']:.2f} GiB; launches {launches}; the long "
+        f"request ran {engine.past_ring} tokens past its "
+        f"{cfg.window}-token ring")
+    check(launches["rht_qmatmul"] > 0 and launches["grouped_rht_qmatmul"] > 0
+          and launches["paged_attention"] > 0,
+          f"a kernel of the Mixtral fused path never launched: {launches}")
+    check(engine.past_ring > 0, "the long request never wrapped its ring")
+
+    per_step = launches_per_decode_step(cfg, params, dev, engine)
+    out["launches_per_decode_step"] = per_step
+    log(f"mixtral launches per decode step: {per_step}")
+    n = cfg.n_layers
+    check(per_step["fused"]["grouped_rht_qmatmul"] == 2 * n
+          and per_step["unfused"]["grouped_qmatmul"] == 2 * n
+          and per_step["unfused"]["rht"] == 6 * n,
+          f"mixtral launches per decode step: {per_step}")
+    del engine
+    out["decode_profile"] = profile_decode(
+        cfg, params, dev, pool,
+        labels=[(moemod, "moe_ffn", "moe_ffn"),
+                (moemod, "_expert_matmul", "moe_expert_gemms"),
+                (attnmod, "paged_decode_attention", "paged_attention")])
+
+    zero_counts()
+    unf, unf_results, unf_wall = serve(cfg, params, dev, pool, fused=False,
+                                       prompt_lens=MOE_PROMPT_LENS)
+    unf_launches = counts()
+    unfused = serve_summary(unf, unf_results, unf_wall, cfg, params,
+                            MOE_PROMPT_LENS)
+    unfused["launches"] = unf_launches
+    unfused["divergences"] = divergences(results, unf_results, unf)
+    out["unfused"] = unfused
+    log(f"mixtral serve unfused (kernels): {unfused['tokens']} tokens in "
+        f"{unf_wall:.2f} s = {unfused['tok_per_s']:.1f} tok/s; decode "
+        f"{unfused['decode_step_ms']:.2f} ms/step; launches {unf_launches}; "
+        f"greedy tokens identical to fused for "
+        f"{len(results) - len(unfused['divergences'])}/{len(results)}")
+    check(unf_launches["rht"] > 0 and unf_launches["qmatmul"] > 0
+          and unf_launches["grouped_qmatmul"] > 0
+          and unf_launches["rht_qmatmul"] == 0
+          and unf_launches["grouped_rht_qmatmul"] == 0,
+          f"the Mixtral unfused path did not run its kernels: {unf_launches}")
+
+    for ops in (qops, pops, hops):
+        ops.set_forced_path("ref")
+    try:
+        plain, plain_results, plain_wall = serve(
+            cfg, params, dev, pool, prompt_lens=MOE_PROMPT_LENS)
+    finally:
+        for ops in (qops, pops, hops):
+            ops.set_forced_path(None)
+    out["plain_wall_s"] = plain_wall
+    out["plain_tok_per_s"] = out["tokens"] / plain_wall
+    out["divergences"] = divergences(results, plain_results, plain)
+    log(f"mixtral serve fused (plain versions): {plain_wall:.2f} s; greedy "
+        f"tokens identical for {len(results) - len(out['divergences'])}/"
         f"{len(results)} requests; accepted near-tie divergences: "
         f"{len(out['divergences'])}")
     return out
@@ -919,47 +1433,107 @@ def main() -> int:
             log(f"{name} time {json.dumps(t)}")
     attn_time = time_attention(gen, dev)
     log(f"paged_attention time {json.dumps(attn_time)}")
+    grouped_err, grouped_unfused_err = check_grouped(gen, dev)
+    flash_err = check_flash(gen, dev)
+    grouped_times = [time_grouped(gen, dev, *shape)
+                     for shape in GROUPED_SHAPES]
+    grouped_unfused_times = [time_grouped(gen, dev, *shape, fused=False)
+                             for shape in GROUPED_SHAPES]
+    flash_times = [time_flash(gen, dev, *case) for case in FLASH_CASES]
+    for name, rows in (("grouped_rht_qmatmul", grouped_times),
+                       ("grouped_qmatmul", grouped_unfused_times),
+                       ("flash_attention", flash_times)):
+        for t in rows:
+            log(f"{name} time {json.dumps(t)}")
     torch.cuda.empty_cache()
 
     quant_out, qparams = quantize_phase(dev)
     serve_out = serve_phase(dev, qparams)
+    del qparams
+    torch.cuda.empty_cache()
+    moe_quant, moe_params = moe_quantize_phase(dev)
+    moe_serve = moe_serve_phase(dev, moe_params)
+    del moe_params
 
-    decode_gemm = gemm_times[1]          # n=8 slots, wq/wk/wv/wo at 4 bits
-    decode_unfused = unfused_times[1]
-    decode_rht = rht_times[0]            # n=8, d_keep 4083
-    search_t = search_times[0]           # (4083, 4096): 128 of 192 weights
+    # launches per path, each from that path's own run with every count
+    # zeroed just before it: the quantize run (the code search), the fused
+    # serve run, the unfused serve run (the RHT and the unfused GEMMs)
+    runs = {"llama2": {"quantize": quant_out["code_search_launches"],
+                       "fused": serve_out["launches"],
+                       "unfused": serve_out["unfused"]["launches"]},
+            "mixtral": {"quantize": moe_quant["code_search_launches"],
+                        "fused": moe_serve["launches"],
+                        "unfused": moe_serve["unfused"]["launches"]}}
 
-    def entry(name, source, replaces, launches, err, t, shape_keys, **extra):
+    def by_path(kernel, run):
+        return {path: r["quantize"] if run == "quantize" else r[run][kernel]
+                for path, r in runs.items()}
+    on_path = {  # kernel -> (run that counts it, paths that must launch it)
+        "rht_qmatmul": ("fused", ("llama2", "mixtral")),
+        "paged_attention": ("fused", ("llama2", "mixtral")),
+        "qmatmul": ("unfused", ("llama2", "mixtral")),
+        "rht": ("unfused", ("llama2", "mixtral")),
+        "rabitq_quant": ("quantize", ("llama2", "mixtral")),
+        "grouped_rht_qmatmul": ("fused", ("mixtral",)),
+        "grouped_qmatmul": ("unfused", ("mixtral",)),
+        "flash_attention": ("fused", ()),
+    }
+    launches = {k: by_path(k, run) for k, (run, _) in on_path.items()}
+    for k, (_, paths) in on_path.items():
+        check(all(launches[k][p] > 0 for p in paths),
+              f"{k}: not launched on every path that runs it: {launches[k]}")
+
+    def entry(name, source, replaces, err, t, shape_keys, **extra):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces,
+                "launches": sum(launches[name].values()),
+                "launches_by_path": launches[name],
                 "max_abs_err": err, "ms": t["ms"], "kernel_ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "shape": {k: t[k] for k in shape_keys}, **extra}
+    decode_gemm = gemm_times[1]          # n=8 slots, wq/wk/wv/wo at 4 bits
+    decode_unfused = unfused_times[1]
+    decode_rht = rht_times[0]            # n=8, d_keep 4083
+    search_t = search_times[0]           # (4083, 4096): 128 of 192 weights
+    grouped_decode = grouped_times[0]          # wi at decode, C = 2
+    grouped_unfused_decode = grouped_unfused_times[0]
+    flash_t = flash_times[0]                   # Mixtral's shape
     kernels = [
         entry("rht_qmatmul", "src/repro_torch/csrc/rht_qmatmul.cu",
-              "src/repro/kernels/qmatmul/qmatmul.py:164",
-              serve_out["launches"]["rht_qmatmul"], gemm_err, decode_gemm,
-              ("n", "d", "c", "bits")),
+              "src/repro/kernels/qmatmul/qmatmul.py:164", gemm_err,
+              decode_gemm, ("n", "d", "c", "bits")),
         entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
-              "src/repro/kernels/paged_attention/paged.py:98",
-              serve_out["launches"]["paged_attention"], attn_err, attn_time,
-              ("b", "h", "kv", "hd", "context")),
+              "src/repro/kernels/paged_attention/paged.py:98", attn_err,
+              attn_time, ("b", "h", "kv", "hd", "context")),
         entry("qmatmul", "src/repro_torch/csrc/rht_qmatmul.cu",
-              "src/repro/kernels/qmatmul/qmatmul.py:66",
-              serve_out["unfused"]["launches"]["qmatmul"], unfused_err,
+              "src/repro/kernels/qmatmul/qmatmul.py:66", unfused_err,
               decode_unfused, ("n", "d", "c", "bits")),
         entry("rht", "src/repro_torch/csrc/hadamard.cu",
-              "src/repro/kernels/hadamard/hadamard.py:35",
-              serve_out["unfused"]["launches"]["rht"], rht_err, decode_rht,
-              ("n", "d")),
+              "src/repro/kernels/hadamard/hadamard.py:35", rht_err,
+              decode_rht, ("n", "d")),
         entry("rabitq_quant", "src/repro_torch/csrc/rabitq_quant.cu",
               "src/repro/kernels/rabitq_quant/quantize.py:49",
-              quant_out["code_search_launches"],
               search["max_rescale_abs_err"], search_t, ("d", "c", "bits"),
               measure="max|rescale err| where the step agrees; codes equal",
               differing_columns=search["differing_columns"],
               max_objective_gap=search["max_objective_gap"]),
+        entry("grouped_rht_qmatmul", "src/repro_torch/csrc/rht_qmatmul.cu",
+              "src/repro/kernels/qmatmul/ops.py:121", grouped_err,
+              grouped_decode, ("e", "cap", "d", "c", "bits"),
+              unfused={"launches": sum(launches["grouped_qmatmul"].values()),
+                       "launches_by_path": launches["grouped_qmatmul"],
+                       "max_abs_err": grouped_unfused_err,
+                       **{k: grouped_unfused_decode[k] for k in (
+                           "ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")}}),
+        entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/flash.py:68",
+              flash_err["f32"], flash_t,
+              ("b", "s", "h", "kv", "hd", "causal", "window"),
+              on_main_path=False, max_abs_err_bf16=flash_err["bf16"],
+              note="no model path calls it, as in the reference; held "
+                   "against its plain version in the kernel phase"),
     ]
     detail = {"gpu": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -967,7 +1541,10 @@ def main() -> int:
               "unfused_gemm_times": unfused_times, "rht_times": rht_times,
               "code_search_times": search_times, "code_search_check": search,
               "attention_time": attn_time, "quantize": quant_out,
-              "serve": serve_out, "kernels": kernels}
+              "serve": serve_out, "grouped_times": grouped_times,
+              "grouped_unfused_times": grouped_unfused_times,
+              "flash_times": flash_times, "mixtral_quantize": moe_quant,
+              "mixtral_serve": moe_serve, "kernels": kernels}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(smi)

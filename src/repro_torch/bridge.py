@@ -11,7 +11,13 @@ attention decoders ported so far have a scan period of 1):
     builds, where each quantized weight is a dict with the keys
     ``packed, rescale, signs1, signs2, mean_col, w_out, out_idx, keep_idx``
     (arrays or None) and ``bits, d, d_keep, c`` (ints) — the leaves and
-    static fields of ``repro.core.qlinear.QuantizedLinear``.
+    static fields of ``repro.core.qlinear.QuantizedLinear`` — and each
+    quantized MoE expert stack a dict with ``packed, rescale, signs1,
+    signs2`` and ``bits, d, c``, those of ``QuantizedGrouped``.
+
+A MoE layer's fp ``moe`` subtree (router (d, E), wi (E, d, 2f), wo (E, f,
+d), each with the leading layer axis in the stacked tree) carries across
+like any other subtree.
 
 The caller flattens a JAX tree into that form (``numpy.asarray`` on every
 array, a dict per ``QuantizedLinear``); the result is the port's param
@@ -23,11 +29,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.qlinear import QuantizedLinear
+from repro_torch.core.qlinear import QuantizedGrouped, QuantizedLinear
 
 QL_TENSORS = ("packed", "rescale", "signs1", "signs2", "mean_col", "w_out",
               "out_idx", "keep_idx")
 QL_STATIC = ("bits", "d", "d_keep", "c")
+QG_TENSORS = ("packed", "rescale", "signs1", "signs2")
+QG_STATIC = ("bits", "d", "c")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -49,12 +57,21 @@ def _quantized(node: dict, device) -> QuantizedLinear:
     return QuantizedLinear(**fields)
 
 
+def _grouped(node: dict, device) -> QuantizedGrouped:
+    fields = {k: None if node[k] is None else _tensor(node[k], device)
+              for k in QG_TENSORS}
+    fields.update({k: int(node[k]) for k in QG_STATIC})
+    return QuantizedGrouped(**fields)
+
+
 def _convert(node, device):
     if node is None:
         return None
     if isinstance(node, dict):
         if "packed" in node and "bits" in node:
-            return _quantized(node, device)
+            if "d_keep" in node:
+                return _quantized(node, device)
+            return _grouped(node, device)
         return {k: _convert(v, device) for k, v in node.items()}
     return _tensor(node, device)
 

@@ -12,6 +12,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "llama2-7b": "llama2_7b",
+    "mixtral-8x7b": "mixtral_8x7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

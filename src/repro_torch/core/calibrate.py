@@ -34,7 +34,7 @@ class LayerStat:
     name: str
     d: int
     c: int
-    m: int                    # parameter count
+    m: int                    # parameter count (grouped: E*d*c)
     alpha: float              # eq. 23 sensitivity
     x_col_sq: np.ndarray      # (d,) accumulated input column energy
     grouped: bool = False
@@ -73,7 +73,8 @@ def calibrate(loss_with_ctx: Callable[[dict, dict, LinearCtx], torch.Tensor],
             alpha = g_fro * x_fro * w_fro / np.sqrt(d)
             s = stats.setdefault(name, dict(
                 alpha_sum=0.0, n=0, x_col_sq=np.zeros((d,), np.float64),
-                d=d, c=int(tap["c"])))
+                d=d, c=int(tap["c"]), grouped=bool(tap.get("grouped", False)),
+                n_groups=int(tap.get("n_groups", 1))))
             s["alpha_sum"] += alpha
             s["n"] += 1
             s["x_col_sq"] += tap["x_col_sq"].cpu().numpy().astype(np.float64)
@@ -81,7 +82,8 @@ def calibrate(loss_with_ctx: Callable[[dict, dict, LinearCtx], torch.Tensor],
     out = {}
     for name, s in stats.items():
         out[name] = LayerStat(name=name, d=s["d"], c=s["c"],
-                              m=s["d"] * s["c"],
+                              m=s["d"] * s["c"] * s["n_groups"],
                               alpha=s["alpha_sum"] / max(s["n"], 1),
-                              x_col_sq=s["x_col_sq"])
+                              x_col_sq=s["x_col_sq"], grouped=s["grouped"],
+                              n_groups=s["n_groups"])
     return out

@@ -1,20 +1,22 @@
 """End-to-end RaanA pipeline (paper Alg. 1): calibrate -> AllocateBits ->
 RaBitQ-H quantize -> deployable quantized params.
 
-Port of ``repro/core/pipeline.py:quantize_model`` for dense attention
-decoders: per-layer heterogeneous bit widths from the DP allocator, the
-outlier and centralization tricks, and the port's own param layout
-(``params["layers"]`` a list of per-layer dicts, as ``bridge.py`` and the
-engine use).  Embeddings, norms and lm_head stay in full precision.
+Port of ``repro/core/pipeline.py:quantize_model`` for attention decoders
+with dense or MoE FFNs: per-layer heterogeneous bit widths from the DP
+allocator, the outlier and centralization tricks for 2-D projections,
+``quantize_grouped`` for the stacked MoE experts (wi, wo), and the port's
+own param layout (``params["layers"]`` a list of per-layer dicts, as
+``bridge.py`` and the engine use).  Embeddings, norms, the MoE router and
+lm_head stay in full precision.
 
 The reference splits one ``jax.random`` key per quantized weight; the port
 draws each weight's Rademacher signs with ``draw_signs(d_keep, generator)``
-in the same entry order, or takes them from ``signs`` (name -> (signs1,
-signs2)) — how the parity tests pass the reference's signs in.
+in the same entry order (a grouped weight: ``draw_signs(d)``, shared by its
+experts), or takes them from ``signs`` (name -> (signs1, signs2)) — how
+the parity tests pass the reference's signs in.
 
 Not ported yet: ``quantize_model_dual`` (speculation, ROADMAP Queue 1 item
-10), ``quantize_params_uniform`` (dry-run tooling, item 15) and grouped MoE
-weights (item 9).
+10) and ``quantize_params_uniform`` (dry-run tooling, item 15).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch.models.config import ModelConfig
 
 from . import allocate as alloc
 from .calibrate import LayerStat
-from .qlinear import draw_signs, quantize_linear
+from .qlinear import draw_signs, quantize_grouped, quantize_linear
 
 QUANTIZABLE_2D = {"wq", "wk", "wv", "wo", "wi", "swi", "swo", "ck", "cv",
                   "cr", "wr", "wg", "wq_a", "wq_b", "wkv_a"}
@@ -118,25 +120,22 @@ def quantize_model(cfg: ModelConfig, params: dict,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
 
-    entries = []  # (name, layer index, path, shape)
+    entries = []  # (name, layer index, path, kind, shape)
     for i, lp in enumerate(params["layers"]):
         for path, kind in _walk_layer(lp):
-            if kind == "grouped":
-                raise NotImplementedError(
-                    "grouped (MoE) weights are not ported yet (ROADMAP "
-                    "Queue 1 item 9)")
             name = f"L{i}." + ".".join(path)
-            entries.append((name, i, path, tuple(_get(lp, path).shape)))
+            entries.append((name, i, path, kind,
+                            tuple(_get(lp, path).shape)))
 
     ms, alphas, overheads = [], [], []
-    for name, _, _, shape in entries:
+    for name, _, _, kind, shape in entries:
         m = int(np.prod(shape))
         st = stats.get(name)
         alphas.append(float(np.sqrt(m)) if st is None         # weight-only
                       else max(st.alpha, 1e-12))
         ms.append(m)
-        overheads.append(_overhead_bits_estimate("linear", shape,
-                                                 outlier_frac, centralize))
+        overheads.append(_overhead_bits_estimate(kind, shape, outlier_frac,
+                                                 centralize))
     total_m = int(sum(ms))
     budget = int(np.floor(avg_bits * total_m)) - int(sum(overheads))
     t_alloc = time.monotonic()
@@ -149,22 +148,26 @@ def quantize_model(cfg: ModelConfig, params: dict,
     used_bits = 0
     overhead_used = 0
     t_quant = time.monotonic()
-    for (name, i, path, shape), bits in zip(entries, allocation.bits):
+    for (name, i, path, kind, shape), bits in zip(entries, allocation.bits):
         target = qparams["layers"][i]
         w = _get(target, path)
         st = stats.get(name)
         x_col = (np.sqrt(np.maximum(st.x_col_sq, 0.0))
-                 if st is not None else None)
+                 if st is not None and kind == "linear" else None)
         frac = outlier_frac if x_col is not None else 0.0
         if signs is not None and name in signs:
             s1, s2 = signs[name]
         else:
-            d = shape[0]
+            d = shape[-2]
             k = int(np.ceil(frac * d)) if frac > 0 else 0
             s1, s2 = draw_signs(d - k, generator)
-        q = quantize_linear(w, bits, s1, s2, x_col_norms=x_col,
-                            outlier_frac=frac, centralize=centralize,
-                            n_candidates=n_candidates, device=dev)
+        if kind == "grouped":
+            q = quantize_grouped(w, bits, s1, s2, n_candidates=n_candidates,
+                                 device=dev)
+        else:
+            q = quantize_linear(w, bits, s1, s2, x_col_norms=x_col,
+                                outlier_frac=frac, centralize=centralize,
+                                n_candidates=n_candidates, device=dev)
         _set(target, path, q)             # the copy no longer holds w
         del w
         overhead_used += q.overhead_bits()

@@ -12,7 +12,12 @@ cannot reproduce ``jax.random`` streams: parity tests pass the reference's
 signs, and ``draw_signs`` draws fresh ones from a ``torch.Generator``.  Its
 code search goes through ``kernels/rabitq_quant/ops.quantize`` (the CUDA
 kernel on the card, ``core/rabitq.quantize`` for CPU tensors).
-The grouped (MoE) form waits for the MoE slice (ROADMAP).
+
+``QuantizedGrouped`` is the stacked per-expert form for MoE weights (E, d,
+c): signs shared across the experts of a layer, a rescale per (expert,
+column), no outliers and no centralization (as in the reference); its
+``apply`` is one grouped dispatch, ``kernels/qmatmul/ops.
+grouped_rht_quantized_matmul``.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from repro_torch.kernels.rabitq_quant import ops as rq_ops
 from . import hadamard, packing, tricks
 
 __all__ = ["QuantizedLinear", "quantize_linear", "reconstruct_weight",
-           "draw_signs"]
+           "draw_signs", "QuantizedGrouped", "quantize_grouped"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +141,67 @@ def quantize_linear(w: torch.Tensor, bits: int, signs1: torch.Tensor,
         out_idx=out_idx if has_out else None,
         keep_idx=keep_idx if has_out else None,
         bits=bits, d=d, d_keep=d_keep, c=c)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedGrouped:
+    """Stacked per-expert quantization of MoE weights (E, d, c)."""
+    packed: torch.Tensor                 # (E, packed_rows(d), c) uint8
+    rescale: torch.Tensor                # (E, c) f16
+    signs1: torch.Tensor                 # (d_hat,) f32, shared by the experts
+    signs2: Optional[torch.Tensor]       # (d_hat,) f32 or None (d pow2)
+    bits: int = 4
+    d: int = 0
+    c: int = 0
+
+    @property
+    def shape(self):
+        return (self.packed.shape[0], self.d, self.c)
+
+    def overhead_bits(self) -> int:
+        """Side-information cost in bits, at actual storage width."""
+        n = self.rescale.numel() * self.rescale.element_size() * 8
+        n += self.signs1.numel()
+        if self.signs2 is not None:
+            n += self.signs2.numel()
+        return int(n)
+
+    def apply(self, xbuf: torch.Tensor) -> torch.Tensor:
+        """xbuf (E, C, d) -> (E, C, c): each expert's Alg. 3 estimate, codes
+        kept packed (no dense (E, d, c) weight is ever built)."""
+        from repro_torch.kernels.qmatmul import ops as qops  # late: no cycle
+        return qops.grouped_rht_quantized_matmul(
+            xbuf, self.packed, self.rescale, self.signs1, self.signs2,
+            bits=self.bits, d=self.d)
+
+
+def quantize_grouped(w: torch.Tensor, bits: int, signs1: torch.Tensor,
+                     signs2: torch.Tensor | None, n_candidates: int = 12,
+                     device=None) -> QuantizedGrouped:
+    """Quantize stacked expert weights (E, d, c) with shared RHT signs (see
+    ``draw_signs(d)``) on ``device`` (CUDA unless ``"cpu"``).  Each expert
+    is rotated and code-searched on its own, one kernel launch per expert,
+    so only one expert's f32 rotation is held at a time."""
+    dev = resolve_device(device)
+    e, d, c = w.shape
+    d_hat = hadamard.largest_pow2_leq(d)
+    if signs1.shape != (d_hat,) or (signs2 is None) != (d_hat == d):
+        raise ValueError(f"signs do not fit d={d} (d_hat={d_hat})")
+    s1 = signs1.to(device=dev, dtype=torch.float32)
+    s2 = (signs2.to(device=dev, dtype=torch.float32)
+          if signs2 is not None else None)
+    packed = torch.empty((e, packing.packed_rows(d, bits), c),
+                         dtype=torch.uint8, device=dev)
+    rescale = torch.empty((e, c), dtype=torch.float16, device=dev)
+    for i in range(e):
+        w_rot = hadamard.practical_rht(
+            w[i].to(device=dev, dtype=torch.float32), s1, s2, axis=0)
+        q = rq_ops.quantize(w_rot, bits, n_candidates=n_candidates)
+        packed[i] = packing.pack_codes(q.codes, bits)
+        rescale[i] = q.rescale.to(torch.float16)
+        del w_rot, q
+    return QuantizedGrouped(packed=packed, rescale=rescale, signs1=s1,
+                            signs2=s2, bits=bits, d=d, c=c)
 
 
 def reconstruct_weight(q: QuantizedLinear) -> torch.Tensor:

@@ -22,7 +22,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"rht_qmatmul": "rht_qmatmul.cu",
            "paged_attention": "paged_attention.cu",
            "hadamard": "hadamard.cu",
-           "rabitq_quant": "rabitq_quant.cu"}
+           "rabitq_quant": "rabitq_quant.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -38,6 +38,17 @@ codes for that layer (about 3%).  What bounds it on this card: at decode
 2.5 us of bytes vs 4 us of f32 FMA at 67 TFLOP/s), at prefill (n=64) the
 f32 FMAs.  The design splits d so that n <= 8 still fills the 132 SMs with
 column x split tiles.
+
+The grouped form (``grouped_rht_quantized_matmul``, the MoE experts'
+GEMM) replaces the reference's ``jax.vmap`` over experts of
+``rht_quantized_matmul`` (``repro/kernels/qmatmul/ops.py:121``), which on a
+TPU runs the Pallas kernels once per expert.  Here it is the same kernels
+with an expert axis: the signs are shared by the experts, so the rotation
+(or the unfused path's RHT kernel) runs once over the E*C rows as one
+(E*C, d) matrix, and the GEMM folds the expert index into the row-tile
+axis of its grid, offsetting the packed codes by e*pr*c and x_rot by
+e*C*d; the epilogue reads rescale[e].  At decode C is 2, so 8 experts x
+column tiles x splits fill the card.
 """
 from __future__ import annotations
 
@@ -49,13 +60,17 @@ import torch
 
 from repro_torch.core import hadamard, packing
 
-from .ref import quantized_matmul_ref, rht_quantized_matmul_ref
+from .ref import (grouped_quantized_matmul_ref,
+                  grouped_rht_quantized_matmul_ref, quantized_matmul_ref,
+                  rht_quantized_matmul_ref)
 
 _FORCE_PATH: str | None = None  # "kernel" | "ref" | None (by device)
 _FUSE_RHT: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "repro_torch_qmatmul_fuse_rht", default=True)
 launches = 0                    # fused kernel launches (one per call)
 unfused_launches = 0            # quantized_matmul kernel launches
+grouped_launches = 0            # grouped fused kernel launches
+grouped_unfused_launches = 0    # grouped unfused GEMM kernel launches
 
 # Tiling of the dequant GEMM; must match csrc/rht_qmatmul.cu.
 COLS_PER_CTA = 128              # 32 lanes x 4 columns (8 warps share them)
@@ -136,6 +151,39 @@ def rht_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
     return y.reshape(*lead, y.shape[-1])
 
 
+def grouped_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
+                             rescale: torch.Tensor, *, bits: int,
+                             d: int) -> torch.Tensor:
+    """Per-expert ``quantized_matmul`` on an already-rotated x (E, C, d),
+    packed (E, pr, c), rescale (E, c) -> (E, C, c)."""
+    if _use_kernel(x):
+        return grouped_quantized_matmul_cuda(
+            x.to(torch.float32).contiguous(), packed, rescale, bits=bits, d=d)
+    return grouped_quantized_matmul_ref(x, packed, rescale, bits=bits, d=d)
+
+
+def grouped_rht_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
+                                 rescale: torch.Tensor, signs1: torch.Tensor,
+                                 signs2: torch.Tensor | None, *, bits: int,
+                                 d: int) -> torch.Tensor:
+    """Per-expert fused estimate: x (E, C, d), packed (E, pr, c), rescale
+    (E, c) -> (E, C, c), the signs shared by the experts.  Under
+    ``fusion(False)``, as the reference's vmap does, the RHT runs first
+    (one RHT kernel over the E*C rows), then the grouped unfused GEMM."""
+    e, cap, _ = x.shape
+    x = x.to(torch.float32).contiguous()
+    if not _FUSE_RHT.get():
+        from repro_torch.kernels.hadamard import ops as hops  # late: no cycle
+        xr = hops.practical_rht(x.reshape(e * cap, d), signs1, signs2)
+        return grouped_quantized_matmul(xr.reshape(e, cap, d), packed,
+                                        rescale, bits=bits, d=d)
+    if _use_kernel(x):
+        return grouped_rht_quantized_matmul_cuda(
+            x, packed, rescale, signs1, signs2, bits=bits, d=d)
+    return grouped_rht_quantized_matmul_ref(x, packed, rescale, signs1,
+                                            signs2, bits=bits, d=d)
+
+
 def _lib():
     global _LIB
     if _LIB is None:
@@ -143,22 +191,24 @@ def _lib():
         lib = _build.load("rht_qmatmul")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rht_qmatmul.argtypes = [p, p, p, p, p, p, p, p, p,
-                                    i, i, i, i, i, i, i, i, p]
+                                    i, i, i, i, i, i, i, i, i, p]
         lib.rht_qmatmul.restype = ctypes.c_int
-        lib.qmatmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.qmatmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.qmatmul.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def split_plan(n: int, d: int, c: int, bits: int, n_sm: int):
-    """(rows_per_cta, packed_rows_per_split, splits) for the dequant GEMM:
-    enough column x row x split tiles for about three CTAs per SM."""
+def split_plan(n: int, d: int, c: int, bits: int, n_sm: int,
+               groups: int = 1):
+    """(rows_per_cta, packed_rows_per_split, splits) for the dequant GEMM of
+    ``groups`` experts of n rows each: enough expert x column x row x split
+    tiles for about three CTAs per SM."""
     bn = 1
     while bn < min(n, 8):
         bn *= 2
     prow = packing.packed_rows(d, bits)
-    tiles = -(-c // COLS_PER_CTA) * -(-n // bn)
+    tiles = -(-c // COLS_PER_CTA) * -(-n // bn) * groups
     want = max(1, -(-CTAS_PER_SM * n_sm // tiles))
     splits = max(1, min(want, prow // MIN_ROWS_PER_SPLIT))
     rps = -(-prow // splits)
@@ -173,6 +223,70 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _launch(x: torch.Tensor, packed: torch.Tensor, rescale: torch.Tensor,
+            signs1: torch.Tensor | None, signs2: torch.Tensor | None, *,
+            bits: int, d: int, groups: int) -> torch.Tensor:
+    """One launch of the GEMM kernels for ``groups`` experts of n rows each
+    (groups 1: a plain linear).  x (groups*n, d) f32; packed (groups, pr, c)
+    uint8; rescale (groups, c) f16.  With ``signs1`` the fused entry
+    (rotation inside), without it the unfused entry (x already rotated).
+    Returns (groups*n, c) f32."""
+    if not 1 <= bits <= 8:
+        raise ValueError(f"bits must be in [1, 8], got {bits}")
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError("the dequant GEMM kernels need CUDA tensors")
+    rows = x.shape[0]
+    if rows % groups:
+        raise ValueError(f"{rows} rows do not split into {groups} groups")
+    n = rows // groups
+    c = packed.shape[-1]
+    prow = packing.packed_rows(d, bits)
+    _check(x, "x", torch.float32, (rows, d), dev)
+    _check(packed, "packed", torch.uint8, (groups, prow, c), dev)
+    _check(rescale, "rescale", torch.float16, (groups, c), dev)
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must start 16-byte aligned (a fresh tensor)")
+    fused = signs1 is not None
+    d_hat = hadamard.largest_pow2_leq(d)
+    if fused:
+        _check(signs1, "signs1", torch.float32, (d_hat,), dev)
+        if (signs2 is None) != (d_hat == d):
+            raise ValueError("signs2 is required exactly when d is not a "
+                             "power of 2")
+        if signs2 is not None:
+            _check(signs2, "signs2", torch.float32, (d_hat,), dev)
+        if (d + 2 * d_hat) * 4 > MAX_SMEM_BYTES:
+            raise ValueError(f"d={d}: the rotation kernel keeps a row and its "
+                             f"signs in shared memory, {MAX_SMEM_BYTES} bytes")
+    out = torch.empty((rows, c), dtype=torch.float32, device=dev)
+    if rows == 0 or c == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    bn, rps, splits = split_plan(n, d, c, bits, n_sm, groups)
+    rowsum = torch.empty((rows,), dtype=torch.float32, device=dev)
+    partial = torch.empty((splits, rows, c), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if fused:
+            xrot = torch.empty((rows, d), dtype=torch.float32, device=dev)
+            s2 = signs2 if signs2 is not None else signs1
+            err = _lib().rht_qmatmul(
+                x.data_ptr(), signs1.data_ptr(), s2.data_ptr(),
+                packed.data_ptr(), rescale.data_ptr(), xrot.data_ptr(),
+                rowsum.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
+                groups, d, d_hat, c, bits, bn, rps, splits, stream)
+        else:
+            err = _lib().qmatmul(
+                x.data_ptr(), packed.data_ptr(), rescale.data_ptr(),
+                rowsum.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
+                groups, d, c, bits, bn, rps, splits, stream)
+    if err != 0:
+        entry = "rht_qmatmul" if fused else "qmatmul"
+        raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
+    return out
+
+
 def rht_quantized_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
                               rescale: torch.Tensor, signs1: torch.Tensor,
                               signs2: torch.Tensor | None, *, bits: int,
@@ -180,45 +294,8 @@ def rht_quantized_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
     """The kernel on the card: x (n, d) f32, packed (packed_rows(d), c)
     uint8, rescale (c,) f16, signs (d_hat,) f32 -> (n, c) f32."""
     global launches
-    if not 1 <= bits <= 8:
-        raise ValueError(f"bits must be in [1, 8], got {bits}")
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError("rht_quantized_matmul_cuda needs CUDA tensors")
-    n = x.shape[0]
-    c = packed.shape[1]
-    d_hat = hadamard.largest_pow2_leq(d)
-    _check(x, "x", torch.float32, (n, d), dev)
-    _check(packed, "packed", torch.uint8, (packing.packed_rows(d, bits), c),
-           dev)
-    _check(rescale, "rescale", torch.float16, (c,), dev)
-    _check(signs1, "signs1", torch.float32, (d_hat,), dev)
-    if (signs2 is None) != (d_hat == d):
-        raise ValueError("signs2 is required exactly when d is not a power of 2")
-    if signs2 is not None:
-        _check(signs2, "signs2", torch.float32, (d_hat,), dev)
-    if (d + 2 * d_hat) * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"d={d}: the rotation kernel keeps a row and its "
-                         f"signs in shared memory, {MAX_SMEM_BYTES} bytes")
-    if packed.data_ptr() % 16:
-        raise ValueError("packed must start 16-byte aligned (a fresh tensor)")
-    out = torch.empty((n, c), dtype=torch.float32, device=dev)
-    if n == 0 or c == 0:
-        return out
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    bn, rps, splits = split_plan(n, d, c, bits, n_sm)
-    xrot = torch.empty((n, d), dtype=torch.float32, device=dev)
-    rowsum = torch.empty((n,), dtype=torch.float32, device=dev)
-    partial = torch.empty((splits, n, c), dtype=torch.float32, device=dev)
-    s2 = signs2 if signs2 is not None else signs1
-    with torch.cuda.device(dev):
-        err = _lib().rht_qmatmul(
-            x.data_ptr(), signs1.data_ptr(), s2.data_ptr(), packed.data_ptr(),
-            rescale.data_ptr(), xrot.data_ptr(), rowsum.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), n, d, d_hat, c, bits, bn,
-            rps, splits, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rht_qmatmul launch failed with CUDA error {err}")
+    out = _launch(x, packed[None], rescale[None], signs1, signs2, bits=bits,
+                  d=d, groups=1)
     launches += 1
     return out
 
@@ -229,32 +306,39 @@ def quantized_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
     """The unfused kernel on the card: an already-rotated x (n, d) f32,
     packed (packed_rows(d), c) uint8, rescale (c,) f16 -> (n, c) f32."""
     global unfused_launches
-    if not 1 <= bits <= 8:
-        raise ValueError(f"bits must be in [1, 8], got {bits}")
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError("quantized_matmul_cuda needs CUDA tensors")
-    n = x.shape[0]
-    c = packed.shape[1]
-    _check(x, "x", torch.float32, (n, d), dev)
-    _check(packed, "packed", torch.uint8, (packing.packed_rows(d, bits), c),
-           dev)
-    _check(rescale, "rescale", torch.float16, (c,), dev)
-    if packed.data_ptr() % 16:
-        raise ValueError("packed must start 16-byte aligned (a fresh tensor)")
-    out = torch.empty((n, c), dtype=torch.float32, device=dev)
-    if n == 0 or c == 0:
-        return out
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    bn, rps, splits = split_plan(n, d, c, bits, n_sm)
-    rowsum = torch.empty((n,), dtype=torch.float32, device=dev)
-    partial = torch.empty((splits, n, c), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().qmatmul(
-            x.data_ptr(), packed.data_ptr(), rescale.data_ptr(),
-            rowsum.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d, c,
-            bits, bn, rps, splits, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"qmatmul launch failed with CUDA error {err}")
+    out = _launch(x, packed[None], rescale[None], None, None, bits=bits, d=d,
+                  groups=1)
     unfused_launches += 1
     return out
+
+
+def grouped_rht_quantized_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
+                                      rescale: torch.Tensor,
+                                      signs1: torch.Tensor,
+                                      signs2: torch.Tensor | None, *,
+                                      bits: int, d: int) -> torch.Tensor:
+    """The grouped kernel on the card: x (E, C, d) f32, packed (E, pr, c)
+    uint8, rescale (E, c) f16, shared signs (d_hat,) f32 -> (E, C, c)."""
+    global grouped_launches
+    if x.ndim != 3:
+        raise ValueError(f"x must be (E, C, d), got {tuple(x.shape)}")
+    e, cap, _ = x.shape
+    out = _launch(x.reshape(e * cap, -1), packed, rescale, signs1, signs2,
+                  bits=bits, d=d, groups=e)
+    grouped_launches += 1
+    return out.reshape(e, cap, -1)
+
+
+def grouped_quantized_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
+                                  rescale: torch.Tensor, *, bits: int,
+                                  d: int) -> torch.Tensor:
+    """The grouped unfused kernel on the card: an already-rotated x (E, C,
+    d) f32, packed (E, pr, c) uint8, rescale (E, c) f16 -> (E, C, c)."""
+    global grouped_unfused_launches
+    if x.ndim != 3:
+        raise ValueError(f"x must be (E, C, d), got {tuple(x.shape)}")
+    e, cap, _ = x.shape
+    out = _launch(x.reshape(e * cap, -1), packed, rescale, None, None,
+                  bits=bits, d=d, groups=e)
+    grouped_unfused_launches += 1
+    return out.reshape(e, cap, -1)

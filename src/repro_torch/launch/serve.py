@@ -4,6 +4,8 @@
     python -m repro_torch.launch.serve --avg-bits 4.0            # on the card
     python -m repro_torch.launch.serve --device cpu --tiny --avg-bits 3.3 \\
         --requests 2 --gen 8                                       # on the host
+    python -m repro_torch.launch.serve --arch mixtral-8x7b --tiny --device cpu \\
+        --avg-bits 3.3                                # MoE + sliding window
 
 Random weights from a seeded generator; with ``--avg-bits`` the model is
 calibrated on the paper's zero-shot sentence, bit widths are allocated

@@ -65,7 +65,8 @@ def layer_decode_paged(cfg: ModelConfig, lp: dict, h: torch.Tensor,
                                          window=cfg.window)
     h = h + linear(p["wo"], out.reshape(b, 1, -1)).to(h.dtype)
     h2 = apply_norm(cfg.norm, h, lp["ln2"])
-    return h + _ffn_apply(cfg, lp, h2).to(h.dtype)
+    y, _ = _ffn_apply(cfg, lp, h2)
+    return h + y.to(h.dtype)
 
 
 def decode_step_paged(cfg: ModelConfig, params: dict, caches: list,
@@ -111,7 +112,8 @@ def layer_prefill_chunk(cfg: ModelConfig, lp: dict, h: torch.Tensor,
     cache["v"].index_put_((pb, off), v[0].to(cache["v"].dtype))
     h = h + mix.to(h.dtype)
     h2 = apply_norm(cfg.norm, h, lp["ln2"])
-    return h + _ffn_apply(cfg, lp, h2).to(h.dtype)
+    y, _ = _ffn_apply(cfg, lp, h2)
+    return h + y.to(h.dtype)
 
 
 def prefill_chunk_paged(cfg: ModelConfig, params: dict, caches: list,

@@ -2,11 +2,12 @@
 the serving path needs.
 
 Port of the parts of ``repro/models/transformer.py`` that decode and
-calibration use: ``init_params`` for dense attention decoders with GLU/GELU
-FFNs, ``embed_tokens``, ``_qk_normalize``, ``_ffn_apply``, and the
-unrolled ``forward`` / ``loss_fn`` with their ``LinearCtx`` taps (layer
-names ``L{i}``, so tap names equal the reference's: ``L3.attn.wq``,
-``L3.mlp.wi``, ..., ``lm_head``).
+calibration use: ``init_params`` for attention decoders with GLU/GELU or
+MoE FFNs, ``embed_tokens``, ``_qk_normalize``, ``_ffn_apply`` (returning
+the FFN output and the MoE aux loss), and the unrolled ``forward`` /
+``loss_fn`` with their ``LinearCtx`` taps (layer names ``L{i}``, so tap
+names equal the reference's: ``L3.attn.wq``, ``L3.mlp.wi``,
+``L3.moe.wi``, ..., ``lm_head``).
 
 Param layout (the reference's, with the layers unrolled):
 
@@ -29,6 +30,7 @@ from repro_torch import resolve_device
 
 from . import attention as attnmod
 from . import ffn as ffnmod
+from . import moe as moemod
 from .common import (LinearCtx, apply_norm, apply_rope, cross_entropy,
                      dense_init, linear, norm_params, rms_norm)
 from .config import ModelConfig
@@ -54,23 +56,42 @@ def _init_ffn(cfg: ModelConfig, gen, device, dtype) -> dict:
             "wo": dense_init(gen, f, d, device, dtype, scale=f ** -0.5)}
 
 
+def _init_moe(cfg: ModelConfig, gen, device, dtype) -> dict:
+    mo = cfg.moe
+    d, fe = cfg.d_model, mo.d_ff_expert
+
+    def experts(d_in, d_out):
+        w = torch.randn((mo.n_experts, d_in, d_out), generator=gen,
+                        device=device, dtype=torch.float32)
+        return w.mul_(d_in ** -0.5).to(dtype)     # 3.8 GB at full width
+    return {"router": dense_init(gen, d, mo.n_experts, device),
+            "wi": experts(d, 2 * fe),
+            "wo": experts(fe, d)}
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense attention decoders with GLU/GELU FFNs so far."""
+    """The port serves attention decoders with GLU/GELU or (unshared) MoE
+    FFNs and RoPE so far."""
     if (cfg.enc_dec or any(mx != "attn" for mx in cfg.pattern)
-            or cfg.ffn_kind() not in ("glu", "gelu") or cfg.pos not in
-            ("rope", "none")):
+            or cfg.ffn_kind() not in ("glu", "gelu", "moe")
+            or (cfg.moe is not None and cfg.moe.n_shared)
+            or cfg.pos not in ("rope", "none")):
         raise NotImplementedError(
-            f"{cfg.name}: the port supports dense attention decoders with "
-            "GLU/GELU FFNs and RoPE so far (ROADMAP Queue 1)")
+            f"{cfg.name}: the port supports attention decoders with GLU/GELU "
+            "or MoE FFNs and RoPE so far (ROADMAP Queue 1)")
 
 
 def init_layer(cfg: ModelConfig, generator: torch.Generator, device,
                dtype=torch.float32) -> dict:
     """One decoder layer's params, drawn from ``generator`` on ``device``."""
-    return {"ln1": norm_params(cfg.norm, cfg.d_model, device),
-            "ln2": norm_params(cfg.norm, cfg.d_model, device),
-            "attn": _init_attn(cfg, generator, device, dtype),
-            "mlp": _init_ffn(cfg, generator, device, dtype)}
+    p = {"ln1": norm_params(cfg.norm, cfg.d_model, device),
+         "ln2": norm_params(cfg.norm, cfg.d_model, device),
+         "attn": _init_attn(cfg, generator, device, dtype)}
+    if cfg.ffn_kind() == "moe":
+        p["moe"] = _init_moe(cfg, generator, device, dtype)
+    else:
+        p["mlp"] = _init_ffn(cfg, generator, device, dtype)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -107,12 +128,19 @@ def embed_tokens(cfg: ModelConfig, params: dict,
 
 
 def _ffn_apply(cfg: ModelConfig, lp: dict, h2: torch.Tensor,
-               ctx: LinearCtx | None = None,
-               name: str = "layer") -> torch.Tensor:
-    if cfg.ffn_kind() == "gelu":
-        return ffnmod.gelu_ffn(lp["mlp"], h2, ctx, f"{name}.mlp")
+               ctx: LinearCtx | None = None, name: str = "layer"):
+    """The layer's FFN -> (y, aux); aux is the MoE load-balance loss (0.0
+    for dense FFNs)."""
+    fk = cfg.ffn_kind()
+    if fk == "moe":
+        return moemod.moe_ffn(lp["moe"], h2, n_experts=cfg.moe.n_experts,
+                              top_k=cfg.moe.top_k,
+                              capacity_factor=cfg.moe.capacity_factor,
+                              act=cfg.act, ctx=ctx, name=f"{name}.moe")
+    if fk == "gelu":
+        return ffnmod.gelu_ffn(lp["mlp"], h2, ctx, f"{name}.mlp"), 0.0
     return ffnmod.glu_ffn(lp["mlp"], h2, act=cfg.act, ctx=ctx,
-                          name=f"{name}.mlp")
+                          name=f"{name}.mlp"), 0.0
 
 
 def _attn_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -132,15 +160,15 @@ def _attn_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def layer_seq(cfg: ModelConfig, lp: dict, h: torch.Tensor,
-              positions: torch.Tensor, ctx=None,
-              name: str = "layer") -> torch.Tensor:
+              positions: torch.Tensor, ctx=None, name: str = "layer"):
     """One attention layer in sequence mode (the reference's ``layer_seq``
-    for the ``attn`` mixer; no MoE, so no aux loss)."""
+    for the ``attn`` mixer) -> (h, aux_loss)."""
     hn = apply_norm(cfg.norm, h, lp["ln1"])
     mix = _attn_seq(cfg, lp["attn"], hn, positions, ctx, f"{name}.attn")
     h = h + mix.to(h.dtype)
     h2 = apply_norm(cfg.norm, h, lp["ln2"])
-    return h + _ffn_apply(cfg, lp, h2, ctx, name).to(h.dtype)
+    y, aux = _ffn_apply(cfg, lp, h2, ctx, name)
+    return h + y.to(h.dtype), aux
 
 
 def _default_positions(cfg: ModelConfig, b: int, s: int, device,
@@ -150,20 +178,26 @@ def _default_positions(cfg: ModelConfig, b: int, s: int, device,
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            ctx: Optional[LinearCtx] = None) -> torch.Tensor:
-    """Sequence-mode forward, layers unrolled -> logits (B, S, V)."""
+            ctx: Optional[LinearCtx] = None):
+    """Sequence-mode forward, layers unrolled -> (logits (B, S, V), aux)."""
     h = embed_tokens(cfg, params, tokens)
     b, s, _ = h.shape
     positions = _default_positions(cfg, b, s, h.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, lp in enumerate(params["layers"]):
-        h = layer_seq(cfg, lp, h, positions, ctx, f"L{i}")
+        h, aux = layer_seq(cfg, lp, h, positions, ctx, f"L{i}")
+        aux_total = aux_total + aux
     h = apply_norm(cfg.norm, h, params["final_norm"])
-    return linear(params["lm_head"], h, ctx, "lm_head")
+    return linear(params["lm_head"], h, ctx, "lm_head"), aux_total
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             ctx: Optional[LinearCtx] = None) -> torch.Tensor:
-    """Mean next-token NLL.  batch: tokens (B, S+1) [, mask (B, S)]."""
+    """Mean next-token NLL (+ the MoE aux loss, which calibration
+    differentiates through too).  batch: tokens (B, S+1) [, mask (B, S)]."""
     tokens = batch["tokens"]
-    logits = forward(cfg, params, tokens[:, :-1], ctx=ctx)
-    return cross_entropy(logits, tokens[:, 1:], batch.get("mask"))
+    logits, aux = forward(cfg, params, tokens[:, :-1], ctx=ctx)
+    loss = cross_entropy(logits, tokens[:, 1:], batch.get("mask"))
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_coef * aux
+    return loss

@@ -1,6 +1,8 @@
 """Continuous-batching LM serving engine over the paged KV-cache pool.
 
-Port of ``repro/serve/engine.py`` for attention decoders.  One scheduler
+Port of ``repro/serve/engine.py`` for attention decoders with dense or
+MoE FFNs; a sliding-window model's requests hold at most a window of
+blocks and reuse them as a ring.  One scheduler
 iteration admits queued requests while slots and blocks are free, runs ONE
 prompt chunk for the oldest mid-prefill request, then ONE decode step over
 the whole slot set.  Chunked prefill interleaves with decode, and a request

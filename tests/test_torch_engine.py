@@ -3,13 +3,19 @@
 and with RaanA-quantized weights (calibrate + AllocateBits at 4.3 average
 bits, as tests/test_decode.py:81 builds them: mixed widths including
 one-code-per-byte, outlier splits and non-power-of-2 d_keep), carried
-across by ``repro_torch.bridge``.
+across by ``repro_torch.bridge``.  Then tiny mixtral (MoE top-2, GQA,
+window 16), fp32 and quantized with grouped experts, on the churn workload
+plus a request whose window ring wraps, at a no-drop capacity and at the
+published 1.25 with four slots, where inactive slots' tied routing decides
+which active tokens the capacity drops.
 
 Step logits must agree within rtol 1e-4 (f32 everywhere; summation order
 differs, and the port's CPU attention read is the online-softmax block walk
 where the reference's is a dense softmax).  Greedy tokens on the
 mixed-length churn workload must be identical.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,10 +27,13 @@ from helpers import mixed_requests, small_pool, tiny  # noqa: E402
 
 from repro.core import calibrate as cal  # noqa: E402
 from repro.core import pipeline as pipe  # noqa: E402
+from repro.configs import registry as jreg  # noqa: E402
+from repro.core.qlinear import QuantizedGrouped as JaxQuantizedGrouped  # noqa: E402
 from repro.core.qlinear import QuantizedLinear as JaxQuantizedLinear  # noqa: E402
 from repro.models import decode as jdec  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.serve import PagedServer as JaxServer  # noqa: E402
+from repro.serve import Request as JaxRequest  # noqa: E402
 from repro.serve.pool import init_pool_caches as jax_pool_caches  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_tiny  # noqa: E402
@@ -45,12 +54,14 @@ def _no_tf32():
 
 def to_numpy_tree(node):
     """A JAX param tree as the bridge's plain containers of numpy arrays."""
-    if isinstance(node, JaxQuantizedLinear):
-        out = {k: (None if getattr(node, k) is None
-                   else np.asarray(getattr(node, k)))
-               for k in bridge.QL_TENSORS}
-        out.update({k: getattr(node, k) for k in bridge.QL_STATIC})
-        return out
+    for cls, tensors, static in (
+            (JaxQuantizedLinear, bridge.QL_TENSORS, bridge.QL_STATIC),
+            (JaxQuantizedGrouped, bridge.QG_TENSORS, bridge.QG_STATIC)):
+        if isinstance(node, cls):
+            out = {k: (None if getattr(node, k) is None
+                       else np.asarray(getattr(node, k))) for k in tensors}
+            out.update({k: getattr(node, k) for k in static})
+            return out
     if isinstance(node, dict):
         return {k: to_numpy_tree(v) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
@@ -158,3 +169,65 @@ def test_engine_greedy_tokens_identical_to_reference(models, kind):
 def test_prefix_cache_is_refused_until_ported():
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         PoolConfig(prefix_cache=True)
+
+
+MOE_ARCH = "mixtral-8x7b"
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    """Tiny mixtral, fp32 and quantized (grouped experts included), as
+    (jax params, port params); calibrated at the no-drop capacity."""
+    cfg = tiny(MOE_ARCH)
+    params = jtf.init_params(cfg, jax.random.PRNGKey(0))
+    toks = cal.zero_shot_tokens(cfg.vocab, 64)
+    stats = cal.calibrate(
+        lambda p, b, ctx: jtf.loss_fn(cfg, p, b, ctx=ctx, scan=False),
+        params, [{"tokens": jnp.asarray(toks)}])
+    qparams, _ = pipe.quantize_model(cfg, params, stats, 4.3,
+                                     jax.random.PRNGKey(3))
+    return {name: (p, bridge.params_from_reference(to_numpy_tree(p), "cpu"))
+            for name, p in (("fp32", params), ("quant", qparams))}
+
+
+def _moe_cfgs(capacity):
+    """(reference cfg, port cfg) at the no-drop or the published capacity."""
+    jcfg, tcfg = jreg.get_tiny(MOE_ARCH), get_tiny(MOE_ARCH)
+    if capacity == "nodrop":
+        jcfg = tiny(MOE_ARCH)
+        tcfg = tcfg.with_(moe=dataclasses.replace(
+            tcfg.moe, capacity_factor=jcfg.moe.capacity_factor))
+    return jcfg, tcfg
+
+
+def test_moe_tree_carries_grouped_experts(moe_models):
+    from repro_torch.core.qlinear import QuantizedGrouped
+    for lp in moe_models["quant"][1]["layers"]:
+        assert isinstance(lp["moe"]["wi"], QuantizedGrouped)
+        assert isinstance(lp["moe"]["wo"], QuantizedGrouped)
+        assert lp["moe"]["router"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("capacity,slots", [("nodrop", 2), ("published", 4)])
+@pytest.mark.parametrize("kind", ["fp32", "quant"])
+def test_moe_engine_greedy_tokens_identical_to_reference(moe_models, kind,
+                                                         capacity, slots):
+    jcfg, tcfg = _moe_cfgs(capacity)
+    jparams, tparams = moe_models[kind]
+    rng = np.random.default_rng(7)
+    long_req = JaxRequest(rid=99, prompt=rng.integers(0, jcfg.vocab, 20).astype(
+        np.int32), max_new=10)      # 30 tokens through a 16-token ring
+    jreqs = mixed_requests(jcfg) + [long_req]
+    want = JaxServer(jcfg, jparams, small_pool(
+        prefix_cache=False, max_slots=slots)).run(jreqs)
+    pool = PoolConfig(max_slots=slots, block_size=4, max_context=32,
+                      prefill_chunk=4)
+    engine = PagedServer(tcfg, tparams, pool, device="cpu")
+    got = engine.run([Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new)
+                      for r in jreqs])
+    assert set(got) == set(want)
+    for r in jreqs:
+        np.testing.assert_array_equal(
+            got[r.rid].tokens, want[r.rid].tokens,
+            err_msg=f"{kind} {capacity}: rid={r.rid}")
+    assert engine.allocator.free_blocks == engine.allocator.num_blocks - 1

@@ -49,7 +49,7 @@ def test_port_imports_without_jax_or_reference():
         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert not res.stdout.startswith("calibrating")
-    assert int(res.stdout.split()[-1]) >= 25    # every module was imported
+    assert int(res.stdout.split()[-1]) >= 46    # every module was imported
 
 
 def test_entry_points_refuse_host_without_card(monkeypatch):

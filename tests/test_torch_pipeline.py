@@ -1,7 +1,9 @@
 """Port parity, the quantization pipeline on tiny llama2 (fp32 params carried
 across by ``repro_torch.bridge``): the port's ``loss_fn``, ``calibrate``,
 ``allocate_bits`` and ``quantize_model`` against the JAX package's, then
-greedy tokens served from each pipeline's output, fused and unfused.
+greedy tokens served from each pipeline's output, fused and unfused.  On
+tiny mixtral the same pipeline with grouped MoE experts: the loss with its
+aux term, the grouped calibration stats, and an identical allocation.
 
 Tolerances: the loss within 1e-5 relative (f32, summation order differs);
 alphas rtol 1e-4 (three f32 norms multiplied) and column energies rtol
@@ -28,6 +30,7 @@ from repro.core import allocate as jalloc  # noqa: E402
 from repro.core import calibrate as jcal  # noqa: E402
 from repro.core import packing as jpacking  # noqa: E402
 from repro.core import pipeline as jpipe  # noqa: E402
+from repro.core.qlinear import QuantizedGrouped as JaxQuantizedGrouped  # noqa: E402
 from repro.core.qlinear import QuantizedLinear as JaxQuantizedLinear  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.serve import PagedServer as JaxServer  # noqa: E402
@@ -296,3 +299,76 @@ def test_served_tokens_match_reference_pipeline(setup, fused):
             top2 = np.partition(ref.logits[(r.rid, last)], -2)[-2:]
             gap = float(top2[1] - top2[0])
             assert gap <= 2 * LOGIT_TOL * scale, (r.rid, last, gap)
+
+
+MOE_ARCH = "mixtral-8x7b"
+
+
+def test_moe_pipeline_matches_reference():
+    """Tiny mixtral (no-drop capacity): the loss including the MoE aux
+    term, calibration stats of the grouped taps (m = E*d*c), and
+    quantize_model with the reference's signs — identical per-layer bits
+    (grouped entries included), bit totals and allocation objective, and
+    grouped codes within the tie tolerance."""
+    cfg = tiny(MOE_ARCH)
+    tcfg = get_tiny(MOE_ARCH)
+    tcfg = tcfg.with_(moe=dataclasses.replace(
+        tcfg.moe, capacity_factor=cfg.moe.capacity_factor))
+    jparams = jtf.init_params(cfg, jax.random.PRNGKey(1))
+    tparams = bridge.params_from_reference(to_numpy_tree(jparams), "cpu")
+    toks = jcal.zero_shot_tokens(cfg.vocab, 64)
+    want = float(jtf.loss_fn(cfg, jparams, {"tokens": jnp.asarray(toks)},
+                             scan=False))
+    got = float(ttf.loss_fn(tcfg, tparams, {"tokens": torch.from_numpy(toks)}))
+    assert abs(got - want) <= 1e-5 * abs(want)
+    jstats = jcal.calibrate(
+        lambda p, b, ctx: jtf.loss_fn(cfg, p, b, ctx=ctx, scan=False),
+        jparams, [{"tokens": jnp.asarray(toks)}])
+    tstats = tcal.calibrate(
+        lambda p, b, ctx: ttf.loss_fn(tcfg, p, b, ctx=ctx), tparams,
+        [{"tokens": torch.from_numpy(toks)}])
+    assert set(tstats) == set(jstats)
+    assert {n for n, st in tstats.items() if st.grouped} == {
+        f"L{i}.moe.{k}" for i in range(cfg.n_layers) for k in ("wi", "wo")}
+    for name, js in jstats.items():
+        ts = tstats[name]
+        assert (ts.d, ts.c, ts.m, ts.grouped, ts.n_groups) == (
+            js.d, js.c, js.m, js.grouped, js.n_groups), name
+        np.testing.assert_allclose(ts.alpha, js.alpha, rtol=1e-4, err_msg=name)
+        np.testing.assert_allclose(ts.x_col_sq, js.x_col_sq, rtol=1e-5,
+                                   err_msg=name)
+    jq, jrep = jpipe.quantize_model(cfg, jparams, jstats, AVG_BITS,
+                                    jax.random.PRNGKey(3))
+    signs = {}
+    for i, lp in enumerate(jq["layers"][0]):
+        for group in ("attn", "moe"):
+            for k, q in lp[group].items():
+                if isinstance(q, (JaxQuantizedLinear, JaxQuantizedGrouped)):
+                    signs[f"L{i}.{group}.{k}"] = (
+                        torch.tensor(np.asarray(q.signs1)),
+                        None if q.signs2 is None
+                        else torch.tensor(np.asarray(q.signs2)))
+    tq, trep = tpipe.quantize_model(tcfg, tparams, tstats, AVG_BITS,
+                                    signs=signs, device="cpu")
+    assert trep.per_layer_bits == jrep.per_layer_bits
+    assert any(".moe." in n for n in trep.per_layer_bits)
+    assert (trep.n_layers, trep.total_param_bits, trep.overhead_bits) == (
+        jrep.n_layers, jrep.total_param_bits, jrep.overhead_bits)
+    assert trep.avg_bits == jrep.avg_bits
+    assert trep.objective == pytest.approx(jrep.objective, rel=1e-4)
+    for i, lp in enumerate(tq["layers"]):
+        for k in ("wi", "wo"):
+            tg, jg = lp["moe"][k], jq["layers"][0][i]["moe"][k]
+            assert (tg.bits, tg.d, tg.c, tg.shape) == (jg.bits, jg.d, jg.c,
+                                                       jg.shape)
+            tc = tg.packed.numpy().astype(int)
+            jc = np.asarray(jg.packed).astype(int)
+            for e in range(tc.shape[0]):
+                a = tpacking.unpack_codes(torch.from_numpy(tc[e].astype(
+                    np.uint8)), tg.bits, tg.d).numpy().astype(int)
+                b = np.asarray(jpacking.unpack_codes(
+                    jg.packed[e], jg.bits, jg.d)).astype(int)
+                assert np.abs(a - b).max() <= 1, (i, k, e)
+                assert (a != b).mean() < 5e-3, (i, k, e)
+        assert torch.equal(lp["moe"]["router"],
+                           tparams["layers"][i]["moe"]["router"])

@@ -1,6 +1,7 @@
 """The port's quantize-then-serve CLI (``python -m repro_torch.launch.serve``)
-on the host: calibrate + AllocateBits + RaBitQ-H on tiny llama2, then the
-paged engine, fused and unfused.  Greedy decode is deterministic and the two
+on the host: calibrate + AllocateBits + RaBitQ-H on tiny llama2 and on tiny
+mixtral (grouped MoE experts, window 16, so the 40-token requests wrap the
+ring), then the paged engine, fused and unfused.  Greedy decode is deterministic and the two
 paths compute the same function, so the ``sample:`` lines must be
 byte-identical.  Without ``--device cpu`` the CLI runs on the card, so on a
 host with no card it must refuse with ``resolve_device``'s message."""
@@ -43,6 +44,17 @@ def test_fused_and_unfused_samples_identical():
     assert "quantized 24 layers, achieved" in out and "allocate_s=" in out
     assert "fused decode path" in out and "prefix_cache=off" in out
     assert "unfused decode path" in unfused.stdout.decode(errors="replace")
+
+
+def test_mixtral_fused_and_unfused_samples_identical():
+    arch = ("--arch", "mixtral-8x7b", "--device", "cpu")
+    fused = _run(*arch)
+    unfused = _run(*arch, "--unfused")
+    assert _sample(fused) == _sample(unfused)
+    out = fused.stdout.decode(errors="replace")
+    # 2 layers x (wq, wk, wv, wo + the grouped experts' wi, wo)
+    assert "quantized 12 layers, achieved" in out
+    assert "served 2 requests x 8 tokens" in out
 
 
 def test_refuses_to_run_on_the_host_without_a_card():
