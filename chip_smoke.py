@@ -12,10 +12,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   3. kernels vs plain versions on the card, at the main path's shapes, with
      the tolerance stated beside each check, then timed (kernel, plain
      version, one PyTorch library call computing the same function where
-     there is one): the fused RHT + dequant GEMM, the unfused GEMM, the RHT,
-     the RaBitQ code search, paged flash-decode, the grouped (MoE expert)
-     GEMM fused and unfused at Mixtral's decode and prefill shapes, and the
-     flash-attention forward at Mixtral's and llama2's shapes;
+     there is one): the fused RHT + dequant GEMM and the unfused GEMM (one
+     tensor-core kernel behind both, at decode and prefill row counts, also
+     timed at n in {1, 8, 16, 32, 64}), the RHT, the RaBitQ code search,
+     paged flash-decode, the grouped (MoE expert) GEMM fused and unfused at
+     Mixtral's decode and prefill shapes, and the flash-attention forward
+     at Mixtral's and llama2's shapes (also against its host tile walk);
   4. quantize: llama2-7b at its published width (32 layers, d_model 4096,
      32 heads, d_ff 11008, vocab 32000) in fp32, random weights from a
      seeded generator on the card; calibrated on the paper's zero-shot
@@ -26,7 +28,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   5. serve: the fp weights dropped, 8 requests through ``PagedServer.run``
      three ways -- fused with the kernels, fused with the plain versions
      forced, and unfused (the RHT kernel, then the unfused GEMM kernel);
-     greedy tokens must match;
+     greedy tokens must match; a profile of decode steps and one of
+     prefill chunks (device ms by kernel); each run counts the GEMM
+     launches of its prefill chunks and of its decode steps;
   6. Mixtral: mixtral-8x7b at its published width (d_model 4096, 32 heads
      over 8 KV heads, 8 experts top-2 of width 14336, capacity factor 1.25,
      window 4096, vocab 32000) with the depth cut to 4 of its 32 layers
@@ -41,6 +45,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      path's runs counted from zero), the nvidia-smi line, and as the last
      line ``{"ok": true, "device": {...}}``.
 
+``python3 chip_smoke.py --prefill-profile`` runs only the quantization and
+the prefill-chunk profiles of both models (see ``prefill_profile_main``).
+
 Imports nothing of JAX or of the reference package.  Exits non-zero with no
 result when no CUDA device is present.  Details too long for the end of the
 output go to ``chiprun_out/chip_smoke.json``.
@@ -50,13 +57,17 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+# the package tree to import: this checkout's src/ unless REPRO_TORCH_SRC
+# names another (``--prefill-profile`` compares two trees' packages)
+SRC = Path(os.environ.get("REPRO_TORCH_SRC", ROOT / "src")).resolve()
+sys.path.insert(0, str(SRC))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -85,19 +96,42 @@ from repro_torch.models import moe as moemod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve import PagedServer, PoolConfig, Request  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM rate and f32 without
-# tensor cores; every kernel computes in f32, as the TPU kernels do.
+# H100 SXM published dense peaks at 700 W (NVIDIA data sheet): the HBM rate
+# and, for a bound's operations, the rate for what their operands are.
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+RATES = {
+    # bf16 x bf16 on the tensor cores
+    "bf16 989 TFLOP/s": 989e12,
+    # f32 x RaBitQ codes (or x +-1 signs): the codes are integers 0-255,
+    # exact in bf16, and three bf16 terms hold an f32 significand
+    "f32 x codes 3 x bf16 330 TFLOP/s": 989e12 / 3,
+    # f32 x f32: three TF32 products per product
+    "f32 3 x TF32 165 TFLOP/s": 495e12 / 3,
+    # f32 element-wise work with no product to put on the tensor cores
+    # (the code search's candidate sweep)
+    "f32 CUDA cores 67 TFLOP/s": 67e12,
+}
+BF16, CODES, F32, SIMT = RATES
 # f32 results of two summation orders (split-K and butterfly vs Kronecker
 # matmuls for the GEMMs; warp-shuffle vs cuBLAS dots for attention):
 # |kernel - plain| <= RTOL * max|plain|.  bf16 arenas are read as the same
 # bf16 values by both versions and computed in f32, so the same bound holds.
 RTOL = 1e-4
-# bf16 flash attention: both versions compute in f32 from the same bf16
-# inputs and round the output to bf16 once; the reference kernel test's
-# bf16 tolerance (tests/test_flash_kernel.py).
-BF16_RTOL = 2e-2
+# bf16 flash attention, held element by element.  Against the plain version
+# (f32 softmax and P.V from the same bf16 inputs, output rounded to bf16
+# once) the kernel differs by the bf16 rounding of P for P.V (about 2^-9 of
+# each p, averaging out over a row's keys) and by one output rounding each
+# (up to 2^-7 of an element): |kernel - plain| <= BF16_RTOL * |plain| +
+# BF16_RTOL * the row's max|plain|, a row being one query's head_dim values.
+BF16_RTOL = 1e-2
+# Against its host tile walk, which rounds P to bf16 as the kernel does and
+# differs only in f32 summation order and exp2: an output rounding may flip
+# (an ulp of the element), and now and then a p's bf16 rounding, which
+# moves the row by up to 2^-8 * (p / l) * |v| (in a query's first rows, where
+# one key carries half the weight, about an ulp of the row's largest
+# element): |kernel - walk| <= WALK_ULPS bf16 ulps of the walk's element +
+# one bf16 ulp of the row's max|walk|.
+WALK_ULPS = 2
 # The RHT: butterfly vs Kronecker matmuls, the reference kernel test's atol
 # (tests/test_kernels.py:56) on unit-normal rows.
 RHT_ATOL = 2e-4
@@ -122,15 +156,21 @@ GEMM_SHAPES = [(4083, 4096), (4083, 22016), (10974, 4096), (4096, 4096)]
 # outlier rows are split off the grouped form) and wk/wv over 8 KV heads
 SEARCH_SHAPES = GEMM_SHAPES + [(4096, 28672), (14336, 4096), (4083, 1024)]
 GEMM_BITS = list(range(1, 9))
-GEMM_NS = [1, 8, 64]
+# n = 1 and 8 are decode; 16-64 prefill chunks and their remainders, 20 a
+# prefill chunk's MoE capacity; 100 takes two 64-row blocks (no path of the
+# two models sends more than 64 rows, the wrapper accepts any n)
+GEMM_NS = [1, 8, 16, 20, 32, 64, 100]
 RHT_NS = [1, 8, 64]
 RHT_DIMS = [2048, 4096, 8192, 16384, 4083, 10974]
 TIME_SHAPES = [(1, 4083, 4096), (8, 4083, 4096), (8, 4083, 22016),
-               (8, 10974, 4096), (64, 4083, 4096)]
+               (8, 10974, 4096), (64, 4083, 4096), (16, 4083, 4096),
+               (32, 4083, 4096)]
 # Mixtral's expert GEMMs (E, C, d, c): wi and wo at decode (8 slots, top-2:
 # C = 2) and at a 64-token prefill chunk (C = 20)
 GROUPED_SHAPES = [(8, 2, 4096, 28672), (8, 2, 14336, 4096),
                   (8, 20, 4096, 28672), (8, 20, 14336, 4096)]
+# checked, not timed: more rows per expert than one 64-row block holds
+GROUPED_CHECK_SHAPES = GROUPED_SHAPES + [(3, 100, 4083, 1024)]
 FLASH_CASES = [  # name, b, s, h, kv, hd, causal, window, dtype
     ("mixtral S=4608 G=4 window 4096", 1, 4608, 32, 8, 128, True, 4096,
      torch.float32),
@@ -140,7 +180,15 @@ FLASH_CASES = [  # name, b, s, h, kv, hd, causal, window, dtype
      torch.float32),
     ("bf16 S=2048 G=4 window 1024", 1, 2048, 32, 8, 128, True, 1024,
      torch.bfloat16),
+    ("bf16 llama2 S=2048 causal", 1, 2048, 32, 32, 128, True, None,
+     torch.bfloat16),
+    ("bf16 hd=64 G=4 S=1000 causal", 2, 1000, 8, 2, 64, True, None,
+     torch.bfloat16),
+    ("f32 window 40 (inside one key tile) G=4", 1, 1000, 8, 2, 128, True, 40,
+     torch.float32),
 ]
+FLASH_TIMED = 5                 # the first cases are timed
+WALK_MAX_S = 2048               # the host tile walk checks cases up to here
 # Mixtral: depth cut to MOE_LAYERS of 32 (widths as published); the extra
 # request is longer than the 4096-token window, so its ring wraps
 MOE_LAYERS = 4
@@ -221,10 +269,16 @@ def cycler(items):
     return call
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(least time in ms, what bounds it) at the card's published peaks."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+def bound(nbytes: float, *work: tuple[float, str]) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the peak rate for their operands
+    (``work``: (operations, rate name) pairs, their times summed)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(ops / RATES[rate] for ops, rate in work)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_rate": " + ".join(dict.fromkeys(
+                rate for ops, rate in work if ops))}
 
 
 def err_and_scale(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -251,14 +305,14 @@ def gemm_bound(n, d, c, bits, fused=True):
     passes = (1 if dh == d else 2) if fused else 0
     nbytes = (n * d * 4 + packing.packed_rows(d, bits) * c + 2 * c
               + passes * dh * 4 + n * c * 4)
-    ops = 2 * n * d * c + passes * n * dh * (dh.bit_length() - 1)
-    return bound(nbytes, ops)
+    return bound(nbytes, (2 * n * d * c, CODES),
+                 (passes * n * dh * (dh.bit_length() - 1), CODES))
 
 
-def check_gemms(gen, dev) -> tuple[float, float]:
-    """Both GEMM kernels against their plain versions: bits 1-8 at every
+def check_gemms(gen, dev) -> dict:
+    """Both GEMM entries against their plain versions: bits 1-8 at every
     shape and row count.  The unfused GEMM gets an already-rotated x."""
-    worst = {"fused": 0.0, "unfused": 0.0}
+    worst = dict.fromkeys(("fused", "unfused", "rel"), 0.0)
     for d, c in GEMM_SHAPES:
         for bits in GEMM_BITS:
             for n in GEMM_NS:
@@ -281,11 +335,13 @@ def check_gemms(gen, dev) -> tuple[float, float]:
                           f"{name} GEMM n={n} d={d} c={c} bits={bits}: "
                           f"max|err| {err} > {RTOL} * {scale}")
                     worst[name] = max(worst[name], err)
+                    worst["rel"] = max(worst["rel"], err / scale)
     n_cases = len(GEMM_SHAPES) * len(GEMM_BITS) * len(GEMM_NS)
-    log(f"rht_qmatmul and qmatmul: {n_cases} cases each (bits 1-8) within "
-        f"{RTOL} * max|plain|; max|err| fused {worst['fused']:.3e}, "
-        f"unfused {worst['unfused']:.3e}")
-    return worst["fused"], worst["unfused"]
+    log(f"rht_qmatmul and qmatmul: {n_cases} cases each (bits 1-8, n "
+        f"{GEMM_NS}) within {RTOL} * max|plain|; max|err| fused "
+        f"{worst['fused']:.3e}, unfused {worst['unfused']:.3e}; largest "
+        f"|err|/max|plain| {worst['rel']:.2e}")
+    return worst
 
 
 def time_gemm(gen, dev, n, d, c, bits, fused=True) -> dict:
@@ -322,11 +378,10 @@ def time_gemm(gen, dev, n, d, c, bits, fused=True) -> dict:
     dense = [w_eff] + [w_eff.clone() for _ in range(2)]
     lib = cycler([(w,) for w in dense])
     l_ms = graph_ms(lambda: lib(lambda w: torch.matmul(x, w)))
-    b_ms, by = gemm_bound(n, d, c, bits, fused)
     del dense, packs, w_eff
     return {"n": n, "d": d, "c": c, "bits": bits, "ms": k_ms,
-            "call_ms": call_ms, "plain_ms": p_ms,
-            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by}
+            "call_ms": call_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            **gemm_bound(n, d, c, bits, fused)}
 
 
 # --------------------------------------------------------------------- RHT
@@ -363,11 +418,11 @@ def time_rht(gen, dev, n, d) -> dict:
     l_ms = graph_ms(lambda: torch.matmul(x, m))
     dh = hadamard.largest_pow2_leq(d)
     passes = 1 if dh == d else 2
-    b_ms, by = bound(2 * n * d * 4 + passes * dh * 4,
-                     passes * n * dh * (dh.bit_length() - 1))
     del m
     return {"n": n, "d": d, "ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms,
-            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by}
+            "library_ms": l_ms,
+            **bound(2 * n * d * 4 + passes * dh * 4,
+                    (passes * n * dh * (dh.bit_length() - 1), CODES))}
 
 
 # -------------------------------------------------------------- code search
@@ -465,7 +520,7 @@ def check_code_search(gen, dev) -> dict:
 
 
 def search_bound(d, c):
-    return bound(d * c * 4 + d * c + 4 * c, 7 * N_CAND * d * c)
+    return bound(d * c * 4 + d * c + 4 * c, (7 * N_CAND * d * c, SIMT))
 
 
 def time_code_search(gen, dev, d, c, bits=4) -> dict:
@@ -474,10 +529,9 @@ def time_code_search(gen, dev, d, c, bits=4) -> dict:
                    warmup=1)
     p_ms = time_ms(lambda: rq_ops.quantize_ref(w, bits, N_CAND), iters=3,
                    warmup=1)
-    b_ms, by = search_bound(d, c)
     del w
     return {"d": d, "c": c, "bits": bits, "ms": k_ms, "plain_ms": p_ms,
-            "library_ms": None, "bound_ms": b_ms, "bound_by": by}
+            "library_ms": None, **search_bound(d, c)}
 
 
 # ------------------------------------------------------- paged attention
@@ -560,11 +614,10 @@ def time_attention(gen, dev) -> dict:
     vd = v_arena[bt.long()].reshape(b, mb * bs, kv, hd).transpose(1, 2).contiguous()
     qd = q.transpose(1, 2).contiguous()                    # (B, H, 1, hd)
     l_ms = graph_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd))
-    b_ms, by = bound(b * kv * ctx * hd * 4 * 2 + 2 * q.numel() * 4
-                     + bt.numel() * 4, 4 * b * h * ctx * hd)
     return {"b": b, "h": h, "kv": kv, "hd": hd, "context": ctx, "ms": k_ms,
             "call_ms": call_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound_ms": b_ms, "bound_by": by}
+            **bound(b * kv * ctx * hd * 4 * 2 + 2 * q.numel() * 4
+                    + bt.numel() * 4, (4 * b * h * ctx * hd, F32))}
 
 
 # ------------------------------------------------------ grouped (MoE) GEMM
@@ -590,8 +643,8 @@ def grouped_bound(e, cap, d, c, bits, fused=True):
     passes = (1 if dh == d else 2) if fused else 0
     nbytes = (e * cap * d * 4 + e * packing.packed_rows(d, bits) * c
               + e * c * 2 + passes * dh * 4 + e * cap * c * 4)
-    ops = 2 * e * cap * d * c + passes * e * cap * dh * (dh.bit_length() - 1)
-    return bound(nbytes, ops)
+    return bound(nbytes, (2 * e * cap * d * c, CODES),
+                 (passes * e * cap * dh * (dh.bit_length() - 1), CODES))
 
 
 def check_grouped(gen, dev) -> tuple[float, float]:
@@ -601,7 +654,7 @@ def check_grouped(gen, dev) -> tuple[float, float]:
     the unfused dispatch (RHT kernel over the E*C rows, then the grouped
     GEMM) against the fused plain version.  A zero row must come out 0."""
     worst = {"fused": 0.0, "unfused": 0.0}
-    for e, cap, d, c in GROUPED_SHAPES:
+    for e, cap, d, c in GROUPED_CHECK_SHAPES:
         for bits in GEMM_BITS:
             x, packed, rescale, s1, s2 = grouped_inputs(gen, dev, e, cap, d,
                                                         c, bits)
@@ -629,10 +682,10 @@ def check_grouped(gen, dev) -> tuple[float, float]:
                 key = "fused" if name == "fused" else "unfused"
                 worst[key] = max(worst[key], err)
             del x, packed, want, cases, dispatched
-    n_cases = len(GROUPED_SHAPES) * len(GEMM_BITS)
+    n_cases = len(GROUPED_CHECK_SHAPES) * len(GEMM_BITS)
     log(f"grouped rht_qmatmul and qmatmul: {n_cases} cases each (bits 1-8 x "
-        f"(E, C, d, c) {GROUPED_SHAPES}) plus the unfused dispatch, within "
-        f"{RTOL} * max|plain|, zero rows exact; max|err| fused "
+        f"(E, C, d, c) {GROUPED_CHECK_SHAPES}) plus the unfused dispatch, "
+        f"within {RTOL} * max|plain|, zero rows exact; max|err| fused "
         f"{worst['fused']:.3e}, unfused {worst['unfused']:.3e}")
     return worst["fused"], worst["unfused"]
 
@@ -670,11 +723,10 @@ def time_grouped(gen, dev, e, cap, d, c, bits=4, fused=True) -> dict:
                     if fused else w)
         del w
     l_ms = graph_ms(lambda: torch.bmm(x, dense), iters=10)
-    b_ms, by = grouped_bound(e, cap, d, c, bits, fused)
     del dense, packed, x
     return {"e": e, "cap": cap, "d": d, "c": c, "bits": bits, "ms": k_ms,
             "call_ms": call_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound_ms": b_ms, "bound_by": by}
+            **grouped_bound(e, cap, d, c, bits, fused)}
 
 
 # --------------------------------------------------------- flash attention
@@ -693,28 +745,64 @@ def flash_pairs(s, causal, window) -> int:
     return int(np.sum(hi - lo))
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (8 significand bits); 0 at 0."""
+    _, e = torch.frexp(x.abs())
+    return torch.where(x == 0, torch.zeros_like(x),
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def flash_limit(want: torch.Tensor, bf16: bool, walk: bool) -> torch.Tensor:
+    """Each element's allowed |kernel - want| (see RTOL, BF16_RTOL,
+    WALK_ULPS); ``want`` in f32."""
+    if not bf16:
+        return torch.full_like(want, RTOL * float(want.abs().max()))
+    row_max = want.abs().amax(-1, keepdim=True)
+    if walk:
+        return WALK_ULPS * bf16_ulp(want) + bf16_ulp(row_max)
+    return BF16_RTOL * (want.abs() + row_max)
+
+
 def check_flash(gen, dev) -> dict:
     """The flash-attention kernel against its plain version (the port's
-    sequence attention): |kernel - plain| <= tol * max|plain|, tol RTOL in
-    f32 and BF16_RTOL in bf16."""
-    worst = {"f32": 0.0, "bf16": 0.0}
+    sequence attention) and, up to S = WALK_MAX_S, against the host walk of
+    its own tiles (``flash_tile_walk``): in f32 |kernel - other| <= RTOL *
+    max|other|; in bf16 element by element (BF16_RTOL against the plain
+    version, WALK_ULPS bf16 ulps against the walk).  Reports each
+    comparison's max|err| and largest share of its limit."""
+    from repro_torch.kernels.flash_attention.ref import flash_tile_walk
+    worst = {f"{p}{t}{m}": 0.0 for p in ("", "walk_") for t in ("f32", "bf16")
+             for m in ("", "_share")}
     for name, b, s, h, kv, hd, causal, window, dtype in FLASH_CASES:
         q, k, v = flash_inputs(gen, dev, b, s, h, kv, hd, dtype)
         got = fops.flash_attention_cuda(q, k, v, causal=causal, window=window)
-        want = attention_ref(q, k, v, causal=causal, window=window)
+        wants = {"": attention_ref(q, k, v, causal=causal, window=window)}
+        if s <= WALK_MAX_S:
+            wants["walk_"] = flash_tile_walk(q, k, v, causal=causal,
+                                             window=window)
         torch.cuda.synchronize()
-        err, scale = err_and_scale(got.float(), want.float())
         bf16 = dtype == torch.bfloat16
-        tol = BF16_RTOL if bf16 else RTOL
-        check(got.dtype == dtype and bool(torch.isfinite(got).all())
-              and err <= tol * scale,
-              f"flash_attention {name}: max|err| {err} > {tol} * {scale}")
-        key = "bf16" if bf16 else "f32"
-        worst[key] = max(worst[key], err)
-        del q, k, v, got, want
-    log(f"flash_attention: {len(FLASH_CASES)} cases within {RTOL} (f32) / "
-        f"{BF16_RTOL} (bf16) * max|plain|; max|err| f32 {worst['f32']:.3e}, "
-        f"bf16 {worst['bf16']:.3e}")
+        for prefix, want in wants.items():
+            want = want.float()
+            err = (got.float() - want).abs()
+            share = float((err / flash_limit(want, bf16, bool(prefix))).max())
+            check(got.dtype == dtype and bool(torch.isfinite(got).all())
+                  and share <= 1.0,
+                  f"flash_attention {name} vs {prefix or 'plain '}: an "
+                  f"element's |err| is {share:.3f} of its limit (max|err| "
+                  f"{float(err.max())})")
+            key = prefix + ("bf16" if bf16 else "f32")
+            worst[key] = max(worst[key], float(err.max()))
+            worst[key + "_share"] = max(worst[key + "_share"], share)
+        del q, k, v, got, wants
+    log(f"flash_attention: {len(FLASH_CASES)} cases; f32 within {RTOL} * "
+        f"max|plain|, bf16 element by element within {BF16_RTOL} * (|plain| "
+        f"+ row max|plain|) and {WALK_ULPS} bf16 ulps + one ulp of the row's "
+        f"max|walk| of the host tile walk (S <= {WALK_MAX_S}); max|err| "
+        f"(share of limit) f32 {worst['f32']:.3e} ({worst['f32_share']:.3f}),"
+        f" bf16 {worst['bf16']:.3e} ({worst['bf16_share']:.3f}); walk f32 "
+        f"{worst['walk_f32']:.3e} ({worst['walk_f32_share']:.3f}), bf16 "
+        f"{worst['walk_bf16']:.3e} ({worst['walk_bf16_share']:.3f})")
     return worst
 
 
@@ -741,13 +829,14 @@ def time_flash(gen, dev, name, b, s, h, kv, hd, causal, window, dtype) -> dict:
                                          window=window), iters=2, warmup=1)
     l_ms = graph_ms(lambda: sdpa(q, k, v, causal, window), iters=5)
     pairs = flash_pairs(s, causal, window)
-    b_ms, by = bound((q.numel() * 2 + k.numel() * 2) * q.element_size(),
-                     4 * hd * pairs * h * b)
+    work = bound((q.numel() * 2 + k.numel() * 2) * q.element_size(),
+                 (4 * hd * pairs * h * b,
+                  BF16 if dtype == torch.bfloat16 else F32))
     del q, k, v
     return {"case": name, "b": b, "s": s, "h": h, "kv": kv, "hd": hd,
             "causal": causal, "window": window, "dtype": str(dtype),
-            "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound_ms": b_ms, "bound_by": by, "pairs_per_head": pairs}
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, **work,
+            "pairs_per_head": pairs}
 
 
 # ---------------------------------------------------------------- quantize
@@ -834,10 +923,10 @@ def near_tie_gap(w, kc, pc, bits) -> float:
     return float(((ek - ep).abs() / ep.abs()).max())
 
 
-def quantize_phase(dev) -> tuple[dict, dict]:
+def quantize_phase(dev, compare: bool = True) -> tuple[dict, dict]:
     """Build fp32 llama2-7b on the card, calibrate, allocate and quantize it
-    with the code-search kernel (the main path, counted), then quantize the
-    same layers with the plain code search and compare."""
+    with the code-search kernel (the main path, counted), then (``compare``)
+    quantize the same layers with the plain code search and compare."""
     cfg = get_config("llama2-7b")
     t0 = time.monotonic()
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
@@ -896,8 +985,9 @@ def quantize_phase(dev) -> tuple[dict, dict]:
     check(all(np.isfinite(st.alpha) and st.alpha > 0
               for st in stats.values()), "calibration gave a bad alpha")
 
-    out["plain_comparison"] = quantize_plain_and_compare(
-        cfg, params, stats, rep, qls, dev)
+    if compare:
+        out["plain_comparison"] = quantize_plain_and_compare(
+            cfg, params, stats, rep, qls, dev)
     del params, stats
     torch.cuda.empty_cache()
     return out, qparams
@@ -950,23 +1040,42 @@ def counts() -> dict:
             "flash_attention": fops.launches, "rabitq_quant": rq_ops.launches}
 
 
+def gemm_launches() -> int:
+    """Launches of the dequant GEMM kernel, through any of its entries."""
+    return (qops.launches + qops.unfused_launches + qops.grouped_launches
+            + qops.grouped_unfused_launches)
+
+
 class GapRecordingServer(PagedServer):
     """Records each greedy step's top-2 logit gap and logit scale, the
     tokens held in the KV arena at each decode step (a windowed request
-    holds at most its ring), and how far a request ran past its ring."""
+    holds at most its ring), how far a request ran past its ring, and the
+    dequant GEMM's launches in prefill chunks and in decode steps."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
         self.gaps: dict = {}
         self.step_tokens: list = []
         self.past_ring = 0
+        self.gemms = {"prefill": 0, "decode": 0}
+
+    def _count_gemms(self, phase, fn, *a):
+        before = gemm_launches()
+        out = fn(*a)
+        self.gemms[phase] += gemm_launches() - before
+        return out
+
+    def _prefill_one(self, t0, results):
+        return self._count_gemms("prefill", super()._prefill_one, t0,
+                                 results)
 
     def _decode_once(self, t0, results):
         lens = [(len(st.served) + len(st.out), st.ring_cap)
                 for st in self._active.values()]
         self.step_tokens.append(sum(min(n, cap) for n, cap in lens))
         self.past_ring = max([self.past_ring] + [n - cap for n, cap in lens])
-        return super()._decode_once(t0, results)
+        return self._count_gemms("decode", super()._decode_once, t0,
+                                 results)
 
     def _sample(self, logits, rid, step):
         top2 = np.partition(logits, -2)[-2:]
@@ -1017,10 +1126,15 @@ def serve_summary(engine, results, wall, cfg, params,
           and all(len(r.tokens) == GEN_LEN for r in results.values())
           and all(0 <= int(t) < cfg.vocab for r in results.values()
                   for t in r.tokens), "serve produced malformed output")
+    check(engine.gemms["prefill"] > 0 and engine.gemms["decode"] > 0,
+          f"GEMM launches {engine.gemms}: the prefill chunks and the decode "
+          f"steps must both reach the GEMM kernel")
     return {"wall_s": wall, "tokens": n_tok, "tok_per_s": n_tok / wall,
             "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
             "decode_steps": st["decode_steps"],
             "prefill_chunks": st["prefill_chunks"],
+            "prefill_chunk_ms": 1e3 * st["prefill_s"] / st["prefill_chunks"],
+            "gemm_launches": engine.gemms,
             "decode_step_ms": 1e3 * st["decode_s"] / st["decode_steps"],
             "mean_occupancy": st["mean_occupancy"],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1070,12 +1184,7 @@ def profile_decode(cfg, params, dev, pool, steps: int = 8,
                    labels=()) -> dict:
     """Where a decode step's time goes: 8 requests (prompt 128, 64 new
     tokens) are admitted and prefilled, then ``steps`` pure decode steps
-    run under torch.profiler.  Device time is the sum of kernel times (one
-    stream, so kernels do not overlap); the idle share is the rest of the
-    host-clock step time.  ``labels`` (see ``labelled``) name ranges whose
-    device time is reported too."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    run under torch.profiler (``profile_steps``)."""
     engine = PagedServer(cfg, params, pool, device=dev)
     rng = np.random.default_rng(SEED + 1)
     for i in range(pool.max_slots):
@@ -1083,6 +1192,37 @@ def profile_decode(cfg, params, dev, pool, steps: int = 8,
             0, cfg.vocab, 128).astype(np.int32)))
     for _ in range(pool.max_slots * 128 // pool.prefill_chunk):
         engine.step()                 # one prompt chunk + one decode each
+    out = profile_steps(engine, steps, labels)
+    log(f"decode profile: {json.dumps(out)}")
+    return out
+
+
+def profile_prefill(cfg, params, dev, pool, chunks: int = 4,
+                    labels=()) -> dict:
+    """Where a prefill chunk's time goes: one request of (chunks + 2) full
+    chunks is admitted, its first chunk runs outside the profile, then
+    ``chunks`` steps that each run one 64-token chunk and nothing else
+    (no request is decoding yet) run under torch.profiler."""
+    engine = PagedServer(cfg, params, pool, device=dev)
+    rng = np.random.default_rng(SEED + 2)
+    engine.submit(Request(rid=200, max_new=2, prompt=rng.integers(
+        0, cfg.vocab, (chunks + 2) * pool.prefill_chunk).astype(np.int32)))
+    engine.step()
+    out = profile_steps(engine, chunks, labels)
+    check(engine.stats["prefill_chunks"] == chunks + 1
+          and not engine.stats.get("decode_steps"),
+          "the prefill profile ran something other than prompt chunks")
+    log(f"prefill profile: {json.dumps(out)}")
+    return out
+
+
+def profile_steps(engine, steps: int, labels=()) -> dict:
+    """``steps`` engine steps under torch.profiler.  Device time is the sum
+    of kernel times (one stream, so kernels do not overlap); the idle share
+    is the rest of the host-clock step time.  ``labels`` (see ``labelled``)
+    name ranges whose device time is reported too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with labelled(labels), profile(activities=[ProfilerActivity.CPU,
                                                ProfilerActivity.CUDA]) as prof:
@@ -1117,14 +1257,17 @@ def profile_decode(cfg, params, dev, pool, steps: int = 8,
             r["count_per_step"] = e.count / steps
             r["host_ms_per_step"] = e.cpu_time_total / 1e3 / steps
             r["kernel_ms_per_step"] = e.device_time_total / 1e3 / steps
-    log(f"decode profile: {json.dumps(out)}")
     return out
+
+
+def llama2_pool():
+    return PoolConfig(max_slots=8, block_size=16,
+                      max_context=max(PROMPT_LENS) + GEN_LEN, prefill_chunk=64)
 
 
 def serve_phase(dev, params) -> dict:
     cfg = get_config("llama2-7b")
-    pool = PoolConfig(max_slots=8, block_size=16,
-                      max_context=max(PROMPT_LENS) + GEN_LEN, prefill_chunk=64)
+    pool = llama2_pool()
     # warm-up (library loads, allocator, cuBLAS handles) outside the counts
     for fused in (True, False):
         PagedServer(cfg, params, pool, fused=fused, device=dev).run(
@@ -1137,11 +1280,13 @@ def serve_phase(dev, params) -> dict:
     out["weights_only_bound_ms"] = decode_step_bound_ms(cfg, params, 0.0)
     out["launches"] = launches
     log(f"serve fused (kernels): {out['tokens']} tokens in {wall:.2f} s = "
-        f"{out['tok_per_s']:.1f} tok/s; prefill {out['prefill_s']:.2f} s, "
-        f"decode {out['decode_s']:.2f} s over {out['decode_steps']} steps "
-        f"({out['decode_step_ms']:.2f} ms/step, bound "
-        f"{out['decode_step_bound_ms']:.3f} ms); peak "
-        f"{out['peak_mem_gib']:.2f} GiB; launches {launches}")
+        f"{out['tok_per_s']:.1f} tok/s; prefill {out['prefill_s']:.2f} s over "
+        f"{out['prefill_chunks']} chunks ({out['prefill_chunk_ms']:.2f} "
+        f"ms/chunk), decode {out['decode_s']:.2f} s over "
+        f"{out['decode_steps']} steps ({out['decode_step_ms']:.2f} ms/step, "
+        f"bound {out['decode_step_bound_ms']:.3f} ms); peak "
+        f"{out['peak_mem_gib']:.2f} GiB; launches {launches}; GEMM launches "
+        f"{engine.gemms}")
     check(launches["rht_qmatmul"] > 0 and launches["paged_attention"] > 0,
           f"a kernel of the fused path never launched: {launches}")
 
@@ -1151,6 +1296,7 @@ def serve_phase(dev, params) -> dict:
     log(f"launches per decode step: {per_step}")
     del engine                  # its arena; later peaks count their own
     out["decode_profile"] = profile_decode(cfg, params, dev, pool)
+    out["prefill_profile"] = profile_prefill(cfg, params, dev, pool)
 
     # the unfused A/B path: the RHT kernel, then the unfused GEMM kernel
     zero_counts()
@@ -1161,7 +1307,8 @@ def serve_phase(dev, params) -> dict:
     unfused["divergences"] = divergences(results, unf_results, unf)
     out["unfused"] = unfused
     log(f"serve unfused (kernels): {unfused['tokens']} tokens in "
-        f"{unf_wall:.2f} s = {unfused['tok_per_s']:.1f} tok/s; decode "
+        f"{unf_wall:.2f} s = {unfused['tok_per_s']:.1f} tok/s; prefill "
+        f"{unfused['prefill_s']:.2f} s; decode "
         f"{unfused['decode_step_ms']:.2f} ms/step (bound "
         f"{unfused['decode_step_bound_ms']:.3f} ms); launches {unf_launches};"
         f" greedy tokens identical to fused for "
@@ -1199,12 +1346,12 @@ def moe_config():
 MOE_PROMPT_LENS = PROMPT_LENS + [MOE_LONG_PROMPT]
 
 
-def moe_quantize_phase(dev) -> tuple[dict, dict]:
+def moe_quantize_phase(dev, compare: bool = True) -> tuple[dict, dict]:
     """fp32 Mixtral (4 layers, published widths) on the card, calibrated,
     allocated (4.0 bits) and quantized, the experts as QuantizedGrouped with
-    one code-search launch per expert (the main path, counted); then the
-    same weights again with the plain code search, compared column by
-    column.  The fp weights are dropped after."""
+    one code-search launch per expert (the main path, counted); then
+    (``compare``) the same weights again with the plain code search,
+    compared column by column.  The fp weights are dropped after."""
     cfg = moe_config()
     t0 = time.monotonic()
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(
@@ -1273,8 +1420,9 @@ def moe_quantize_phase(dev) -> tuple[dict, dict]:
               and lp["moe"]["router"].dtype == torch.float32
               for lp in qparams["layers"] for k in ("wi", "wo")),
           "mixtral: experts not grouped-quantized or router not fp32")
-    out["plain_comparison"] = quantize_plain_and_compare(
-        cfg, params, stats, rep, qls, dev)
+    if compare:
+        out["plain_comparison"] = quantize_plain_and_compare(
+            cfg, params, stats, rep, qls, dev)
     del params, stats
     torch.cuda.empty_cache()
     return out, qparams
@@ -1283,6 +1431,10 @@ def moe_quantize_phase(dev) -> tuple[dict, dict]:
 def moe_pool():
     return PoolConfig(max_slots=8, block_size=16,
                       max_context=MOE_LONG_PROMPT + GEN_LEN, prefill_chunk=64)
+
+
+MOE_PREFILL_LABELS = [(moemod, "moe_ffn", "moe_ffn"),
+                      (moemod, "_expert_matmul", "moe_expert_gemms")]
 
 
 def launches_per_decode_step(cfg, params, dev, engine) -> dict:
@@ -1323,7 +1475,9 @@ def moe_serve_phase(dev, params) -> dict:
     out["tokens_past_ring"] = engine.past_ring
     log(f"mixtral serve fused (kernels): {out['tokens']} tokens in "
         f"{wall:.2f} s = {out['tok_per_s']:.1f} tok/s; prefill "
-        f"{out['prefill_s']:.2f} s over {out['prefill_chunks']} chunks, decode "
+        f"{out['prefill_s']:.2f} s over {out['prefill_chunks']} chunks "
+        f"({out['prefill_chunk_ms']:.2f} ms/chunk; GEMM launches "
+        f"{engine.gemms}), decode "
         f"{out['decode_s']:.2f} s over {out['decode_steps']} steps "
         f"({out['decode_step_ms']:.2f} ms/step, bound "
         f"{out['decode_step_bound_ms']:.3f} ms); peak "
@@ -1349,6 +1503,8 @@ def moe_serve_phase(dev, params) -> dict:
         labels=[(moemod, "moe_ffn", "moe_ffn"),
                 (moemod, "_expert_matmul", "moe_expert_gemms"),
                 (attnmod, "paged_decode_attention", "paged_attention")])
+    out["prefill_profile"] = profile_prefill(cfg, params, dev, pool,
+                                             labels=MOE_PREFILL_LABELS)
 
     zero_counts()
     unf, unf_results, unf_wall = serve(cfg, params, dev, pool, fused=False,
@@ -1360,7 +1516,8 @@ def moe_serve_phase(dev, params) -> dict:
     unfused["divergences"] = divergences(results, unf_results, unf)
     out["unfused"] = unfused
     log(f"mixtral serve unfused (kernels): {unfused['tokens']} tokens in "
-        f"{unf_wall:.2f} s = {unfused['tok_per_s']:.1f} tok/s; decode "
+        f"{unf_wall:.2f} s = {unfused['tok_per_s']:.1f} tok/s; prefill "
+        f"{unfused['prefill_s']:.2f} s; decode "
         f"{unfused['decode_step_ms']:.2f} ms/step; launches {unf_launches}; "
         f"greedy tokens identical to fused for "
         f"{len(results) - len(unfused['divergences'])}/{len(results)}")
@@ -1388,6 +1545,36 @@ def moe_serve_phase(dev, params) -> dict:
     return out
 
 
+def prefill_profile_main(dev, smi) -> int:
+    """``--prefill-profile``: build, quantize llama2-7b and Mixtral as the
+    full run does (without the plain code-search comparison) and run only
+    ``profile_prefill`` for each, once to warm up and once measured; prints
+    one JSON line.  With REPRO_TORCH_SRC naming an unpacked earlier tree
+    (``git archive``), it measures that tree's package, so two trees'
+    prefill device times can be compared on one card in one call:
+
+        REPRO_TORCH_SRC=build/parent/src \
+            python3 chip_smoke.py --prefill-profile
+        python3 chip_smoke.py --prefill-profile
+    """
+    _build.build()
+    out = {"src": str(SRC), "gpu": smi}
+    for name, phase, cfg_of, pool_of, labels in (
+            ("llama2", quantize_phase, lambda: get_config("llama2-7b"),
+             llama2_pool, ()),
+            ("mixtral", moe_quantize_phase, moe_config, moe_pool,
+             MOE_PREFILL_LABELS)):
+        _, qparams = phase(dev, compare=False)
+        for _ in range(2):
+            prof = profile_prefill(cfg_of(), qparams, dev, pool_of(),
+                                   labels=labels)
+        out[name] = prof
+        del qparams
+        torch.cuda.empty_cache()
+    log(json.dumps({"prefill_profile": out}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1398,6 +1585,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = gpu_line()
     log(f"gpu: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if sys.argv[1:] == ["--prefill-profile"]:
+        return prefill_profile_main(dev, smi)
 
     t_build = time.monotonic()
     logs = _build.build()
@@ -1416,7 +1605,8 @@ def main() -> int:
             f"with spills (full report in chip_smoke.json)")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    gemm_err, unfused_err = check_gemms(gen, dev)
+    gemm_worst = check_gemms(gen, dev)
+    gemm_err, unfused_err = gemm_worst["fused"], gemm_worst["unfused"]
     rht_err = check_rht(gen, dev)
     search = check_code_search(gen, dev)
     attn_err = check_attention(gen, dev)
@@ -1439,7 +1629,8 @@ def main() -> int:
                      for shape in GROUPED_SHAPES]
     grouped_unfused_times = [time_grouped(gen, dev, *shape, fused=False)
                              for shape in GROUPED_SHAPES]
-    flash_times = [time_flash(gen, dev, *case) for case in FLASH_CASES]
+    flash_times = [time_flash(gen, dev, *case)
+                   for case in FLASH_CASES[:FLASH_TIMED]]
     for name, rows in (("grouped_rht_qmatmul", grouped_times),
                        ("grouped_qmatmul", grouped_unfused_times),
                        ("flash_attention", flash_times)):
@@ -1466,8 +1657,12 @@ def main() -> int:
                         "unfused": moe_serve["unfused"]["launches"]}}
 
     def by_path(kernel, run):
-        return {path: r["quantize"] if run == "quantize" else r[run][kernel]
-                for path, r in runs.items()}
+        if run == "quantize":
+            return {path: r["quantize"] for path, r in runs.items()}
+        if run == "serve":      # the fused and the unfused run together
+            return {path: r["fused"][kernel] + r["unfused"][kernel]
+                    for path, r in runs.items()}
+        return {path: r[run][kernel] for path, r in runs.items()}
     on_path = {  # kernel -> (run that counts it, paths that must launch it)
         "rht_qmatmul": ("fused", ("llama2", "mixtral")),
         "paged_attention": ("fused", ("llama2", "mixtral")),
@@ -1482,6 +1677,15 @@ def main() -> int:
     for k, (_, paths) in on_path.items():
         check(all(launches[k][p] > 0 for p in paths),
               f"{k}: not launched on every path that runs it: {launches[k]}")
+    # the GEMM kernel's launches by serve run and phase
+    gemms = {path: {run: r["gemm_launches"] for run, r in (
+                 ("fused", serve_r), ("unfused", serve_r["unfused"]))}
+             for path, serve_r in (("llama2", serve_out),
+                                   ("mixtral", moe_serve))}
+    check(all(run["prefill"] and run["decode"] for by_run in gemms.values()
+              for run in by_run.values()),
+          f"the prefill chunks or the decode steps did not reach the GEMM "
+          f"kernel: {gemms}")
 
     def entry(name, source, replaces, err, t, shape_keys, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -1490,9 +1694,11 @@ def main() -> int:
                 "launches_by_path": launches[name],
                 "max_abs_err": err, "ms": t["ms"], "kernel_ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "bound_by": t["bound_by"], "bound_rate": t["bound_rate"],
+                "library_ms": t["library_ms"],
                 "shape": {k: t[k] for k in shape_keys}, **extra}
     decode_gemm = gemm_times[1]          # n=8 slots, wq/wk/wv/wo at 4 bits
+    prefill_gemm = gemm_times[4]         # n=64, a prefill chunk's wq
     decode_unfused = unfused_times[1]
     decode_rht = rht_times[0]            # n=8, d_keep 4083
     search_t = search_times[0]           # (4083, 4096): 128 of 192 weights
@@ -1502,7 +1708,15 @@ def main() -> int:
     kernels = [
         entry("rht_qmatmul", "src/repro_torch/csrc/rht_qmatmul.cu",
               "src/repro/kernels/qmatmul/qmatmul.py:164", gemm_err,
-              decode_gemm, ("n", "d", "c", "bits")),
+              decode_gemm, ("n", "d", "c", "bits"),
+              prefill={k: prefill_gemm[k] for k in (
+                  "n", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms")},
+              gemm_launches_by_run_and_phase=gemms,
+              note="one GEMM kernel (dequant_gemm_kernel) behind every "
+                   "entry; gemm_launches_by_run_and_phase counts its "
+                   "launches through any entry in each serve run's prefill "
+                   "chunks and decode steps"),
         entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention/paged.py:98", attn_err,
               attn_time, ("b", "h", "kv", "hd", "context")),
@@ -1533,7 +1747,8 @@ def main() -> int:
               ("b", "s", "h", "kv", "hd", "causal", "window"),
               on_main_path=False, max_abs_err_bf16=flash_err["bf16"],
               note="no model path calls it, as in the reference; held "
-                   "against its plain version in the kernel phase"),
+                   "against its plain version and its host tile walk in "
+                   "the kernel phase"),
     ]
     detail = {"gpu": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -1543,7 +1758,8 @@ def main() -> int:
               "attention_time": attn_time, "quantize": quant_out,
               "serve": serve_out, "grouped_times": grouped_times,
               "grouped_unfused_times": grouped_unfused_times,
-              "flash_times": flash_times, "mixtral_quantize": moe_quant,
+              "flash_times": flash_times,
+              "gemm_check": gemm_worst, "mixtral_quantize": moe_quant,
               "mixtral_serve": moe_serve, "kernels": kernels}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log(json.dumps({"kernels": kernels}))

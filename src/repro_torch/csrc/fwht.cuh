@@ -56,14 +56,15 @@ __device__ inline void fwht_block(float* v, const float* signs_s, int n) {
   __syncthreads();
 }
 
-// out[row] = practical_rht(x[row]); rowsum[row] = sum(out[row]) when rowsum
-// is not null (the dequant GEMM's c_b correction).  The row sum is taken in a
-// fixed order (warp shuffles, then warps in index order), so it does not vary
-// run to run.
+// out[row * out_ld + i] = practical_rht(x[row])[i], zero for d <= i < out_ld
+// (the tensor-core GEMM's padded rows); rowsum[row] = sum(rotated row) when
+// rowsum is not null (the dequant GEMM's c_b correction).  The row sum is
+// taken in a fixed order (warp shuffles, then warps in index order), so it
+// does not vary run to run.
 __global__ void __launch_bounds__(kRotThreads)
 rotate_kernel(const float* __restrict__ x, const float* __restrict__ signs1,
               const float* __restrict__ signs2, float* __restrict__ out,
-              float* __restrict__ rowsum, int d, int d_hat) {
+              float* __restrict__ rowsum, int d, int d_hat, int out_ld) {
   extern __shared__ float smem[];
   float* sx = smem;                   // d
   float* s1 = sx + d;                 // d_hat
@@ -77,11 +78,12 @@ rotate_kernel(const float* __restrict__ x, const float* __restrict__ signs1,
   fwht_block(sx, s1, d_hat);
   if (d_hat != d) fwht_block(sx + (d - d_hat), s2, d_hat);
   float part = 0.f;
-  float* dst = out + row * d;
+  float* dst = out + row * out_ld;
   for (int i = threadIdx.x; i < d; i += blockDim.x) {
     dst[i] = sx[i];
     part += sx[i];
   }
+  for (int i = d + threadIdx.x; i < out_ld; i += blockDim.x) dst[i] = 0.f;
   if (rowsum == nullptr) return;
   for (int off = 16; off > 0; off >>= 1)
     part += __shfl_down_sync(0xffffffffu, part, off);
@@ -102,7 +104,7 @@ inline size_t rotate_smem_bytes(int d, int d_hat) {
 inline cudaError_t launch_rotate(const float* x, const float* signs1,
                                  const float* signs2, float* out,
                                  float* rowsum, int n, int d, int d_hat,
-                                 cudaStream_t st) {
+                                 int out_ld, cudaStream_t st) {
   // opt in every time: past 48 KB of static + dynamic shared memory a
   // launch without the attribute is refused
   const size_t smem = rotate_smem_bytes(d, d_hat);
@@ -110,7 +112,7 @@ inline cudaError_t launch_rotate(const float* x, const float* signs1,
       rotate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   rotate_kernel<<<n, kRotThreads, smem, st>>>(x, signs1, signs2, out, rowsum,
-                                              d, d_hat);
+                                              d, d_hat, out_ld);
   return cudaGetLastError();
 }
 

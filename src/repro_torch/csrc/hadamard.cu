@@ -20,6 +20,6 @@
 
 extern "C" int rht(const float* x, const float* signs1, const float* signs2,
                    float* out, int n, int d, int d_hat, void* stream) {
-  return fwht::launch_rotate(x, signs1, signs2, out, nullptr, n, d, d_hat,
+  return fwht::launch_rotate(x, signs1, signs2, out, nullptr, n, d, d_hat, d,
                              static_cast<cudaStream_t>(stream));
 }

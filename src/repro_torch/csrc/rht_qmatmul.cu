@@ -9,7 +9,7 @@
 // Pallas kernels (repro/kernels/qmatmul/ops.py:121,
 // grouped_rht_quantized_matmul): the experts share the signs, so the
 // rotation runs once over all groups*n rows, and the GEMM folds the expert
-// index into blockIdx.y beside the row tiles; expert e reads
+// index into blockIdx.y beside the row blocks; expert e reads
 // packed + e*prow*c, x_rot rows [e*n, e*n + n) and rescale[e*c, e*c + c).
 //
 // rht_qmatmul replaces repro/kernels/qmatmul/qmatmul.py:
@@ -22,148 +22,50 @@
 // rht_qmatmul launches, on one stream:
 //
 //   1. fwht::rotate_kernel (fwht.cuh): one CTA per row, sign flip and
-//      in-shared-memory butterfly FWHT (Alg. 5); writes x_rot (n, d) f32
-//      and rowsum (n,) to scratch.  qmatmul launches rowsum_kernel instead.
-//   2. dequant_gemm: CTA tile = one expert's BN rows x 128 columns x one
-//      split of the packed rows; its 8 warps share the columns and take interleaved
-//      packed rows, and sum their partials through shared memory in a fixed
-//      order.  Each thread owns 4 adjacent columns, reads their packed bytes
-//      as one 32-bit word (coalesced along c), 8 rows in flight at once,
-//      unpacks 8/b codes per byte in registers (one code per byte for b in
-//      {3,5,6,7}) and runs f32 FMAs against x_rot staged in shared memory.
-//      The k loop stops at k < d, never at rows * per: the last packed byte
-//      may hold pad codes, and code 0 - c_b is not 0.
-//   3. splitk_epilogue: sums the splits in a fixed order (deterministic) and
-//      applies (acc - c_b * rowsum) * float(rescale_f16).
+//      in-shared-memory butterfly FWHT (Alg. 5); writes x_rot f32 with its
+//      rows padded with zeros to a multiple of 64 (16-byte aligned rows for
+//      cp.async; the zeros cancel the pad codes, since code 0 - c_b is not
+//      0), and rowsum in f32.  qmatmul launches rowsum_kernel instead, which
+//      writes the padded copy of its given x_rot.
+//   2. dequant_gemm_kernel computes Y^T = codes^T X_rot^T on mma.sync.m16n8k16
+//      (bf16 in, f32 accumulate): M = 256 code columns per CTA (32 per warp
+//      of 8), N = every row of the group up to 64 (8 per instruction; a
+//      decode step's 8 slots are one n-tile, a prefill chunk's 64 rows
+//      eight, Mixtral's C = 20 three, zero-padded), K = d in 64-value
+//      chunks, split across CTAs where the columns alone leave SMs idle.
+//      Code and x chunks go through a 3-stage cp.async ring in shared
+//      memory; each x chunk is then cut once per CTA into three bf16 planes,
+//      hi + mid + lo = x exactly (split3), and the codes are unpacked in
+//      registers straight into A fragments.  Codes are integers 0-255, exact
+//      in bf16, and a bf16 x bf16 product is exact in f32, so the three
+//      products per code fragment (one per plane) give the f32 product; only
+//      the f32 summation order differs from the plain version.  Each code
+//      byte is read from HBM and unpacked once per CTA, and x is read from
+//      L2 as f32 once per 256 columns.  The K slots of an m16n8k16 step are
+//      permuted so that a thread's four K values are four consecutive d
+//      indices (a 64-bit load of a plane row; one byte of 2-bit codes), and
+//      the M slots so that a thread's columns are four adjacent ones (one
+//      32-bit load per packed row, one float4 store per output row).
+//   3. splitk_epilogue: sums the splits in a fixed order (deterministic, so
+//      greedy tokens do not vary run to run) and applies
+//      (acc - c_b * rowsum) * float(rescale_f16).
 //
-// What bounds it: packed-code bytes and f32 FMAs are of one order at decode
-// (n <= 8); f32 FMAs at prefill (n = 64).  The x_rot round trip is n*d*8
-// bytes, about 3% of the 4-bit codes of the same layer.  Tensor cores
-// (wgmma), TMA and a fused rotation are later work.
+// What bounds it on this card: at decode (n <= 8) the packed-code bytes
+// (4 bits, d 4083, c 4096: 8.4 MB, 2.5 us); at a 64-row prefill chunk the
+// three bf16 products (6.4 GFLOP at 989 TFLOP/s, 6.5 us); at Mixtral's
+// C = 20 the two are of one order.  Code rows are read in 16-byte chunks,
+// so c must be a multiple of 16 (every model linear's is).
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fwht.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kGemmThreads = 32 * kWarps;
-constexpr int kCols = 4;            // columns per thread (one 4-byte load)
-constexpr int kColsPerCta = 32 * kCols;
-constexpr int kKChunk = 512;        // d values of x_rot staged per pass
-constexpr int kBatch = 8;           // packed rows a thread loads at once
 constexpr int kSumThreads = 256;
-
-template <int BITS, int BN>
-__global__ void __launch_bounds__(kGemmThreads)
-dequant_gemm_kernel(const float* __restrict__ xrot,
-                    const uint8_t* __restrict__ packed,
-                    float* __restrict__ partial, int n, int d, int c,
-                    int rows_per_split, int row_tiles) {
-  constexpr int kPer = (BITS == 1 || BITS == 2 || BITS == 4 || BITS == 8)
-                           ? 8 / BITS : 1;
-  constexpr uint32_t kMask = (1u << BITS) - 1u;
-  __shared__ __align__(16) float xs[kKChunk][BN];
-  __shared__ float red[kWarps - 1][BN * kCols][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col0 = blockIdx.x * kColsPerCta + lane * kCols;
-  const int group = blockIdx.y / row_tiles;         // the expert
-  const int row0 = (blockIdx.y % row_tiles) * BN;   // its row tile
-  const int prow = (d + kPer - 1) / kPer;
-  const int groups = gridDim.y / row_tiles;
-  xrot += (size_t)group * n * d;
-  packed += (size_t)group * prow * c;
-  const int pr0 = blockIdx.z * rows_per_split;
-  const int pr1 = min(pr0 + rows_per_split, prow);
-  const int k0 = pr0 * kPer;
-  const int k1 = min(pr1 * kPer, d);
-  const bool vec = (c & 3) == 0 && col0 + kCols <= c;
-  float acc[BN][kCols];
-#pragma unroll
-  for (int i = 0; i < BN; ++i)
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) acc[i][q] = 0.f;
-
-  for (int kc = k0; kc < k1; kc += kKChunk) {
-    const int klen = min(kKChunk, k1 - kc);
-    for (int t = threadIdx.x; t < kKChunk * BN; t += kGemmThreads) {
-      const int i = t / kKChunk, kk = t % kKChunk;
-      xs[kk][i] = (row0 + i < n && kk < klen)
-                      ? xrot[(size_t)(row0 + i) * d + kc + kk] : 0.f;
-    }
-    __syncthreads();
-    if (col0 < c) {
-      const int r_begin = kc / kPer;              // kc is a multiple of kPer
-      const int r_end = (kc + klen + kPer - 1) / kPer;
-      // warp w takes packed rows r = r_begin + w (mod kWarps); each thread
-      // issues kBatch independent 4-byte loads before using any of them
-      for (int rb = r_begin + warp; rb < r_end; rb += kWarps * kBatch) {
-        uint32_t words[kBatch];
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int r = rb + b * kWarps;
-          words[b] = 0;
-          if (r < r_end) {
-            const uint8_t* src = packed + (size_t)r * c + col0;
-            if (vec) {
-              words[b] = __ldg(reinterpret_cast<const uint32_t*>(src));
-            } else {
-              for (int q = 0; q < kCols; ++q)
-                if (col0 + q < c) words[b] |= (uint32_t)__ldg(src + q) << (8 * q);
-            }
-          }
-        }
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int r = rb + b * kWarps;
-#pragma unroll
-          for (int s = 0; s < kPer; ++s) {
-            // stop at k < d: the last packed byte may hold pad codes
-            const int kk = (r - r_begin) * kPer + s;
-            if (r < r_end && kk < klen) {
-              float xv[BN];
-#pragma unroll
-              for (int i = 0; i < BN; ++i) xv[i] = xs[kk][i];
-#pragma unroll
-              for (int q = 0; q < kCols; ++q) {
-                const float code =
-                    (float)((words[b] >> (8 * q + s * BITS)) & kMask);
-#pragma unroll
-                for (int i = 0; i < BN; ++i)
-                  acc[i][q] = fmaf(xv[i], code, acc[i][q]);
-              }
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  // reduce the warps' partial sums in a fixed order (deterministic)
-  if (warp > 0) {
-#pragma unroll
-    for (int i = 0; i < BN; ++i)
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) red[warp - 1][i * kCols + q][lane] = acc[i][q];
-  }
-  __syncthreads();
-  if (warp != 0) return;
-  for (int w = 0; w < kWarps - 1; ++w)
-#pragma unroll
-    for (int i = 0; i < BN; ++i)
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) acc[i][q] += red[w][i * kCols + q][lane];
-  float* dst = partial + ((size_t)blockIdx.z * groups + group) * n * c;
-#pragma unroll
-  for (int i = 0; i < BN; ++i) {
-    if (row0 + i >= n) break;
-#pragma unroll
-    for (int q = 0; q < kCols; ++q)
-      if (col0 + q < c) dst[(size_t)(row0 + i) * c + col0 + q] = acc[i][q];
-  }
-}
 
 __global__ void splitk_epilogue_kernel(const float* __restrict__ partial,
                                        const float* __restrict__ rowsum,
@@ -183,28 +85,278 @@ __global__ void splitk_epilogue_kernel(const float* __restrict__ partial,
   }
 }
 
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCols = 32 * kWarps;         // code columns per CTA
+constexpr int kChunk = 64;                 // d values per staged chunk
+constexpr int kStages = 3;                 // cp.async ring depth
+constexpr int kCodeStride = kCols + 16;    // bytes per staged packed row
+constexpr int kXStride = kChunk + 4;       // floats per staged x row
+constexpr int kPlaneStride = kChunk + 16;  // bf16 per plane row
+
+// x = hi + mid + lo exactly (normal f32 values), each part returned as bf16
+// bits: hi keeps x's top 8 significant bits (truncation), mid the next 8 of
+// the remainder, lo the rest (at most 8 significant bits, so exact in bf16).
+// kernels/qmatmul/ref.py:split_planes is its plain twin.
+__device__ inline void split3(float x, uint32_t& hi, uint32_t& mid,
+                              uint32_t& lo) {
+  const uint32_t h = __float_as_uint(x) & 0xFFFF0000u;
+  const float r = x - __uint_as_float(h);          // exact
+  const uint32_t m = __float_as_uint(r) & 0xFFFF0000u;
+  hi = h >> 16;
+  mid = m >> 16;
+  lo = __float_as_uint(r - __uint_as_float(m)) >> 16;   // exact
+}
+
+// bf16x2 bits of codes at bits 0-6 and 16-22 of v (the rest zero): bf16
+// bits 0x4300 | c are 128 + c exactly, less 128.
+__device__ inline uint32_t small_pair(uint32_t v) {
+  const uint32_t biased = v | 0x43004300u;
+  const __nv_bfloat162 h =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
+              __floats2bfloat162_rn(128.f, 128.f));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// bf16x2 bits of byte q of w0 (low half) and of w1: codes 0-255, exact
+// through f32 (0x4B0000cc is 2^23 + c).
+__device__ inline uint32_t byte_pair(uint32_t w0, uint32_t w1, int q) {
+  const float f0 = __uint_as_float(__byte_perm(w0, 0x4B000000u, 0x7540 | q));
+  const float f1 = __uint_as_float(__byte_perm(w1, 0x4B000000u, 0x7540 | q));
+  const __nv_bfloat162 h =
+      __floats2bfloat162_rn(f0 - 8388608.f, f1 - 8388608.f);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// byte q of x at bits 0-7 and byte q of y at bits 16-23
+__device__ inline uint32_t spread(uint32_t x, uint32_t y, int q) {
+  return __byte_perm(x, y, q | (q + 4) << 8);
+}
+
+// A fragments of the warp's two m-tiles for k16 step ks of a staged chunk.
+// Thread (g = lane/4, t = lane%4) owns code columns 4g..4g+3 of the warp
+// (m-tile mt's rows g and g+8 are columns 4g+2mt and 4g+2mt+1) and d
+// offsets 16ks + 4t + i, i = 0..3 (K slots 2t+e and 2t+8+e are offsets
+// 4t+e and 4t+2+e), so register 0/1 of an m-tile holds offsets (0, 1) and
+// register 2/3 offsets (2, 3) of one column.  A codes word holds one byte
+// per column; spread() puts column q's byte of two words side by side, and
+// for packed widths the second word is the first shifted by one field, so
+// one mask cuts out two adjacent codes of the column.  BITS 7 stands for
+// every width stored one code per byte below 8 (3, 5, 6, 7): codes < 128.
 template <int BITS>
-cudaError_t launch_gemm_bits(int bn, dim3 grid, const float* xrot,
-                             const uint8_t* packed, float* partial, int n,
-                             int d, int c, int rps, int rt, cudaStream_t st) {
-  switch (bn) {
-    case 1: dequant_gemm_kernel<BITS, 1><<<grid, kGemmThreads, 0, st>>>(xrot, packed, partial, n, d, c, rps, rt); break;
-    case 2: dequant_gemm_kernel<BITS, 2><<<grid, kGemmThreads, 0, st>>>(xrot, packed, partial, n, d, c, rps, rt); break;
-    case 4: dequant_gemm_kernel<BITS, 4><<<grid, kGemmThreads, 0, st>>>(xrot, packed, partial, n, d, c, rps, rt); break;
-    case 8: dequant_gemm_kernel<BITS, 8><<<grid, kGemmThreads, 0, st>>>(xrot, packed, partial, n, d, c, rps, rt); break;
-    default: return cudaErrorInvalidValue;
+__device__ inline void load_codes(const uint8_t* cs, int ks, int t,
+                                  uint32_t (&a)[2][4]) {
+  auto row = [&](int r) {
+    return *reinterpret_cast<const uint32_t*>(cs + r * kCodeStride);
+  };
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t p01, p23;               // offsets (0, 1) and (2, 3) of column q
+    if constexpr (BITS >= 7) {       // rows 16ks + 4t + i
+      const uint32_t w0 = row(16 * ks + 4 * t), w1 = row(16 * ks + 4 * t + 1);
+      const uint32_t w2 = row(16 * ks + 4 * t + 2), w3 = row(16 * ks + 4 * t + 3);
+      if constexpr (BITS == 8) {
+        p01 = byte_pair(w0, w1, q);
+        p23 = byte_pair(w2, w3, q);
+      } else {
+        p01 = small_pair(spread(w0, w1, q) & 0x007F007Fu);
+        p23 = small_pair(spread(w2, w3, q) & 0x007F007Fu);
+      }
+    } else if constexpr (BITS == 4) {  // rows 8ks + 2t + i/2, nibble i%2
+      const uint32_t w0 = row(8 * ks + 2 * t), w1 = row(8 * ks + 2 * t + 1);
+      p01 = small_pair(spread(w0, w0 >> 4, q) & 0x000F000Fu);
+      p23 = small_pair(spread(w1, w1 >> 4, q) & 0x000F000Fu);
+    } else if constexpr (BITS == 2) {  // row 4ks + t, field i
+      const uint32_t w = row(4 * ks + t);
+      const uint32_t v = spread(w, w >> 2, q);
+      p01 = small_pair(v & 0x00030003u);
+      p23 = small_pair((v >> 4) & 0x00030003u);
+    } else {                           // row 2ks + t/2, bit 4(t%2) + i
+      const uint32_t w = row(2 * ks + (t >> 1)) >> (4 * (t & 1));
+      const uint32_t v = spread(w, w >> 1, q);
+      p01 = small_pair(v & 0x00010001u);
+      p23 = small_pair((v >> 2) & 0x00010001u);
+    }
+    a[q >> 1][q & 1] = p01;            // m-tile q/2, row g (q even) or g+8
+    a[q >> 1][2 + (q & 1)] = p23;
   }
+}
+
+// Shared memory: kStages x (codes, x) chunks, then one chunk of planes.
+template <int BITS, int NT>
+struct GemmSmem {
+  static constexpr int PER = BITS <= 2 ? 8 / BITS : BITS == 4 ? 2 : 1;
+  static constexpr int kCodeBytes = (kChunk / PER) * kCodeStride;
+  static constexpr int kXBytes = 8 * NT * kXStride * 4;
+  static constexpr int kStageBytes = kCodeBytes + kXBytes;
+  static constexpr int kPlaneElems = 8 * NT * kPlaneStride;   // per plane
+  static constexpr int kBytes = kStages * kStageBytes + 3 * kPlaneElems * 2;
+};
+
+// One CTA: 256 code columns of one expert x every row of one 8*NT-row block
+// (the whole group when n <= 64) x one split of the 64-value d chunks.
+// xrot (groups*n, x_ld) f32, zero past d; partial (splits, groups*n, c).
+template <int BITS, int NT>
+__global__ void __launch_bounds__(kThreads)
+dequant_gemm_kernel(const float* __restrict__ xrot,
+               const uint8_t* __restrict__ packed, float* __restrict__ partial,
+               int n, int d, int c, int x_ld, int chunks_per_split,
+               int row_blocks) {
+  using L = GemmSmem<BITS, NT>;
+  constexpr int PER = L::PER;                    // codes per byte
+  constexpr int NP = 8 * NT;                     // rows of the block
+  constexpr int kCodeRows = kChunk / PER;          // packed rows per chunk
+  extern __shared__ __align__(16) uint8_t gemm_smem[];
+  uint16_t* planes =
+      reinterpret_cast<uint16_t*>(gemm_smem + kStages * L::kStageBytes);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int j0 = blockIdx.x * kCols;
+  const int group = blockIdx.y / row_blocks;
+  const int r0 = (blockIdx.y % row_blocks) * NP;
+  const int groups = gridDim.y / row_blocks;
+  const int prow = (d + PER - 1) / PER;
+  const int ch0 = blockIdx.z * chunks_per_split;
+  const int nch = min(chunks_per_split, x_ld / kChunk - ch0);
+  const uint8_t* codes = packed + (size_t)group * prow * c;
+  const float* xg = xrot + (size_t)group * n * x_ld;
+
+  auto load_stage = [&](int stage, int ch) {
+    uint8_t* cs = gemm_smem + stage * L::kStageBytes;
+    float* xs = reinterpret_cast<float*>(cs + L::kCodeBytes);
+    for (int idx = threadIdx.x; idx < kCodeRows * (kCols / 16);
+         idx += kThreads) {
+      const int r = idx / (kCols / 16), q = idx % (kCols / 16);
+      const int pr = ch * kCodeRows + r, col = j0 + 16 * q;
+      const bool ok = pr < prow && col < c;   // c % 16 == 0 (wrapper)
+      tc::cp_async16(cs + r * kCodeStride + 16 * q,
+                 ok ? codes + (size_t)pr * c + col : packed, ok);
+    }
+    for (int idx = threadIdx.x; idx < NP * (kChunk / 4); idx += kThreads) {
+      const int row = idx / (kChunk / 4), q = idx % (kChunk / 4);
+      const bool ok = r0 + row < n;
+      tc::cp_async16(xs + row * kXStride + 4 * q,
+                 ok ? xg + (size_t)(r0 + row) * x_ld + ch * kChunk + 4 * q
+                    : xrot,
+                 ok);
+    }
+  };
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nch) load_stage(s, ch0 + s);
+    tc::cp_async_commit();
+  }
+  for (int it = 0; it < nch; ++it) {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();    // chunk it landed; stage it-1 and the planes are free
+    if (it + kStages - 1 < nch)
+      load_stage((it + kStages - 1) % kStages, ch0 + it + kStages - 1);
+    tc::cp_async_commit();
+    const uint8_t* cs = gemm_smem + (it % kStages) * L::kStageBytes;
+    // cut the x chunk into the planes, 4 values per step
+    const float* xs = reinterpret_cast<const float*>(cs + L::kCodeBytes);
+    for (int idx = threadIdx.x; idx < NP * (kChunk / 4); idx += kThreads) {
+      const int row = idx / (kChunk / 4), q = idx % (kChunk / 4);
+      const float4 v =
+          *reinterpret_cast<const float4*>(xs + row * kXStride + 4 * q);
+      uint32_t h[4], m[4], l[4];
+      split3(v.x, h[0], m[0], l[0]);
+      split3(v.y, h[1], m[1], l[1]);
+      split3(v.z, h[2], m[2], l[2]);
+      split3(v.w, h[3], m[3], l[3]);
+      uint16_t* dst = planes + row * kPlaneStride + 4 * q;
+      *reinterpret_cast<uint2*>(dst) =
+          make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
+      *reinterpret_cast<uint2*>(dst + L::kPlaneElems) =
+          make_uint2(m[0] | m[1] << 16, m[2] | m[3] << 16);
+      *reinterpret_cast<uint2*>(dst + 2 * L::kPlaneElems) =
+          make_uint2(l[0] | l[1] << 16, l[2] | l[3] << 16);
+    }
+    __syncthreads();
+    cs += 32 * warp + 4 * g;
+    const uint16_t* ps = planes + g * kPlaneStride + 4 * t;
+#pragma unroll
+    for (int ks = 0; ks < kChunk / 16; ++ks) {
+      uint32_t a[2][4];
+      load_codes<BITS>(cs, ks, t, a);
+#pragma unroll
+      for (int pl = 0; pl < 3; ++pl)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint2 b = *reinterpret_cast<const uint2*>(
+              ps + pl * L::kPlaneElems + nt * 8 * kPlaneStride + 16 * ks);
+          tc::mma_bf16(acc[0][nt], a[0], b.x, b.y);
+          tc::mma_bf16(acc[1][nt], a[1], b.x, b.y);
+        }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  // accumulator (mt, nt): e = 0/1 -> column 4g + 2mt, rows 2t / 2t+1 of the
+  // n-tile; e = 2/3 -> column 4g + 2mt + 1
+  const int col = j0 + 32 * warp + 4 * g;
+  if (col >= c) return;
+  float* dst = partial + ((size_t)blockIdx.z * groups + group) * n * c + col;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * nt + 2 * t + r;
+      if (row < n)
+        *reinterpret_cast<float4*>(dst + (size_t)row * c) =
+            make_float4(acc[0][nt][r], acc[0][nt][2 + r], acc[1][nt][r],
+                        acc[1][nt][2 + r]);
+    }
+}
+
+template <int BITS, int NT>
+cudaError_t launch_gemm(dim3 grid, const float* xrot, const uint8_t* packed,
+                      float* partial, int n, int d, int c, int x_ld, int cps,
+                      int row_blocks, cudaStream_t st) {
+  constexpr int bytes = GemmSmem<BITS, NT>::kBytes;
+  // opt in every time: past 48 KB a launch without the attribute is refused
+  cudaError_t e = cudaFuncSetAttribute(
+      dequant_gemm_kernel<BITS, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return e;
+  dequant_gemm_kernel<BITS, NT><<<grid, kThreads, bytes, st>>>(
+      xrot, packed, partial, n, d, c, x_ld, cps, row_blocks);
   return cudaGetLastError();
 }
 
+template <int BITS>
+cudaError_t launch_gemm_nt(int nt, dim3 grid, const float* xrot,
+                         const uint8_t* packed, float* partial, int n, int d,
+                         int c, int x_ld, int cps, int rb, cudaStream_t st) {
+  switch (nt) {
+    case 1: return launch_gemm<BITS, 1>(grid, xrot, packed, partial, n, d, c, x_ld, cps, rb, st);
+    case 2: return launch_gemm<BITS, 2>(grid, xrot, packed, partial, n, d, c, x_ld, cps, rb, st);
+    case 3: return launch_gemm<BITS, 3>(grid, xrot, packed, partial, n, d, c, x_ld, cps, rb, st);
+    case 4: return launch_gemm<BITS, 4>(grid, xrot, packed, partial, n, d, c, x_ld, cps, rb, st);
+    case 8: return launch_gemm<BITS, 8>(grid, xrot, packed, partial, n, d, c, x_ld, cps, rb, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // rowsum[row] = sum(x[row]) for the unfused entry, whose x is already
-// rotated: one CTA per row, summed in a fixed order (deterministic).
+// rotated: one CTA per row, summed in a fixed order (deterministic); the
+// row is also copied into xpad, row stride x_ld, zeros past d.
 __global__ void __launch_bounds__(kSumThreads)
-rowsum_kernel(const float* __restrict__ x, float* __restrict__ rowsum, int d) {
+rowsum_kernel(const float* __restrict__ x, float* __restrict__ rowsum,
+              float* __restrict__ xpad, int d, int x_ld) {
   __shared__ float warp_sums[kSumThreads / 32];
   const float* src = x + (size_t)blockIdx.x * d;
   float part = 0.f;
   for (int i = threadIdx.x; i < d; i += blockDim.x) part += __ldg(src + i);
+  for (int i = threadIdx.x; i < x_ld; i += blockDim.x)
+    xpad[(size_t)blockIdx.x * x_ld + i] = i < d ? __ldg(src + i) : 0.f;
   for (int off = 16; off > 0; off >>= 1)
     part += __shfl_down_sync(0xffffffffu, part, off);
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = part;
@@ -216,30 +368,29 @@ rowsum_kernel(const float* __restrict__ x, float* __restrict__ rowsum, int d) {
   }
 }
 
-// Split-K dequant GEMM over an already-rotated x of groups x n rows, then the
-// fixed-order reduction of the splits and the Alg. 3 epilogue.
+// The GEMM over groups x n rows of xrot (row stride x_ld, a multiple of 64,
+// zeros past d), then the fixed-order reduction of the splits and the
+// Alg. 3 epilogue.  n_tiles: 8-row n-tiles per CTA; chunks_per_split:
+// 64-value d chunks per split.
 cudaError_t launch_gemm_epilogue(const float* xrot, const float* rowsum,
                                  const uint8_t* packed, const __half* rescale,
                                  float* partial, float* out, int n,
-                                 int groups, int d, int c, int bits, int bn,
-                                 int rows_per_split, int splits,
-                                 cudaStream_t st) {
-  const int col_tiles = (c + kColsPerCta - 1) / kColsPerCta;
-  const int row_tiles = (n + bn - 1) / bn;
-  if ((long long)groups * row_tiles > 65535 || splits > 65535)
+                                 int groups, int d, int c, int bits,
+                                 int n_tiles, int chunks_per_split,
+                                 int splits, int x_ld, cudaStream_t st) {
+  const int row_blocks = (n + 8 * n_tiles - 1) / (8 * n_tiles);
+  if (bits < 1 || bits > 8 || splits < 1 || splits > 65535 || c % 16 ||
+      x_ld % kChunk || x_ld < d || (long long)groups * row_blocks > 65535)
     return cudaErrorInvalidValue;
-  dim3 grid(col_tiles, groups * row_tiles, splits);
+  dim3 grid((c + kCols - 1) / kCols, groups * row_blocks, splits);
+  const int cps = chunks_per_split;
   cudaError_t e;
-  switch (bits) {
-    case 1: e = launch_gemm_bits<1>(bn, grid, xrot, packed, partial, n, d, c, rows_per_split, row_tiles, st); break;
-    case 2: e = launch_gemm_bits<2>(bn, grid, xrot, packed, partial, n, d, c, rows_per_split, row_tiles, st); break;
-    case 3: e = launch_gemm_bits<3>(bn, grid, xrot, packed, partial, n, d, c, rows_per_split, row_tiles, st); break;
-    case 4: e = launch_gemm_bits<4>(bn, grid, xrot, packed, partial, n, d, c, rows_per_split, row_tiles, st); break;
-    case 5: e = launch_gemm_bits<5>(bn, grid, xrot, packed, partial, n, d, c, rows_per_split, row_tiles, st); break;
-    case 6: e = launch_gemm_bits<6>(bn, grid, xrot, packed, partial, n, d, c, rows_per_split, row_tiles, st); break;
-    case 7: e = launch_gemm_bits<7>(bn, grid, xrot, packed, partial, n, d, c, rows_per_split, row_tiles, st); break;
-    case 8: e = launch_gemm_bits<8>(bn, grid, xrot, packed, partial, n, d, c, rows_per_split, row_tiles, st); break;
-    default: return cudaErrorInvalidValue;
+  switch (bits) {   // 3, 5, 6 and 7 bits share the one-code-per-byte layout
+    case 1: e = launch_gemm_nt<1>(n_tiles, grid, xrot, packed, partial, n, d, c, x_ld, cps, row_blocks, st); break;
+    case 2: e = launch_gemm_nt<2>(n_tiles, grid, xrot, packed, partial, n, d, c, x_ld, cps, row_blocks, st); break;
+    case 4: e = launch_gemm_nt<4>(n_tiles, grid, xrot, packed, partial, n, d, c, x_ld, cps, row_blocks, st); break;
+    case 8: e = launch_gemm_nt<8>(n_tiles, grid, xrot, packed, partial, n, d, c, x_ld, cps, row_blocks, st); break;
+    default: e = launch_gemm_nt<7>(n_tiles, grid, xrot, packed, partial, n, d, c, x_ld, cps, row_blocks, st); break;
   }
   if (e != cudaSuccess) return e;
 
@@ -255,34 +406,39 @@ cudaError_t launch_gemm_epilogue(const float* xrot, const float* rowsum,
 
 // Fused: Y = practical_rht(x) @ (r * (codes - c_b)) for groups experts of n
 // rows each (x: groups*n rows; packed: groups slabs of prow x c; rescale:
-// groups x c).  xrot, rowsum and partial are scratch.
+// groups x c).  xrot (groups*n rows of x_ld), rowsum and partial are
+// scratch.
 extern "C" int rht_qmatmul(const float* x, const float* signs1,
                            const float* signs2, const uint8_t* packed,
                            const __half* rescale, float* xrot, float* rowsum,
                            float* partial, float* out, int n, int groups,
-                           int d, int d_hat, int c, int bits, int bn,
-                           int rows_per_split, int splits, void* stream) {
+                           int d, int d_hat, int c, int bits, int n_tiles,
+                           int chunks_per_split, int splits, int x_ld,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = fwht::launch_rotate(x, signs1, signs2, xrot, rowsum,
-                                      groups * n, d, d_hat, st);
+                                      groups * n, d, d_hat, x_ld, st);
   if (e != cudaSuccess) return e;
   return launch_gemm_epilogue(xrot, rowsum, packed, rescale, partial, out, n,
-                              groups, d, c, bits, bn, rows_per_split, splits,
-                              st);
+                              groups, d, c, bits, n_tiles, chunks_per_split,
+                              splits, x_ld, st);
 }
 
 // Unfused second half: Y = (xrot @ codes - c_b * rowsum(xrot)) * r on an
-// already-rotated xrot.  Replaces repro/kernels/qmatmul/qmatmul.py:
-// quantized_matmul_pallas (_kernel).  rowsum and partial are scratch.
+// already-rotated xrot (rows of d).  Replaces repro/kernels/qmatmul/
+// qmatmul.py:quantized_matmul_pallas (_kernel).  xpad (the padded copy of
+// xrot, rows of x_ld), rowsum and partial are scratch.
 extern "C" int qmatmul(const float* xrot, const uint8_t* packed,
-                       const __half* rescale, float* rowsum, float* partial,
-                       float* out, int n, int groups, int d, int c, int bits,
-                       int bn, int rows_per_split, int splits, void* stream) {
+                       const __half* rescale, float* xpad, float* rowsum,
+                       float* partial, float* out, int n, int groups, int d,
+                       int c, int bits, int n_tiles, int chunks_per_split,
+                       int splits, int x_ld, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  rowsum_kernel<<<groups * n, kSumThreads, 0, st>>>(xrot, rowsum, d);
+  rowsum_kernel<<<groups * n, kSumThreads, 0, st>>>(xrot, rowsum, xpad, d,
+                                                    x_ld);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_gemm_epilogue(xrot, rowsum, packed, rescale, partial, out, n,
-                              groups, d, c, bits, bn, rows_per_split, splits,
-                              st);
+  return launch_gemm_epilogue(xpad, rowsum, packed, rescale, partial, out, n,
+                              groups, d, c, bits, n_tiles, chunks_per_split,
+                              splits, x_ld, st);
 }

@@ -12,12 +12,19 @@ the kernel launches or the call raises.
 Kernel source note — replaces ``repro/kernels/flash_attention/flash.py:
 flash_attention_pallas`` (``_kernel``), whose sequential KV grid axis
 carries the online-softmax state in VMEM; on the H100 that axis is a loop
-inside each (batch, head, 64-query) CTA over 32-key tiles, with the
-reference's finite NEG_INF and ``acc / max(l, 1e-30)`` epilogue, K/V read
-through the GQA index map (never expanded), and tiles outside the causal
-or window band skipped.  f32 operations on the CUDA cores bound it.  As in
-the reference, no model path calls this dispatcher: sequence attention in
-the models is ``models/attention.flash_attention``.
+inside each (batch, head, 128-query) CTA over 64-key tiles, in the
+FlashAttention-2 layout: each warp owns 16 query rows and keeps S, m, l and
+its accumulator in registers, K/V tiles go through a two-stage cp.async
+ring, and both products run on the tensor cores (``mma.sync``: bf16 inputs
+in bf16 with f32 accumulation, P rounded to bf16 for P V; f32 inputs as
+three TF32 products of hi/lo splits).  It keeps the reference's finite
+NEG_INF and ``acc / max(l, 1e-30)`` epilogue, reads K/V through the GQA
+index map (never expanded), skips key tiles outside the causal or window
+band, and runs the longest query tiles first.  Tensor-core operations bound
+it (989 TFLOP/s bf16, 165 TFLOP/s for three TF32 products).
+``ref.flash_tile_walk`` walks the same tiles in the same order on the host.
+As in the reference, no model path calls this dispatcher: sequence
+attention in the models is ``models/attention.flash_attention``.
 """
 from __future__ import annotations
 

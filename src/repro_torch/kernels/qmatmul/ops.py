@@ -27,17 +27,22 @@ in VMEM across every column tile, which relies on TPU grid steps running in
 order.  On the H100 CTAs run concurrently and a rotated f32 tile at n=8,
 d=10974 (351 KB) exceeds a block's 227 KB of shared memory, so the fused
 wrapper launches a rotation (one CTA per row, sign flip + butterfly FWHT in
-shared memory, rowsum) that writes x_rot (n, d) f32 to scratch, and a
-split-K dequant GEMM whose partial sums a third small pass reduces in a
-fixed order (deterministic, so greedy tokens do not vary run to run) and
-finishes with the Alg. 3 epilogue.  The unfused wrapper launches a row-sum
-pass and the same GEMM and epilogue on a given x_rot.  The x_rot round trip
-costs n*d*8 bytes (about 0.7 MB at n=8, d=10974) against 22.5 MB of 4-bit
-codes for that layer (about 3%).  What bounds it on this card: at decode
-(n <= 8) the packed-code bytes and f32 FMAs are of one order (4-bit, n=8:
-2.5 us of bytes vs 4 us of f32 FMA at 67 TFLOP/s), at prefill (n=64) the
-f32 FMAs.  The design splits d so that n <= 8 still fills the 132 SMs with
-column x split tiles.
+shared memory, rowsum) that writes x_rot f32 with rows zero-padded to a
+multiple of 64, a split-K dequant GEMM on the tensor cores, and a small
+pass that sums the splits in a fixed order (deterministic, so greedy tokens
+do not vary run to run) and applies the Alg. 3 epilogue.  The unfused
+wrapper launches a row-sum pass (which also writes the padded copy) and the
+same GEMM and epilogue on a given x_rot.
+
+The GEMM (``dequant_gemm_kernel``): one CTA covers every row of a group up
+to 64 against 256 code columns (``mma.sync`` bf16 -> f32; a cp.async ring;
+each x chunk cut in shared memory into three bf16 planes whose sum is x
+exactly, ``ref.split_planes``; codes unpacked in registers; ``split_plan``),
+so each code byte is read and unpacked once per CTA.  Three exact bf16
+products per code make the f32 product.  What bounds it: the code bytes at
+decode (n <= 8; 4-bit, d 4083, c 4096: 2.5 us), the three products at a
+64-row prefill chunk (6.4 GFLOP at 989 TFLOP/s, 6.5 us).  Code rows are
+read in 16-byte chunks, so c must be a multiple of 16.
 
 The grouped form (``grouped_rht_quantized_matmul``, the MoE experts'
 GEMM) replaces the reference's ``jax.vmap`` over experts of
@@ -45,10 +50,10 @@ GEMM) replaces the reference's ``jax.vmap`` over experts of
 TPU runs the Pallas kernels once per expert.  Here it is the same kernels
 with an expert axis: the signs are shared by the experts, so the rotation
 (or the unfused path's RHT kernel) runs once over the E*C rows as one
-(E*C, d) matrix, and the GEMM folds the expert index into the row-tile
+(E*C, d) matrix, and the GEMM folds the expert index into the row-block
 axis of its grid, offsetting the packed codes by e*pr*c and x_rot by
-e*C*d; the epilogue reads rescale[e].  At decode C is 2, so 8 experts x
-column tiles x splits fill the card.
+e*C*x_ld; the epilogue reads rescale[e].  At decode C is 2 (one n-tile),
+at a 64-token prefill chunk 20 (three).
 """
 from __future__ import annotations
 
@@ -73,9 +78,11 @@ grouped_launches = 0            # grouped fused kernel launches
 grouped_unfused_launches = 0    # grouped unfused GEMM kernel launches
 
 # Tiling of the dequant GEMM; must match csrc/rht_qmatmul.cu.
-COLS_PER_CTA = 128              # 32 lanes x 4 columns (8 warps share them)
-MIN_ROWS_PER_SPLIT = 64         # packed rows a split covers at least
-CTAS_PER_SM = 3                 # resident 256-thread CTAs the plan aims at
+COLS_PER_CTA = 256              # 8 warps x 32 code columns
+K_CHUNK = 64                    # d values per staged chunk
+N_TILES = (1, 2, 3, 4, 8)       # compiled n-tiles (8 rows each) per CTA
+MIN_CHUNKS_PER_SPLIT = 4        # d chunks a split covers at least
+CTAS_PER_SM = 1                 # CTAs per SM the plan aims at
 MAX_SMEM_BYTES = 232448         # dynamic shared memory one H100 block may use
 _LIB = None
 
@@ -190,29 +197,32 @@ def _lib():
         from repro_torch.kernels import _build
         lib = _build.load("rht_qmatmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rht_qmatmul.argtypes = [p, p, p, p, p, p, p, p, p,
-                                    i, i, i, i, i, i, i, i, i, p]
+        lib.rht_qmatmul.argtypes = [p] * 9 + [i] * 10 + [p]
         lib.rht_qmatmul.restype = ctypes.c_int
-        lib.qmatmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.qmatmul.argtypes = [p] * 7 + [i] * 9 + [p]
         lib.qmatmul.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def split_plan(n: int, d: int, c: int, bits: int, n_sm: int,
-               groups: int = 1):
-    """(rows_per_cta, packed_rows_per_split, splits) for the dequant GEMM of
-    ``groups`` experts of n rows each: enough expert x column x row x split
-    tiles for about three CTAs per SM."""
-    bn = 1
-    while bn < min(n, 8):
-        bn *= 2
-    prow = packing.packed_rows(d, bits)
-    tiles = -(-c // COLS_PER_CTA) * -(-n // bn) * groups
+def split_plan(n: int, d: int, c: int, n_sm: int, groups: int = 1):
+    """(n_tiles, chunks_per_split, splits) for the dequant GEMM of
+    ``groups`` experts of n rows each: a CTA covers 8 * n_tiles rows (every
+    row of a group up to 64; wider groups take several row blocks), 256
+    code columns and ``chunks_per_split`` 64-value chunks of d; splits of d
+    are added until about ``CTAS_PER_SM`` CTAs per SM.  The kernel reads
+    code rows in 16-byte chunks, so c must be a multiple of 16."""
+    if c % 16:
+        raise ValueError(f"c={c}: the GEMM reads code rows in 16-byte chunks, "
+                         f"so c must be a multiple of 16")
+    rows = min(n, 8 * N_TILES[-1])
+    nt = next(t for t in N_TILES if 8 * t >= rows)
+    chunks = -(-d // K_CHUNK)
+    tiles = -(-c // COLS_PER_CTA) * groups * -(-n // (8 * nt))
     want = max(1, -(-CTAS_PER_SM * n_sm // tiles))
-    splits = max(1, min(want, prow // MIN_ROWS_PER_SPLIT))
-    rps = -(-prow // splits)
-    return bn, rps, -(-prow // rps)
+    splits = max(1, min(want, chunks // MIN_CHUNKS_PER_SPLIT))
+    cps = -(-chunks // splits)
+    return nt, cps, -(-chunks // cps)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -263,24 +273,26 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, rescale: torch.Tensor,
     if rows == 0 or c == 0:
         return out
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    bn, rps, splits = split_plan(n, d, c, bits, n_sm, groups)
+    n_tiles, cps, splits = split_plan(n, d, c, n_sm, groups)   # checks c
+    x_ld = -(-d // K_CHUNK) * K_CHUNK           # zero-padded rows
+    xrot = torch.empty((rows, x_ld), dtype=torch.float32, device=dev)
     rowsum = torch.empty((rows,), dtype=torch.float32, device=dev)
     partial = torch.empty((splits, rows, c), dtype=torch.float32, device=dev)
+    plan = (bits, n_tiles, cps, splits, x_ld)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if fused:
-            xrot = torch.empty((rows, d), dtype=torch.float32, device=dev)
             s2 = signs2 if signs2 is not None else signs1
             err = _lib().rht_qmatmul(
                 x.data_ptr(), signs1.data_ptr(), s2.data_ptr(),
                 packed.data_ptr(), rescale.data_ptr(), xrot.data_ptr(),
                 rowsum.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
-                groups, d, d_hat, c, bits, bn, rps, splits, stream)
+                groups, d, d_hat, c, *plan, stream)
         else:
             err = _lib().qmatmul(
                 x.data_ptr(), packed.data_ptr(), rescale.data_ptr(),
-                rowsum.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
-                groups, d, c, bits, bn, rps, splits, stream)
+                xrot.data_ptr(), rowsum.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), n, groups, d, c, *plan, stream)
     if err != 0:
         entry = "rht_qmatmul" if fused else "qmatmul"
         raise RuntimeError(f"{entry} launch failed with CUDA error {err}")

@@ -10,6 +10,13 @@ queries), non-causal with ragged S, and bf16 inputs.  Tolerance: the
 reference kernel test's own (tests/test_flash_kernel.py): 2e-4 in f32, and
 2e-2 relative in bf16, where the two frameworks round the bf16 output at
 different places.
+
+The CUDA kernel's tiling (128-query CTAs of 16-row warps, 64-key tiles,
+band skips, base-2 online softmax, P rounded to bf16 for bf16 inputs) is
+held the same way through its host twin ``ref.flash_tile_walk``, at
+sequence lengths that span several query and key tiles: causal, a window
+without the causal mask, windows that fully mask the early tiles of a
+CTA's later rows, ragged S and GQA.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +27,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels.flash_attention.flash import flash_attention_pallas  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_tile_walk  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -90,3 +98,36 @@ def test_cuda_entry_refuses_cpu_and_bad_shapes():
                                       fops.attention_ref(q, k, v).numpy())
     finally:
         fops.set_forced_path(None)
+
+
+WALK_CASES = [  # name, (b, s, h, kv, hd), causal, window
+    ("causal-gqa-g4", (1, 300, 8, 2, 16), True, None),
+    ("causal-mha-ragged", (2, 203, 2, 2, 32), True, None),
+    ("window-only-ragged", (1, 271, 4, 2, 16), False, 50),
+    ("window-16-masks-early-tiles", (1, 330, 4, 1, 16), True, 16),
+    ("window-70-gqa", (2, 257, 4, 2, 16), True, 70),
+    ("noncausal-ragged", (1, 190, 2, 1, 32), False, None),
+]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name,shape,causal,window", WALK_CASES,
+                         ids=[c[0] for c in WALK_CASES])
+def test_tile_walk_matches_pallas_interpret(name, shape, causal, window,
+                                            dtype):
+    """The kernel's tile walk on the host against the reference's Pallas
+    kernel in interpret mode: f32 rtol/atol 2e-4, bf16 2e-2."""
+    q, k, v = _qkv(*shape, seed=len(name) + 3)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    got = flash_tile_walk(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tdt and bool(torch.isfinite(got).all())
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    jargs = tuple(jnp.asarray(t.float().numpy()).astype(jdt)
+                  for t in (tq, tk, tv))
+    want = flash_attention_pallas(*jargs, causal=causal, window=window,
+                                  interpret=True)
+    tol = 2e-4 if dtype == "f32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)

@@ -7,7 +7,10 @@ against ``repro.core.qlinear.quantize_grouped``, and ``QuantizedGrouped``
 carried across by the bridge.
 
 Sweep: bits {1, 2, 3, 4, 8} x d {256 (one RHT block), 300 (overlapped Alg.
-5)} x C {1, 5} rows per expert, 3 experts.  Tolerance: rtol 1e-4 in f32
+5)} x C {1, 5} rows per expert, 3 experts.  At a prefill chunk's capacity
+(C = 20): the GEMM per expert built as the tensor-core kernel builds it
+(three bf16 planes) against the reference; the kernel's plan at Mixtral's
+decode and prefill shapes.  Tolerance: rtol 1e-4 in f32
 (the reference kernel's own, tests/test_kernels.py:29); codes within the
 off-by-one round-half ties that tests/test_torch_core.py's
 ``test_rabitq_quantize_matches_reference`` tolerates.  TF32 is off.
@@ -24,9 +27,10 @@ from repro.core import qlinear as jql  # noqa: E402
 from repro.kernels.hadamard import ops as jhops  # noqa: E402
 from repro.kernels.qmatmul import ops as jqops  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.core import packing  # noqa: E402
+from repro_torch.core import hadamard, packing  # noqa: E402
 from repro_torch.core import qlinear as tql  # noqa: E402
 from repro_torch.kernels.qmatmul import ops as qops  # noqa: E402
+from repro_torch.kernels.qmatmul import ref as tref  # noqa: E402
 
 BITS = [1, 2, 3, 4, 8]
 DIMS = [256, 300]
@@ -126,15 +130,16 @@ def test_cuda_entries_refuse_cpu_tensors():
     (4, 3, 128, 256, 8)])
 def test_grouped_split_plan_fills_the_card(e, cap, d, c, bits):
     """The plan the grouped launch uses: every packed row in one split, and
-    at Mixtral's decode and prefill shapes expert x column x row x split
-    tiles for every one of 132 SMs."""
-    bn, rps, splits = qops.split_plan(cap, d, c, bits, n_sm=132, groups=e)
-    prow = packing.packed_rows(d, bits)
-    assert bn in (1, 2, 4, 8) and bn >= min(cap, 8)
-    assert (splits - 1) * rps < prow <= splits * rps
-    tiles = e * -(-c // qops.COLS_PER_CTA) * -(-cap // bn) * splits
+    at Mixtral's decode and prefill shapes expert x column x split CTAs for
+    every one of 132 SMs."""
+    nt, cps, splits = qops.split_plan(cap, d, c, n_sm=132, groups=e)
+    chunks = -(-d // qops.K_CHUNK)
+    assert (chunks * qops.K_CHUNK) // packing.codes_per_byte(bits) >= \
+        packing.packed_rows(d, bits)
+    assert (splits - 1) * cps < chunks <= splits * cps
+    assert nt in qops.N_TILES and 8 * nt >= cap
     if d >= 4096:
-        assert tiles >= 132
+        assert e * -(-c // qops.COLS_PER_CTA) * splits >= 132
 
 
 @pytest.mark.parametrize("bits,d,c", [(4, 128, 48), (3, 200, 40), (2, 256, 32),
@@ -176,3 +181,33 @@ def test_bridged_grouped_apply_matches_reference(fused):
     with qops.fusion(fused):
         got = tq.apply(torch.from_numpy(x))
     _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("d", DIMS)
+@pytest.mark.parametrize("bits", list(range(1, 9)))
+def test_planes_gemm_per_expert_matches_reference_at_prefill_capacity(bits,
+                                                                      d):
+    """C = 20 rows per expert (a 64-token prefill chunk's capacity): the
+    rotation, then each expert's GEMM built from the three bf16 planes, as
+    the tensor-core route computes it, against the reference's vmap."""
+    args = _inputs(bits, d, 20, seed=7)
+    want = jqops.grouped_rht_quantized_matmul(*_jax(*args), bits=bits, d=d)
+    x, packed, rescale, s1, s2 = _torch(*args)
+    xr = hadamard.practical_rht(x, s1, s2, axis=-1)
+    got = torch.stack([tref.quantized_matmul_planes_ref(
+        xr[e], packed[e], rescale[e], bits=bits, d=d) for e in range(E)])
+    assert not got[1, -1].any()                 # the empty capacity row
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("e,cap,d,c", [
+    (8, 2, 4096, 28672), (8, 2, 14336, 4096), (8, 20, 4096, 28672),
+    (8, 20, 14336, 4096)])
+def test_grouped_plan_covers_each_expert_in_one_row_block(e, cap, d, c):
+    """One CTA covers all rows of an expert: decode capacity (C = 2) in one
+    n-tile, a prefill chunk's (C = 20) in three; every d chunk in exactly
+    one split."""
+    nt, cps, splits = qops.split_plan(cap, d, c, n_sm=132, groups=e)
+    assert nt == (1 if cap <= 8 else 3)
+    chunks = -(-d // qops.K_CHUNK)
+    assert (splits - 1) * cps < chunks <= splits * cps
