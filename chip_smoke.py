@@ -15,7 +15,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      there is one): the fused RHT + dequant GEMM and the unfused GEMM (one
      tensor-core kernel behind both, at decode and prefill row counts, also
      timed at n in {1, 8, 16, 32, 64}), the RHT, the RaBitQ code search,
-     paged flash-decode, the grouped (MoE expert) GEMM fused and unfused at
+     paged flash-decode (R up to 35, one split and several, two calls
+     bitwise equal; timed at llama2's, Mixtral's and a serving mix's
+     shapes, f32 and bf16), the grouped (MoE expert) GEMM fused and unfused at
      Mixtral's decode and prefill shapes, and the flash-attention forward
      at Mixtral's and llama2's shapes (also against its host tile walk);
   4. quantize: llama2-7b at its published width (32 layers, d_model 4096,
@@ -46,7 +48,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --prefill-profile`` runs only the quantization and
-the prefill-chunk profiles of both models (see ``prefill_profile_main``).
+the prefill-chunk profiles of both models (see ``prefill_profile_main``);
+``python3 chip_smoke.py --attention`` only builds, checks and times the
+paged-attention kernel (see ``attention_main``).
 
 Imports nothing of JAX or of the reference package.  Exits non-zero with no
 result when no CUDA device is present.  Details too long for the end of the
@@ -574,11 +578,49 @@ ATTN_CASES = [  # name, w, h, kv, dtype, window, ring_blocks, ctx_max, ctx_lo
     # 3900-4192 (the long request's context), the last three past the ring
     ("mixtral f32 G=4 window 4096, ring of 256 blocks", 1, 32, 8,
      torch.float32, 4096, 256, 4192, 3900),
+    # a verify span of 5 over G = 7: R = 35 rows, in row chunks of 8
+    ("f32 R=35: W=5, H=56, KV=8", 5, 56, 8, torch.float32, None, None, 1024,
+     None),
+    # contexts 20-240 under a grid of four splits: every request keeps one
+    # split (under 2 x 128 keys) and writes its output directly, and the
+    # combine launch skips its rows
+    ("f32 G=4 one split per request (contexts 20-240)", 1, 32, 8,
+     torch.float32, None, None, 240, 20),
+]
+# timed: name, w, h, kv, dtype, window, ring_blocks, table width, ctx_max,
+# ctx_lo (None: every request at ctx_max)
+ATTN_TIMED = [
+    ("llama2 f32 B=8 ctx 1024", 1, 32, 32, torch.float32, None, None, 64,
+     1024, None),
+    ("llama2 bf16 B=8 ctx 1024", 1, 32, 32, torch.bfloat16, None, None, 64,
+     1024, None),
+    ("mixtral f32 B=8 G=4 window 4096, pos 3900-4192", 1, 32, 8,
+     torch.float32, 4096, 256, 256, 4192, 3900),
+    # the llama2 serve run's shape: 8 requests at contexts 128-544 over a
+    # 34-block table (prompts 64-512 + 32 new tokens)
+    ("serving mix f32 B=8 ctx 128-544", 1, 32, 32, torch.float32, None,
+     None, 34, 544, 128),
 ]
 
 
-def check_attention(gen, dev) -> float:
+def attn_splits(args) -> int | None:
+    """The grid splits the wrapper picks for these inputs; None for a
+    package tree whose wrapper plans otherwise (an earlier tree given by
+    REPRO_TORCH_SRC)."""
+    if not hasattr(pops, "MIN_SPLIT_KEYS"):
+        return None
+    q, k, _, bt = args[:4]
+    return pops.kv_splits(q.shape[0], k.shape[2], bt.shape[1], k.shape[1],
+                          torch.cuda.get_device_properties(
+                              q.device).multi_processor_count)
+
+
+def check_attention(gen, dev) -> dict:
+    """Every ATTN_CASES case against the plain version (|err| <= RTOL *
+    max|plain|), an inactive slot, and determinism: two calls on the same
+    inputs, with one split and with the combine, give equal bits."""
     worst = 0.0
+    cases = []
     b, hd, bs = 8, 128, 16
     for name, w, h, kv, dtype, window, ring_blocks, ctx, ctx_lo in ATTN_CASES:
         mb = max(64, ring_blocks or 0)           # the block table's width
@@ -591,6 +633,12 @@ def check_attention(gen, dev) -> float:
         check(bool(torch.isfinite(got).all()) and err <= RTOL * scale,
               f"paged_attention {name}: max|err| {err} > {RTOL} * {scale}")
         worst = max(worst, err)
+        cases.append({"case": name, "splits": attn_splits(args),
+                      "max_abs_err": err, "max_abs_plain": scale})
+        if name in ("f32 W=1", "f32 G=4"):    # one split; four and combine
+            again = pops.paged_attention_cuda(*args, window=window)
+            check(torch.equal(got, again),
+                  f"paged_attention {name}: two calls differ")
     # an inactive engine slot: pos 0, ring 1, all-zero table -> null block
     q, k, v, bt, pos, ring = attn_inputs(gen, dev, 2, 1, 32, 32, hd, bs, 4,
                                          64, torch.float32, None)
@@ -598,26 +646,66 @@ def check_attention(gen, dev) -> float:
     got = pops.paged_attention_cuda(q, k, v, bt, pos, ring)
     check(bool(torch.isfinite(got).all()), "inactive slot gave non-finite")
     log(f"paged_attention: {len(ATTN_CASES)} cases + an inactive slot within "
-        f"{RTOL} * max|plain|; max|err| {worst:.3e}")
-    return worst
+        f"{RTOL} * max|plain|, two cases bitwise repeatable; max|err| "
+        f"{worst:.3e}; splits {[c['splits'] for c in cases]}")
+    return {"max_abs_err": worst, "cases": cases, "deterministic": True}
 
 
-def time_attention(gen, dev) -> dict:
-    b, h, kv, hd, bs, mb, ctx = 8, 32, 32, 128, 16, 64, 1024
-    args = attn_inputs(gen, dev, b, 1, h, kv, hd, bs, mb, ctx, torch.float32,
-                       None, full=True)
-    k_ms = graph_ms(lambda: pops.paged_attention_cuda(*args))
-    call_ms = time_ms(lambda: pops.paged_attention_cuda(*args))
-    p_ms = time_ms(lambda: paged_attention_ref(*args), iters=5, warmup=1)
-    q, k_arena, v_arena, bt = args[:4]
-    kd = k_arena[bt.long()].reshape(b, mb * bs, kv, hd).transpose(1, 2).contiguous()
-    vd = v_arena[bt.long()].reshape(b, mb * bs, kv, hd).transpose(1, 2).contiguous()
-    qd = q.transpose(1, 2).contiguous()                    # (B, H, 1, hd)
-    l_ms = graph_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd))
-    return {"b": b, "h": h, "kv": kv, "hd": hd, "context": ctx, "ms": k_ms,
-            "call_ms": call_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            **bound(b * kv * ctx * hd * 4 * 2 + 2 * q.numel() * 4
-                    + bt.numel() * 4, (4 * b * h * ctx * hd, F32))}
+def sdpa_decode(q, k_arena, v_arena, bt, pos, ring):
+    """One PyTorch call computing the same decode attention on K/V already
+    gathered dense (timing only): (B, H, W=1, hd) queries over each
+    request's min(pos, ring) live keys, a key-padding mask where the
+    requests differ."""
+    b, _, h, hd = q.shape
+    _, bs, kv, _ = k_arena.shape
+    live = torch.minimum(pos.clamp(min=1), ring.clamp(min=1))
+    nb = int((live.max() + bs - 1) // bs)
+    kd = k_arena[bt[:, :nb].long()].reshape(b, nb * bs, kv, hd).transpose(
+        1, 2).contiguous()
+    vd = v_arena[bt[:, :nb].long()].reshape(b, nb * bs, kv, hd).transpose(
+        1, 2).contiguous()
+    qd = q.transpose(1, 2).contiguous().to(kd.dtype)
+    mask = None
+    if bool((live != nb * bs).any()):
+        mask = (torch.arange(nb * bs, device=q.device)[None, :]
+                < live[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=kv != h)
+
+
+def time_attention(gen, dev, name, w, h, kv, dtype, window, ring_blocks, mb,
+                   ctx, ctx_lo) -> dict:
+    """One ATTN_TIMED case: the kernel (graph replay and eager), its plain
+    version, SDPA on the gathered K/V, and the bound of the keys read."""
+    b, hd, bs = 8, 128, 16
+    args = attn_inputs(gen, dev, b, w, h, kv, hd, bs, mb, ctx, dtype,
+                       window, ring_blocks, full=ctx_lo is None,
+                       ctx_lo=ctx_lo)
+    q, k_arena, v_arena, bt, pos, ring = args
+    k_ms = graph_ms(lambda: pops.paged_attention_cuda(*args, window=window))
+    call_ms = time_ms(lambda: pops.paged_attention_cuda(*args,
+                                                        window=window))
+    p_ms = time_ms(lambda: paged_attention_ref(*args, window=window),
+                   iters=3, warmup=1)
+    l_ms = graph_ms(sdpa_decode(*args))
+    # the keys the kernel reads: each request's nblk whole blocks
+    live = torch.minimum(pos.clamp(min=1), ring.clamp(min=1))
+    keys = int((((live + bs - 1) // bs).clamp(1, mb) * bs).sum())
+    nbytes = (keys * kv * hd * k_arena.element_size() * 2
+              + 2 * q.numel() * 4 + bt.numel() * 4)
+    return {"case": name, "b": b, "w": w, "h": h, "kv": kv, "hd": hd,
+            "dtype": str(dtype), "window": window, "context": ctx,
+            "context_lo": ctx_lo, "keys_read": keys,
+            "splits": attn_splits(args), "ms": k_ms, "call_ms": call_ms,
+            "plain_ms": p_ms, "library_ms": l_ms,
+            **bound(nbytes, (4 * keys * (h // kv) * w * kv * hd, SIMT))}
+
+
+def time_attentions(gen, dev) -> list:
+    rows = [time_attention(gen, dev, *case) for case in ATTN_TIMED]
+    for t in rows:
+        log(f"paged_attention time {json.dumps(t)}")
+    return rows
 
 
 # ------------------------------------------------------ grouped (MoE) GEMM
@@ -1246,6 +1334,11 @@ def profile_steps(engine, steps: int, labels=()) -> dict:
            "top_kernels": [{"name": e.key[:100], "count": e.count,
                             "ms_per_step": e.self_device_time_total / 1e3 / steps}
                            for e in top]}
+    attn = [e for e in kern if "paged_attention" in e.key]
+    out["paged_attention"] = {
+        "ms_per_step": sum(e.self_device_time_total for e in attn) / 1e3
+        / steps, "launches_per_step": sum(e.count for e in attn) / steps,
+        "kernels": sorted({e.key[:100] for e in attn})}
     out["ranges"] = {label: {} for label in sorted(wanted)}
     for e in averages:
         if e.key not in wanted:
@@ -1575,6 +1668,28 @@ def prefill_profile_main(dev, smi) -> int:
     return 0
 
 
+def attention_main(smi) -> int:
+    """``--attention``: build the paged-attention kernel, hold it against
+    its plain version (``check_attention``) and time it (``ATTN_TIMED``);
+    prints one JSON line.  REPRO_TORCH_SRC picks the package tree, as for
+    ``--prefill-profile``, so an earlier kernel can be timed beside this
+    one on one card in one call (run parent, change, change, parent)."""
+    t0 = time.monotonic()
+    logs = _build.build(["paged_attention"])
+    build_s = time.monotonic() - t0
+    ptxas = [ln.strip() for lg in logs.values() for ln in lg.splitlines()
+             if "registers" in ln or "spill" in ln]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = torch.device("cuda")
+    checked = check_attention(gen, dev)
+    times = time_attentions(gen, dev)
+    log(json.dumps({"attention": {"src": str(SRC), "gpu": smi,
+                                  "build_s": build_s, "ptxas": ptxas,
+                                  "check": checked,
+                                  "times": times}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1587,6 +1702,8 @@ def main() -> int:
     log(f"gpu: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if sys.argv[1:] == ["--prefill-profile"]:
         return prefill_profile_main(dev, smi)
+    if sys.argv[1:] == ["--attention"]:
+        return attention_main(smi)
 
     t_build = time.monotonic()
     logs = _build.build()
@@ -1609,7 +1726,8 @@ def main() -> int:
     gemm_err, unfused_err = gemm_worst["fused"], gemm_worst["unfused"]
     rht_err = check_rht(gen, dev)
     search = check_code_search(gen, dev)
-    attn_err = check_attention(gen, dev)
+    attn_check = check_attention(gen, dev)
+    attn_err = attn_check["max_abs_err"]
     gemm_times = [time_gemm(gen, dev, n, d, c, 4) for n, d, c in TIME_SHAPES]
     unfused_times = [time_gemm(gen, dev, n, d, c, 4, fused=False)
                      for n, d, c in TIME_SHAPES]
@@ -1621,8 +1739,8 @@ def main() -> int:
                        ("rht", rht_times), ("rabitq_quant", search_times)):
         for t in rows:
             log(f"{name} time {json.dumps(t)}")
-    attn_time = time_attention(gen, dev)
-    log(f"paged_attention time {json.dumps(attn_time)}")
+    attn_times = time_attentions(gen, dev)
+    attn_time = attn_times[0]            # llama2's shape, f32
     grouped_err, grouped_unfused_err = check_grouped(gen, dev)
     flash_err = check_flash(gen, dev)
     grouped_times = [time_grouped(gen, dev, *shape)
@@ -1719,7 +1837,13 @@ def main() -> int:
                    "chunks and decode steps"),
         entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention/paged.py:98", attn_err,
-              attn_time, ("b", "h", "kv", "hd", "context")),
+              attn_time, ("b", "h", "kv", "hd", "context", "splits"),
+              shapes=[{k: t[k] for k in (
+                  "case", "splits", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms")} for t in attn_times[1:]],
+              decode_profile={path: serve_r["decode_profile"][
+                  "paged_attention"] for path, serve_r in (
+                      ("llama2", serve_out), ("mixtral", moe_serve))}),
         entry("qmatmul", "src/repro_torch/csrc/rht_qmatmul.cu",
               "src/repro/kernels/qmatmul/qmatmul.py:66", unfused_err,
               decode_unfused, ("n", "d", "c", "bits")),
@@ -1755,7 +1879,8 @@ def main() -> int:
               "ptxas": regs, "gemm_times": gemm_times,
               "unfused_gemm_times": unfused_times, "rht_times": rht_times,
               "code_search_times": search_times, "code_search_check": search,
-              "attention_time": attn_time, "quantize": quant_out,
+              "attention_check": attn_check, "attention_times": attn_times,
+              "quantize": quant_out,
               "serve": serve_out, "grouped_times": grouped_times,
               "grouped_unfused_times": grouped_unfused_times,
               "flash_times": flash_times,

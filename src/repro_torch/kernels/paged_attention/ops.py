@@ -13,30 +13,46 @@ it; neither is the default.  A CUDA tensor never falls back on its own.
 
 Kernel source note — replaces ``repro/kernels/paged_attention/paged.py:
 paged_attention_pallas`` (``_kernel``).  The Pallas grid (B, KV, MB) walks
-blocks as a sequential grid axis with scalar-prefetched block ids; here one
-CTA per (request, KV head, split) loops over its share of the request's
-logical blocks, reading ``block_table[b, j]`` itself and stopping at
-``nblk``, and a second small launch merges the splits' softmax partials in
-a fixed order.  What bounds it on this card: arena bytes (a decode step
-reads every live K/V byte once; the FLOPs per byte are few).  The design
-reads blocks in place and never builds a dense gathered copy; the KV splits
-give 8 requests x 32 heads enough CTAs to keep the 132 SMs loading.
+blocks as a sequential grid axis with scalar-prefetched block ids.  What
+bounds it on this card: arena bytes (a decode step reads every live K/V
+byte once, at about one FMA per byte), so the design keeps bytes in
+flight.  One CTA of 4 warps per (request, KV head, split) copies its
+split's block ids to shared memory and walks its keys in 32-key tiles
+through a 3-slot ring filled by 16-byte ``cp.async`` (two tiles in flight
+while one is computed; two CTAs per SM with an f32 arena).  Each warp owns
+8 keys of every tile, with its own online softmax and accumulator in
+registers; the one barrier per tile hands a slot back to the copier.  The
+warps merge in warp order at the end of the split.
+
+Launch plan (``kv_splits`` on the host; per request on the card, as
+``ref.split_plan`` computes it): the grid has S splits, enough (request,
+KV head, split) CTAs to fill the resident slots (``CTAS_PER_SM`` per SM)
+without a second wave, and no more than one per ``MIN_SPLIT_KEYS`` keys of
+the table. On the card each request then uses only as many of the S splits
+as its own keys allow (MIN_SPLIT_KEYS or more each on average); a request
+with one split writes its output directly, and the combine launch (S > 1
+only) merges the others' partials in split order, so results repeat bit
+for bit. ``ref.paged_attention_plan_walk`` walks the same plan on the
+host. The kernel takes head_dim 64 or 128 (``HEAD_DIMS``) and raises for
+others.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import ctypes
+import functools
 
 import torch
 
-from .ref import paged_attention_ref
+from .ref import MIN_SPLIT_KEYS, TILE_KEYS, paged_attention_ref
 
 _FORCE_PATH: str | None = None  # "kernel" | "ref" | None — tests poke this
 _USE_KERNEL: contextvars.ContextVar[bool | None] = contextvars.ContextVar(
     "repro_torch_paged_attention_kernel", default=None)
 launches = 0                    # kernel launches (one per wrapper call)
-CTAS_PER_SM = 8                 # 128-thread split CTAs the plan aims at
+CTAS_PER_SM = 2                 # resident split CTAs per SM (f32 ring 96 KB)
+HEAD_DIMS = (64, 128)           # head dims the kernel is compiled for
 _LIB = None
 
 
@@ -91,17 +107,23 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                         i, i, i, i, i, i, i, i,
-                                        ctypes.c_float, i, i, p]
+                                        ctypes.c_float, i, i, i, i, p]
         lib.paged_attention.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def kv_splits(b: int, kv: int, mb: int, n_sm: int) -> int:
-    """Splits of each request's blocks across CTAs (flash-decoding): enough
-    (request, KV head, split) CTAs for about CTAS_PER_SM per SM, and never
-    more splits than table entries."""
-    return max(1, min(mb, -(-CTAS_PER_SM * n_sm // max(b * kv, 1))))
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kv_splits(b: int, kv: int, mb: int, bs: int, n_sm: int) -> int:
+    """Grid splits of each request's keys (flash-decoding): as many as keep
+    every (request, KV head, split) CTA resident at once (CTAS_PER_SM per
+    SM), at most one per MIN_SPLIT_KEYS keys of a full table, at least 1."""
+    by_slots = CTAS_PER_SM * n_sm // max(b * kv, 1)
+    return max(1, min(mb * bs // MIN_SPLIT_KEYS, by_slots))
 
 
 def paged_attention_cuda(q, k_arena, v_arena, block_table, pos, ring_cap, *,
@@ -127,6 +149,9 @@ def paged_attention_cuda(q, k_arena, v_arena, block_table, pos, ring_cap, *,
     if hd_k != hd or h % kv:
         problems.append(f"head shapes do not fit: q {tuple(q.shape)}, "
                         f"arena {tuple(k_arena.shape)}")
+    if hd not in HEAD_DIMS:
+        problems.append(f"head_dim {hd} is not one the kernel is compiled "
+                        f"for {HEAD_DIMS}")
     if tuple(block_table.shape) != (b, mb) or block_table.dtype != torch.int32:
         problems.append("block_table must be int32 (B, MB)")
     for name, t in (("pos", pos), ("ring_cap", ring_cap)):
@@ -137,24 +162,29 @@ def paged_attention_cuda(q, k_arena, v_arena, block_table, pos, ring_cap, *,
         problems.append("all tensors must be on one device")
     if any(not t.is_contiguous() for t in tensors):
         problems.append("all tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors[:3]):
+        problems.append("q and the arenas must be 16-byte aligned")
     if problems:
         raise ValueError("paged_attention_cuda: " + "; ".join(problems))
     out = torch.empty_like(q)
     if b == 0:
         return out
-    splits = kv_splits(b, kv, mb,
-                       torch.cuda.get_device_properties(dev).multi_processor_count)
-    rows = (splits, b, kv, w * (h // kv))
-    m = torch.empty(rows, dtype=torch.float32, device=dev)
-    l = torch.empty(rows, dtype=torch.float32, device=dev)
-    acc = torch.empty((*rows, hd), dtype=torch.float32, device=dev)
+    splits = kv_splits(b, kv, mb, bs, _sm_count(dev.index))
+    scratch = ()                # per-split partials, for the combine launch
+    if splits > 1:
+        rows = (splits, b, kv, w * (h // kv))
+        scratch = (torch.empty(rows, dtype=torch.float32, device=dev),
+                   torch.empty(rows, dtype=torch.float32, device=dev),
+                   torch.empty((*rows, hd), dtype=torch.float32, device=dev))
+    m, l, acc = (t.data_ptr() for t in scratch) if scratch else (0, 0, 0)
     with torch.cuda.device(dev):
         err = _lib().paged_attention(
             q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
             block_table.data_ptr(), pos.data_ptr(), ring_cap.data_ptr(),
-            m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+            m, l, acc, out.data_ptr(),
             b, w, h, kv, hd, bs, mb, window if window is not None else 0,
             hd ** -0.5, splits, int(k_arena.dtype == torch.bfloat16),
+            TILE_KEYS, MIN_SPLIT_KEYS,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed with CUDA error {err}")
