@@ -14,7 +14,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      version, one PyTorch library call computing the same function where
      there is one): the fused RHT + dequant GEMM and the unfused GEMM (one
      tensor-core kernel behind both, at decode and prefill row counts, also
-     timed at n in {1, 8, 16, 32, 64}), the RHT, the RaBitQ code search,
+     timed at n in {1, 8, 16, 32, 64}), the RHT (rows 1-160, widths up to
+     20480, both of its entries: plain rows, and rows padded with their
+     sums as the fused GEMM launches it; against its host walk too; two
+     calls bitwise equal; an empty kernel timed as the launch floor), the
+     RaBitQ code search (two calls bitwise equal; its division held against
+     IEEE division on sampled mantissa pairs),
      paged flash-decode (R up to 35, one split and several, two calls
      bitwise equal; timed at llama2's, Mixtral's and a serving mix's
      shapes, f32 and bf16), the grouped (MoE expert) GEMM fused and unfused at
@@ -50,7 +55,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 ``python3 chip_smoke.py --prefill-profile`` runs only the quantization and
 the prefill-chunk profiles of both models (see ``prefill_profile_main``);
 ``python3 chip_smoke.py --attention`` only builds, checks and times the
-paged-attention kernel (see ``attention_main``).
+paged-attention kernel (see ``attention_main``); ``--rotation`` and
+``--code-search`` (either or both, with ``--division-sweep`` for the
+division on all 2^46 mantissa pairs) the same for the rotation and the
+code search (see ``redesign_main``).
 
 Imports nothing of JAX or of the reference package.  Exits non-zero with no
 result when no CUDA device is present.  Details too long for the end of the
@@ -87,6 +95,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.hadamard import ops as hops  # noqa: E402
+from repro_torch.kernels.hadamard import ref as href  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.qmatmul import ops as qops  # noqa: E402
@@ -112,10 +121,13 @@ RATES = {
     # f32 x f32: three TF32 products per product
     "f32 3 x TF32 165 TFLOP/s": 495e12 / 3,
     # f32 element-wise work with no product to put on the tensor cores
-    # (the code search's candidate sweep)
     "f32 CUDA cores 67 TFLOP/s": 67e12,
+    # f32 instructions issued on the CUDA cores, each counted once (the
+    # 67 TFLOP/s peak counts an fma as two operations): the code search's
+    # candidate sweep, whose division, rounding and clamps are not fmas
+    "f32 CUDA-core instructions 33.5 T/s": 67e12 / 2,
 }
-BF16, CODES, F32, SIMT = RATES
+BF16, CODES, F32, SIMT, SIMT_ISSUE = RATES
 # f32 results of two summation orders (split-K and butterfly vs Kronecker
 # matmuls for the GEMMs; warp-shuffle vs cuBLAS dots for attention):
 # |kernel - plain| <= RTOL * max|plain|.  bf16 arenas are read as the same
@@ -151,6 +163,9 @@ OBJ_TIE = 1e-5
 # step's largest |logit| (f32 reassociation across 32 layers).
 GAP_TOL = 1e-3
 N_CAND = 12
+# the default run checks the code search's division on every x mantissa
+# against every DIV_STRIDE-th delta mantissa
+DIV_STRIDE = 1024
 SEED = 0
 AVG_BITS = 4.0
 OUT_DIR = ROOT / "chiprun_out"
@@ -164,8 +179,15 @@ GEMM_BITS = list(range(1, 9))
 # prefill chunk's MoE capacity; 100 takes two 64-row blocks (no path of the
 # two models sends more than 64 rows, the wrapper accepts any n)
 GEMM_NS = [1, 8, 16, 20, 32, 64, 100]
-RHT_NS = [1, 8, 64]
-RHT_DIMS = [2048, 4096, 8192, 16384, 4083, 10974]
+# rows: decode (llama2 8 slots, Mixtral's E*C = 16), prefill chunks
+# (llama2 64, Mixtral 160); widths: llama2's kept 4083 / 10974, Mixtral's
+# expert wo 14336, yi-34b's FFN wo 20480, the powers of 2 and 8191 (the
+# widest row of plan (256, 16): its shared memory and the static row sums
+# just past 48 KB)
+RHT_NS = [1, 8, 16, 64, 160]
+RHT_DIMS = [2048, 4096, 8192, 16384, 4083, 8191, 10974, 14336, 20480]
+RHT_TIMED = [(8, 4083), (8, 10974), (64, 4083), (8, 4096), (8, 16384),
+             (16, 4096), (16, 14336), (160, 4096), (160, 14336)]
 TIME_SHAPES = [(1, 4083, 4096), (8, 4083, 4096), (8, 4083, 22016),
                (8, 10974, 4096), (64, 4083, 4096), (16, 4083, 4096),
                (32, 4083, 4096)]
@@ -348,10 +370,11 @@ def check_gemms(gen, dev) -> dict:
     return worst
 
 
-def time_gemm(gen, dev, n, d, c, bits, fused=True) -> dict:
+def time_gemm(gen, dev, n, d, c, bits, fused=True, full=True) -> dict:
     """Kernel, plain and library (torch.matmul on the dense equivalent
     weight) times, cycling over copies so the codes come from HBM.  The
-    unfused GEMM's library call multiplies the rotated x by r*(codes-c_b)."""
+    unfused GEMM's library call multiplies the rotated x by r*(codes-c_b).
+    Without ``full`` only the kernel's graph-replay time."""
     x, packed, rescale, s1, s2 = gemm_inputs(gen, dev, n, d, c, bits)
     copies = max(2, int(200e6 // packed.numel()) + 1)
     packs = [packed] + [packed.clone() for _ in range(copies - 1)]
@@ -372,6 +395,10 @@ def time_gemm(gen, dev, n, d, c, bits, fused=True) -> dict:
         def plain(p):
             return quantized_matmul_ref(x, p, rescale, bits=bits, d=d)
     k_ms = graph_ms(kernel)
+    if not full:
+        del packs
+        return {"n": n, "d": d, "c": c, "bits": bits, "ms": k_ms,
+                **gemm_bound(n, d, c, bits, fused)}
     call_ms = time_ms(kernel)
     p_ms = time_ms(lambda: kern(plain), iters=5, warmup=1)
     codes = packing.unpack_codes(packed, bits, d).to(torch.float32)
@@ -391,42 +418,98 @@ def time_gemm(gen, dev, n, d, c, bits, fused=True) -> dict:
 # --------------------------------------------------------------------- RHT
 
 
-def check_rht(gen, dev) -> float:
-    worst = 0.0
+def check_rht(gen, dev) -> dict:
+    """The rotation at every RHT_NS x RHT_DIMS case: both entries (out_ld =
+    d; and rows padded to the GEMM's multiple of 64 with the row sums, as
+    the fused GEMM launches it) within RHT_ATOL of the plain version, the
+    padding exactly zero, each row sum within RHT_ATOL of the f64 sum of
+    the rotated row it came with, two calls bitwise equal, and the kernel
+    against its host walk of the same stages (ref.rotate_walk, on the card)."""
+    worst = dict.fromkeys(("err", "rowsum_err", "walk_err"), 0.0)
+    walk_equal = 0
     for n in RHT_NS:
         for d in RHT_DIMS:
             x = torch.randn((n, d), generator=gen, device=dev)
             s1, s2 = draw_signs(d, gen)
+            out_ld = -(-d // qops.K_CHUNK) * qops.K_CHUNK
             got = hops.rht_cuda(x, s1, s2)
+            padded, rowsum = hops.rht_padded_cuda(x, s1, s2, out_ld)
+            again, again_sum = hops.rht_padded_cuda(x, s1, s2, out_ld)
             want = hadamard.practical_rht(x, s1, s2)
+            walk, walk_sum = href.rotate_walk(x, s1, s2, *hops.rotate_plan(d),
+                                              out_ld=out_ld)
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
+            err = max(float((got - want).abs().max()),
+                      float((padded[:, :d] - want).abs().max()))
+            sum_err = float((rowsum.double()
+                             - padded[:, :d].double().sum(1)).abs().max())
+            walk_err = max(float((padded - walk).abs().max()),
+                           float((rowsum - walk_sum).abs().max()))
+            what = f"rht n={n} d={d}"
             check(bool(torch.isfinite(got).all()) and err <= RHT_ATOL,
-                  f"rht n={n} d={d}: max|err| {err} > {RHT_ATOL}")
-            worst = max(worst, err)
-    log(f"rht: {len(RHT_NS) * len(RHT_DIMS)} cases (n {RHT_NS} x d "
-        f"{RHT_DIMS}) within atol {RHT_ATOL}; max|err| {worst:.3e}")
-    return worst
+                  f"{what}: max|err| {err} > {RHT_ATOL}")
+            check(bool((padded[:, d:] == 0).all()),
+                  f"{what}: padding past d is not zero")
+            check(sum_err <= RHT_ATOL,
+                  f"{what}: row sum off by {sum_err} > {RHT_ATOL}")
+            check(torch.equal(padded, again) and torch.equal(rowsum, again_sum)
+                  and torch.equal(got, padded[:, :d]),
+                  f"{what}: two calls (or the two entries) differ")
+            check(walk_err <= RHT_ATOL,
+                  f"{what}: kernel vs its host walk {walk_err} > {RHT_ATOL}")
+            walk_equal += bool(walk_err == 0.0)
+            for k, v in (("err", err), ("rowsum_err", sum_err),
+                         ("walk_err", walk_err)):
+                worst[k] = max(worst[k], v)
+    cases = len(RHT_NS) * len(RHT_DIMS)
+    log(f"rht: {cases} cases (n {RHT_NS} x d {RHT_DIMS}), both entries "
+        f"within atol {RHT_ATOL} (max|err| {worst['err']:.3e}); padding "
+        f"zero; row sums within {RHT_ATOL} of the rows' f64 sums (max "
+        f"{worst['rowsum_err']:.3e}); two calls bitwise equal; the host walk "
+        f"bitwise equal in {walk_equal} of {cases} cases (max|diff| "
+        f"{worst['walk_err']:.3e})")
+    return {**worst, "cases": cases, "walk_bitwise_equal": walk_equal}
 
 
-def time_rht(gen, dev, n, d) -> dict:
-    """Kernel and plain times; the library call multiplies x by the dense
-    (d, d) matrix of the same linear map (practical_rht of the identity)."""
+def time_rht(gen, dev, n, d, full=True) -> dict:
+    """Kernel times by graph replay (``padded_ms``: the rotation as the
+    fused GEMM launches it, rows padded to a multiple of 64 with their sums;
+    absent from an earlier tree); with ``full`` also eager calls, the plain
+    version and the library call, which multiplies x by the dense (d, d)
+    matrix of the same linear map (practical_rht of the identity)."""
     x = torch.randn((n, d), generator=gen, device=dev)
     s1, s2 = draw_signs(d, gen)
-    k_ms = graph_ms(lambda: hops.rht_cuda(x, s1, s2))
-    call_ms = time_ms(lambda: hops.rht_cuda(x, s1, s2))
-    p_ms = time_ms(lambda: hadamard.practical_rht(x, s1, s2), iters=5,
-                   warmup=1)
-    m = hadamard.practical_rht(torch.eye(d, device=dev), s1, s2)
-    l_ms = graph_ms(lambda: torch.matmul(x, m))
+    out = {"n": n, "d": d,
+           "ms": graph_ms(lambda: hops.rht_cuda(x, s1, s2))}
+    if hasattr(hops, "rht_padded_cuda"):
+        out_ld = -(-d // qops.K_CHUNK) * qops.K_CHUNK
+        out["plan"] = hops.rotate_plan(d)
+        out["padded_ms"] = graph_ms(
+            lambda: hops.rht_padded_cuda(x, s1, s2, out_ld))
+    if full:
+        out["call_ms"] = time_ms(lambda: hops.rht_cuda(x, s1, s2))
+        out["plain_ms"] = time_ms(lambda: hadamard.practical_rht(x, s1, s2),
+                                  iters=5, warmup=1)
+        m = hadamard.practical_rht(torch.eye(d, device=dev), s1, s2)
+        out["library_ms"] = graph_ms(lambda: torch.matmul(x, m))
+        del m
+    return {**out, **rht_bound(n, d)}
+
+
+def rht_bound(n, d) -> dict:
+    """Each row read and written once and the signs read once; the
+    butterflies' adds (each of the two blocks' log2 d_hat stages) as
+    products with +-1 signs on the tensor cores' f32 x codes rate."""
     dh = hadamard.largest_pow2_leq(d)
     passes = 1 if dh == d else 2
-    del m
-    return {"n": n, "d": d, "ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms,
-            "library_ms": l_ms,
-            **bound(2 * n * d * 4 + passes * dh * 4,
-                    (passes * n * dh * (dh.bit_length() - 1), CODES))}
+    return bound(2 * n * d * 4 + passes * dh * 4,
+                 (passes * n * dh * (dh.bit_length() - 1), CODES))
+
+
+def launch_floor_ms(dev) -> float:
+    """Device time of an empty kernel's launch under graph replay: the
+    least a launch costs on this card."""
+    return graph_ms(lambda: hops.launch_floor(dev), iters=100)
 
 
 # -------------------------------------------------------------- code search
@@ -504,7 +587,11 @@ def check_code_search(gen, dev) -> dict:
         for bits in GEMM_BITS:
             codes, rescale, choice = rq_ops.quantize_cuda(
                 w, bits, N_CAND, return_choice=True)
+            again = rq_ops.quantize_cuda(w, bits, N_CAND, return_choice=True)
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(
+                (codes, rescale, choice), again)),
+                f"code search d={d} c={c} bits={bits}: two calls differ")
             res = compare_search(w, codes, rescale, choice, bits)
             out["differing_columns"] += res["differing_columns"]
             out["columns"] += c
@@ -512,8 +599,21 @@ def check_code_search(gen, dev) -> dict:
                       "max_rescale_rel_err"):
                 out[k] = max(out[k], res[k])
         del w
+    # the kernel's division against IEEE division: every x mantissa in
+    # [1, 2) against every DIV_STRIDE-th delta mantissa (chip_smoke.py
+    # --division-sweep takes all 2^23)
+    out["division_pairs"] = (1 << 23) * ((1 << 23) // DIV_STRIDE)
+    out["division_mismatches"] = rq_ops.division_mismatches(
+        dev, 0, (1 << 23) // DIV_STRIDE, DIV_STRIDE)
+    check(out["division_mismatches"] == 0,
+          f"code search: the reciprocal division differs from IEEE division "
+          f"in {out['division_mismatches']} of {out['division_pairs']} pairs")
+    out["slices"] = {f"{d}x{c}": rq_ops.search_plan(d)
+                     for d, c in SEARCH_SHAPES}
     log(f"rabitq_quant: {len(SEARCH_SHAPES) * len(GEMM_BITS)} cases ((d, c) "
-        f"{SEARCH_SHAPES} x bits 1-8); codes identical where the step agrees; "
+        f"{SEARCH_SHAPES} x bits 1-8, slices {out['slices']}); two calls "
+        f"bitwise equal; division bitwise IEEE on {out['division_pairs']} "
+        f"mantissa pairs; codes identical where the step agrees; "
         f"{out['differing_columns']} of {out['columns']} columns chose "
         f"another step, all near-ties (max objective gap "
         f"{out['max_objective_gap']:.2e} <= {OBJ_TIE}); rescale max rel err "
@@ -524,18 +624,39 @@ def check_code_search(gen, dev) -> dict:
 
 
 def search_bound(d, c):
-    return bound(d * c * 4 + d * c + 4 * c, (7 * N_CAND * d * c, SIMT))
+    """w read once, codes written once; issue slots on the CUDA cores: per
+    element and candidate the division (a multiply and two fmas from the
+    column's reciprocal), the add of c_b, rint, the clamp (2), the subtract
+    and the two sums' fmas (10); per element absmax (1) and the chosen
+    step's code (8)."""
+    return bound(d * c * 4 + d * c + 4 * c,
+                 ((10 * N_CAND + 9) * d * c, SIMT_ISSUE))
 
 
-def time_code_search(gen, dev, d, c, bits=4) -> dict:
+def time_code_search(gen, dev, d, c, bits=4, plain=True) -> dict:
+    """Kernel and plain times at one weight shape (w is 67-470 MB, past
+    L2).  ``ms`` is CUDA-graph replay where the wrapper can be captured (an
+    earlier tree's copies its scales to the card on every call: there
+    ``ms`` is ``call_ms``, eager calls timed back to back)."""
     w = torch.randn((d, c), generator=gen, device=dev)
-    k_ms = time_ms(lambda: rq_ops.quantize_cuda(w, bits, N_CAND), iters=5,
-                   warmup=1)
-    p_ms = time_ms(lambda: rq_ops.quantize_ref(w, bits, N_CAND), iters=3,
-                   warmup=1)
+
+    def kernel():
+        return rq_ops.quantize_cuda(w, bits, N_CAND)
+    planned = hasattr(rq_ops, "search_plan")
+    call_ms = time_ms(kernel, iters=5, warmup=1)
+    k_ms = graph_ms(kernel, iters=5) if planned else call_ms
+    # one candidate: the three passes over w with almost no sweep
+    one_ms = (graph_ms(lambda: rq_ops.quantize_cuda(w, bits, 1), iters=5)
+              if planned else None)
+    p_ms = (time_ms(lambda: rq_ops.quantize_ref(w, bits, N_CAND), iters=3,
+                    warmup=1) if plain else None)
     del w
-    return {"d": d, "c": c, "bits": bits, "ms": k_ms, "plain_ms": p_ms,
-            "library_ms": None, **search_bound(d, c)}
+    return {"d": d, "c": c, "bits": bits,
+            "slices": rq_ops.search_plan(d) if planned else None, "ms": k_ms,
+            "ms_by": "graph replay" if planned else "eager calls",
+            "call_ms": call_ms, "one_candidate_ms": one_ms,
+            "plain_ms": p_ms, "library_ms": None,
+            **search_bound(d, c)}
 
 
 # ------------------------------------------------------- paged attention
@@ -1334,11 +1455,15 @@ def profile_steps(engine, steps: int, labels=()) -> dict:
            "top_kernels": [{"name": e.key[:100], "count": e.count,
                             "ms_per_step": e.self_device_time_total / 1e3 / steps}
                            for e in top]}
-    attn = [e for e in kern if "paged_attention" in e.key]
-    out["paged_attention"] = {
-        "ms_per_step": sum(e.self_device_time_total for e in attn) / 1e3
-        / steps, "launches_per_step": sum(e.count for e in attn) / steps,
-        "kernels": sorted({e.key[:100] for e in attn})}
+    # the paged-attention kernels, and the rotation (fwht.cuh) under each
+    # plan, whether the fused GEMM or the RHT entry launched it
+    for name, part in (("paged_attention", "paged_attention"),
+                       ("rotation", "rotate_kernel")):
+        ks = [e for e in kern if part in e.key]
+        out[name] = {
+            "ms_per_step": sum(e.self_device_time_total for e in ks) / 1e3
+            / steps, "launches_per_step": sum(e.count for e in ks) / steps,
+            "kernels": sorted({e.key[:100] for e in ks})}
     out["ranges"] = {label: {} for label in sorted(wanted)}
     for e in averages:
         if e.key not in wanted:
@@ -1690,6 +1815,64 @@ def attention_main(smi) -> int:
     return 0
 
 
+# the fused entry's shapes (d_keep 4083, c 4096) at decode and a chunk
+FUSED_AB_NS = [1, 8, 64]
+# the code search at llama2's and Mixtral's weight shapes
+SEARCH_TIMED = [(4083, 4096), (4083, 22016), (10974, 4096), (4096, 28672),
+                (14336, 4096)]
+AB_MODES = ("--rotation", "--code-search", "--division-sweep")
+
+
+def redesign_main(modes, smi) -> int:
+    """``--rotation`` and/or ``--code-search`` (and ``--division-sweep``):
+    build the kernels they need; on a tree with the redesigned kernels hold
+    them against their plain versions (``check_rht``,
+    ``check_code_search``), then time them: the rotation at RHT_TIMED (graph
+    replay), the fused GEMM at FUSED_AB_NS and an empty kernel's launch (the
+    card's launch floor); the code search at SEARCH_TIMED.  ``--division-sweep`` holds the code search's
+    division against IEEE division on all 2^46 pairs of f32 mantissas.
+    Prints one JSON line.  REPRO_TORCH_SRC picks the package tree, as for
+    ``--attention``: an earlier tree is only timed, so one call can run
+    parent, change, change, parent."""
+    names = (["hadamard", "rht_qmatmul"] if "--rotation" in modes else []) + (
+        ["rabitq_quant"] if modes & {"--code-search", "--division-sweep"}
+        else [])
+    t0 = time.monotonic()
+    logs = _build.build(names)
+    out = {"src": str(SRC), "gpu": smi, "build_s": time.monotonic() - t0,
+           "ptxas": [ln.strip() for lg in logs.values()
+                     for ln in lg.splitlines()
+                     if "registers" in ln or "spill" in ln]}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = torch.device("cuda")
+    if "--rotation" in modes:
+        redesigned = hasattr(hops, "rotate_plan")
+        if redesigned:
+            out["rht_check"] = check_rht(gen, dev)
+            out["launch_floor_ms"] = launch_floor_ms(dev)
+        out["rht_times"] = [time_rht(gen, dev, n, d, full=False)
+                            for n, d in RHT_TIMED]
+        out["fused_gemm_times"] = [time_gemm(gen, dev, n, 4083, 4096, 4,
+                                             full=False)
+                                   for n in FUSED_AB_NS]
+    if "--code-search" in modes:
+        redesigned = hasattr(rq_ops, "search_plan")
+        if redesigned:
+            out["code_search_check"] = check_code_search(gen, dev)
+        out["code_search_times"] = [time_code_search(gen, dev, d, c,
+                                                     plain=False)
+                                    for d, c in SEARCH_TIMED]
+    if "--division-sweep" in modes:
+        t0 = time.monotonic()
+        bad = rq_ops.division_mismatches(dev, 0, 1 << 23, 1)
+        out["division_sweep"] = {"pairs": 1 << 46, "mismatches": bad,
+                                 "seconds": time.monotonic() - t0}
+        check(bad == 0, f"the code search's division differs from IEEE "
+              f"division in {bad} of 2^46 mantissa pairs")
+    log(json.dumps({"redesign": out}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1704,6 +1887,12 @@ def main() -> int:
         return prefill_profile_main(dev, smi)
     if sys.argv[1:] == ["--attention"]:
         return attention_main(smi)
+    modes = set(sys.argv[1:])
+    if modes and modes <= set(AB_MODES):
+        return redesign_main(modes, smi)
+    if modes:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
 
     t_build = time.monotonic()
     logs = _build.build()
@@ -1724,17 +1913,19 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     gemm_worst = check_gemms(gen, dev)
     gemm_err, unfused_err = gemm_worst["fused"], gemm_worst["unfused"]
-    rht_err = check_rht(gen, dev)
+    rht_check = check_rht(gen, dev)
+    rht_err = rht_check["err"]
     search = check_code_search(gen, dev)
     attn_check = check_attention(gen, dev)
     attn_err = attn_check["max_abs_err"]
     gemm_times = [time_gemm(gen, dev, n, d, c, 4) for n, d, c in TIME_SHAPES]
     unfused_times = [time_gemm(gen, dev, n, d, c, 4, fused=False)
                      for n, d, c in TIME_SHAPES]
-    rht_times = [time_rht(gen, dev, n, d) for n, d in
-                 [(8, 4083), (8, 10974), (64, 4083), (8, 4096), (8, 16384)]]
-    search_times = [time_code_search(gen, dev, d, c) for d, c in
-                    [(4083, 4096), (4083, 22016), (10974, 4096)]]
+    rht_times = [time_rht(gen, dev, n, d) for n, d in RHT_TIMED]
+    floor_ms = launch_floor_ms(dev)
+    log(f"launch floor (empty kernel, graph replay): {floor_ms:.4f} ms")
+    search_times = [time_code_search(gen, dev, d, c)
+                    for d, c in SEARCH_TIMED]
     for name, rows in (("rht_qmatmul", gemm_times), ("qmatmul", unfused_times),
                        ("rht", rht_times), ("rabitq_quant", search_times)):
         for t in rows:
@@ -1849,13 +2040,31 @@ def main() -> int:
               decode_unfused, ("n", "d", "c", "bits")),
         entry("rht", "src/repro_torch/csrc/hadamard.cu",
               "src/repro/kernels/hadamard/hadamard.py:35", rht_err,
-              decode_rht, ("n", "d")),
+              decode_rht, ("n", "d", "plan"),
+              launch_floor_ms=floor_ms, padded_ms=decode_rht["padded_ms"],
+              decode_profile={path: serve_r["decode_profile"]["rotation"]
+                              for path, serve_r in (("llama2", serve_out),
+                                                    ("mixtral", moe_serve))},
+              shapes=[{k: t[k] for k in (
+                  "n", "d", "plan", "ms", "padded_ms", "plain_ms",
+                  "bound_ms", "library_ms")} for t in rht_times[1:]],
+              rowsum_err=rht_check["rowsum_err"],
+              walk_err=rht_check["walk_err"],
+              note="fwht.cuh's rotation, also launched inside rht_qmatmul "
+                   "(padded_ms: rows padded to a multiple of 64 with their "
+                   "sums, as the fused GEMM launches it)"),
         entry("rabitq_quant", "src/repro_torch/csrc/rabitq_quant.cu",
               "src/repro/kernels/rabitq_quant/quantize.py:49",
-              search["max_rescale_abs_err"], search_t, ("d", "c", "bits"),
+              search["max_rescale_abs_err"], search_t,
+              ("d", "c", "bits", "slices"),
               measure="max|rescale err| where the step agrees; codes equal",
               differing_columns=search["differing_columns"],
-              max_objective_gap=search["max_objective_gap"]),
+              max_objective_gap=search["max_objective_gap"],
+              division_mismatches=search["division_mismatches"],
+              one_candidate_ms=search_t["one_candidate_ms"],
+              shapes=[{k: t[k] for k in (
+                  "d", "c", "slices", "ms", "one_candidate_ms", "plain_ms",
+                  "bound_ms")} for t in search_times[1:]]),
         entry("grouped_rht_qmatmul", "src/repro_torch/csrc/rht_qmatmul.cu",
               "src/repro/kernels/qmatmul/ops.py:121", grouped_err,
               grouped_decode, ("e", "cap", "d", "c", "bits"),
@@ -1877,7 +2086,8 @@ def main() -> int:
     detail = {"gpu": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": regs, "gemm_times": gemm_times,
-              "unfused_gemm_times": unfused_times, "rht_times": rht_times,
+              "unfused_gemm_times": unfused_times, "rht_check": rht_check,
+              "rht_times": rht_times, "launch_floor_ms": floor_ms,
               "code_search_times": search_times, "code_search_check": search,
               "attention_check": attn_check, "attention_times": attn_times,
               "quantize": quant_out,

@@ -21,12 +21,15 @@
 // (351 KB at n=8, d=10974) does not fit a block's shared memory, so
 // rht_qmatmul launches, on one stream:
 //
-//   1. fwht::rotate_kernel (fwht.cuh): one CTA per row, sign flip and
-//      in-shared-memory butterfly FWHT (Alg. 5); writes x_rot f32 with its
-//      rows padded with zeros to a multiple of 64 (16-byte aligned rows for
-//      cp.async; the zeros cancel the pad codes, since code 0 - c_b is not
-//      0), and rowsum in f32.  qmatmul launches rowsum_kernel instead, which
-//      writes the padded copy of its given x_rot.
+//   1. fwht::rotate_kernel (fwht.cuh): one CTA per row under the host's
+//      plan (threads, values per thread; hadamard/ops.py:rotate_plan), the
+//      sign flip on load and the Alg. 5 butterflies in registers, warp
+//      shuffles and one shared-memory transpose per block; writes x_rot f32
+//      with its rows padded with zeros to a multiple of 64 (16-byte aligned
+//      rows for cp.async; the zeros cancel the pad codes, since code 0 - c_b
+//      is not 0), and rowsum in f32, in a fixed order.  qmatmul launches
+//      rowsum_kernel instead, which writes the padded copy of its given
+//      x_rot.
 //   2. dequant_gemm_kernel computes Y^T = codes^T X_rot^T on mma.sync.m16n8k16
 //      (bf16 in, f32 accumulate): M = 256 code columns per CTA (32 per warp
 //      of 8), N = every row of the group up to 64 (8 per instruction; a
@@ -407,17 +410,19 @@ cudaError_t launch_gemm_epilogue(const float* xrot, const float* rowsum,
 // Fused: Y = practical_rht(x) @ (r * (codes - c_b)) for groups experts of n
 // rows each (x: groups*n rows; packed: groups slabs of prow x c; rescale:
 // groups x c).  xrot (groups*n rows of x_ld), rowsum and partial are
-// scratch.
+// scratch; (rot_threads, rot_per_thread) is the rotation's plan.
 extern "C" int rht_qmatmul(const float* x, const float* signs1,
                            const float* signs2, const uint8_t* packed,
                            const __half* rescale, float* xrot, float* rowsum,
                            float* partial, float* out, int n, int groups,
                            int d, int d_hat, int c, int bits, int n_tiles,
                            int chunks_per_split, int splits, int x_ld,
+                           int rot_threads, int rot_per_thread,
                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = fwht::launch_rotate(x, signs1, signs2, xrot, rowsum,
-                                      groups * n, d, d_hat, x_ld, st);
+                                      groups * n, d, d_hat, x_ld, rot_threads,
+                                      rot_per_thread, st);
   if (e != cudaSuccess) return e;
   return launch_gemm_epilogue(xrot, rowsum, packed, rescale, partial, out, n,
                               groups, d, c, bits, n_tiles, chunks_per_split,

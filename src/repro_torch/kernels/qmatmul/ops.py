@@ -26,9 +26,11 @@ rotates once at grid step (j=0, k=0) and keeps the rotated (bn, d_pad) tile
 in VMEM across every column tile, which relies on TPU grid steps running in
 order.  On the H100 CTAs run concurrently and a rotated f32 tile at n=8,
 d=10974 (351 KB) exceeds a block's 227 KB of shared memory, so the fused
-wrapper launches a rotation (one CTA per row, sign flip + butterfly FWHT in
-shared memory, rowsum) that writes x_rot f32 with rows zero-padded to a
-multiple of 64, a split-K dequant GEMM on the tensor cores, and a small
+wrapper launches a rotation (``csrc/fwht.cuh`` under
+``hadamard.ops.rotate_plan``: one CTA per row, the butterflies in registers
+and warp shuffles with one shared-memory transpose per block, rowsum) that
+writes x_rot f32 with rows zero-padded to a multiple of 64, a split-K
+dequant GEMM on the tensor cores, and a small
 pass that sums the splits in a fixed order (deterministic, so greedy tokens
 do not vary run to run) and applies the Alg. 3 epilogue.  The unfused
 wrapper launches a row-sum pass (which also writes the padded copy) and the
@@ -83,7 +85,6 @@ K_CHUNK = 64                    # d values per staged chunk
 N_TILES = (1, 2, 3, 4, 8)       # compiled n-tiles (8 rows each) per CTA
 MIN_CHUNKS_PER_SPLIT = 4        # d chunks a split covers at least
 CTAS_PER_SM = 1                 # CTAs per SM the plan aims at
-MAX_SMEM_BYTES = 232448         # dynamic shared memory one H100 block may use
 _LIB = None
 
 
@@ -197,7 +198,7 @@ def _lib():
         from repro_torch.kernels import _build
         lib = _build.load("rht_qmatmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rht_qmatmul.argtypes = [p] * 9 + [i] * 10 + [p]
+        lib.rht_qmatmul.argtypes = [p] * 9 + [i] * 12 + [p]
         lib.rht_qmatmul.restype = ctypes.c_int
         lib.qmatmul.argtypes = [p] * 7 + [i] * 9 + [p]
         lib.qmatmul.restype = ctypes.c_int
@@ -266,9 +267,8 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, rescale: torch.Tensor,
                              "power of 2")
         if signs2 is not None:
             _check(signs2, "signs2", torch.float32, (d_hat,), dev)
-        if (d + 2 * d_hat) * 4 > MAX_SMEM_BYTES:
-            raise ValueError(f"d={d}: the rotation kernel keeps a row and its "
-                             f"signs in shared memory, {MAX_SMEM_BYTES} bytes")
+        from repro_torch.kernels.hadamard import ops as hops  # late: no cycle
+        rot_plan = hops.rotate_plan(d)          # raises past d_hat 16384
     out = torch.empty((rows, c), dtype=torch.float32, device=dev)
     if rows == 0 or c == 0:
         return out
@@ -287,7 +287,7 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, rescale: torch.Tensor,
                 x.data_ptr(), signs1.data_ptr(), s2.data_ptr(),
                 packed.data_ptr(), rescale.data_ptr(), xrot.data_ptr(),
                 rowsum.data_ptr(), partial.data_ptr(), out.data_ptr(), n,
-                groups, d, d_hat, c, *plan, stream)
+                groups, d, d_hat, c, *plan, *rot_plan, stream)
         else:
             err = _lib().qmatmul(
                 x.data_ptr(), packed.data_ptr(), rescale.data_ptr(),

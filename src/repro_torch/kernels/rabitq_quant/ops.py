@@ -12,13 +12,20 @@ the kernel launches or the call raises.
 
 Kernel source note — replaces ``repro/kernels/rabitq_quant/quantize.py:
 quantize_pallas`` (``_kernel``), which holds a (d, bc) column slab in VMEM
-and sweeps the S candidate steps over it.  A slab does not fit a block's
-227 KB of shared memory at d = 10974, so the CUDA kernel streams w three
-times (absmax; all S candidates' <w,v>, <v,v> in registers in one sweep;
-the chosen codes), a CTA per 32 columns with its warps splitting d and
-summing in a fixed order.  Operations bound it (S IEEE divisions per
-element); the plain version's scales, division and rounding are kept, so
-codes agree except where two candidates' objectives tie to f32 rounding.
+and sweeps the S candidate steps over it.  On the H100 a thread-block
+cluster of P CTAs (``search_plan``) owns 32 columns, one per lane, and
+splits d into P slices (small, so the resident CTAs' slices of w may stay
+in L2 across the kernel's three passes): absmax combines across the cluster
+through distributed shared memory, one sweep accumulates all S candidates'
+<w,v>, <v,v> in registers, the slices' sums combine in cluster-rank order
+(so codes and rescales do not vary run to run), and each CTA writes the
+codes of its own slice; ``ref.search_walk`` walks the same split on the
+host.  Operations bound it (about 10 f32 instructions per element and
+candidate): 256-thread CTAs, three per SM, and a division from the
+correctly rounded reciprocal (a multiply and two fmas, bit-identical to
+IEEE division, no branch) keep the issue slots busy.  The plain version's
+scales, division and rounding are kept, so codes agree except where two
+candidates' objectives tie to f32 rounding.
 """
 from __future__ import annotations
 
@@ -33,7 +40,10 @@ from .ref import quantize_ref
 _FORCE_PATH: str | None = None  # "kernel" | "ref" | None (by device)
 launches = 0                    # kernel launches (one per wrapper call)
 MAX_CANDIDATES = 16             # the kernel keeps 2 S sums in registers
+MAX_SLICES = 8                  # the portable thread-block cluster size
+MIN_SLICE_ROWS = 128            # rows a slice keeps at least
 _LIB = None
+_SCALES: dict = {}              # (device, S) -> the candidate scales there
 
 
 def set_forced_path(path: str | None) -> None:
@@ -63,14 +73,32 @@ def quantize(w: torch.Tensor, bits: int, n_candidates: int = 12) -> RabitqCodes:
     return RabitqCodes(codes=codes, rescale=rescale, bits=bits)
 
 
+def search_plan(d: int) -> int:
+    """Row slices P of the code search (CTAs per cluster, a power of 2 up to
+    8): d is split as far as the portable cluster allows while each slice
+    keeps ``MIN_SLICE_ROWS`` rows.  Small slices shrink what the CTAs
+    resident on the card read between the kernel's three passes over w
+    (396 x 510 rows x 128 B = 26 MB at d 4083; L2 holds 50 MB).  In a
+    one-off timing of P = 1, 2, 4, 8 on the H100 (PERF.md §6) eight
+    were the fastest at the pipeline's 4096-column weights and close to
+    the best at 22016 and 28672 columns, so one plan serves every shape."""
+    slices = 1
+    while slices < MAX_SLICES and d >= 2 * slices * MIN_SLICE_ROWS:
+        slices *= 2
+    return slices
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         from repro_torch.kernels import _build
         lib = _build.load("rabitq_quant")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rabitq_quant.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.rabitq_quant.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.rabitq_quant.restype = ctypes.c_int
+        u = ctypes.c_uint
+        lib.rabitq_div_sweep.argtypes = [u, u, u, p, p]
+        lib.rabitq_div_sweep.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -99,14 +127,35 @@ def quantize_cuda(w: torch.Tensor, bits: int, n_candidates: int = 12, *,
               if return_choice else None)
     if d == 0 or c == 0:
         return (codes, rescale, choice) if return_choice else (codes, rescale)
-    scales = torch.from_numpy(candidate_scales(n_candidates)).to(dev)
+    slices = search_plan(d)
+    key = (str(dev), n_candidates)
+    if key not in _SCALES:          # no host copy per call (graph capture)
+        _SCALES[key] = torch.from_numpy(candidate_scales(n_candidates)).to(dev)
+    scales = _SCALES[key]
     with torch.cuda.device(dev):
         err = _lib().rabitq_quant(
             w.data_ptr(), scales.data_ptr(), codes.data_ptr(),
             rescale.data_ptr(), 0 if choice is None else choice.data_ptr(),
-            d, c, bits, n_candidates,
+            d, c, bits, n_candidates, slices,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rabitq_quant launch failed with CUDA error {err}")
     launches += 1
     return (codes, rescale, choice) if return_choice else (codes, rescale)
+
+
+def division_mismatches(device: torch.device, first: int, count: int,
+                        stride: int) -> int:
+    """Pairs of f32 mantissas (x in all of [1, 2); delta = 1 + (first +
+    stride * k) * 2^-23, k < count) where the kernel's division differs
+    from IEEE division, counted on the card (``rabitq_div_sweep``)."""
+    if first + stride * (count - 1) >= 1 << 23:
+        raise ValueError("delta mantissas run past 2^23")
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = _lib().rabitq_div_sweep(
+            first, count, stride, bad.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rabitq_div_sweep failed with CUDA error {err}")
+    return int(bad)
