@@ -32,12 +32,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      bits, every linear RaBitQ-H quantized with the code-search kernel; then
      the same layers again with the code search's plain version, compared
      column by column;
-  5. serve: the fp weights dropped, 8 requests through ``PagedServer.run``
-     three ways -- fused with the kernels, fused with the plain versions
-     forced, and unfused (the RHT kernel, then the unfused GEMM kernel);
-     greedy tokens must match; a profile of decode steps and one of
-     prefill chunks (device ms by kernel); each run counts the GEMM
-     launches of its prefill chunks and of its decode steps;
+  5. serve (``serve_four_ways``): the fp weights dropped, 8 requests
+     through ``PagedServer.run`` four ways -- by graph (the engine's
+     default: each decode step and prompt-chunk length captured once as a
+     CUDA graph, then replayed) and by eager kernels (``graphs.eager()``),
+     each 3 times for the spread of decode ms/step and ``prefill_s``; fused
+     with the plain versions forced (eager); and unfused by graph (the RHT
+     kernel, then the unfused GEMM kernel).  Graph and eager must give the
+     same tokens and the same launches per kernel, the others the same
+     tokens but at near-ties; the captures, their seconds and the graph
+     pool's memory are reported; decode steps and prefill chunks are
+     profiled in both modes (device ms by kernel, idle share, launches per
+     step); each run counts the GEMM launches of its prefill chunks and of
+     its decode steps;
   6. Mixtral: mixtral-8x7b at its published width (d_model 4096, 32 heads
      over 8 KV heads, 8 experts top-2 of width 14336, capacity factor 1.25,
      window 4096, vocab 32000) with the depth cut to 4 of its 32 layers
@@ -46,14 +53,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (4.0 bits) and quantized with grouped experts, then quantized again
      with the plain code search and compared; the fp weights dropped and
      the 8 requests plus one of 4160 prompt tokens (its window
-     ring wraps in prefill and in decode) served fused, with the plain
-     versions and unfused; greedy tokens must match;
+     ring wraps in prefill and in decode) served the same four ways;
   7. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
      path's runs counted from zero), the nvidia-smi line, and as the last
      line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --prefill-profile`` runs only the quantization and
-the prefill-chunk profiles of both models (see ``prefill_profile_main``);
+the prefill-chunk profiles of both models, by graph and eager (see
+``prefill_profile_main``);
 ``python3 chip_smoke.py --attention`` only builds, checks and times the
 paged-attention kernel (see ``attention_main``); ``--rotation`` and
 ``--code-search`` (either or both, with ``--division-sweep`` for the
@@ -91,6 +98,7 @@ from repro_torch.core import hadamard, packing, rabitq  # noqa: E402
 from repro_torch.core import pipeline as pipe  # noqa: E402
 from repro_torch.core.qlinear import QuantizedGrouped, draw_signs  # noqa: E402
 from repro_torch.core.tricks import centralize  # noqa: E402
+from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -107,7 +115,7 @@ from repro_torch.models import attention as attnmod  # noqa: E402
 from repro_torch.models import decode as decmod  # noqa: E402
 from repro_torch.models import moe as moemod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
-from repro_torch.serve import PagedServer, PoolConfig, Request  # noqa: E402
+from repro_torch.serve import PagedServer, PoolConfig, Request, graphs  # noqa: E402
 
 # H100 SXM published dense peaks at 700 W (NVIDIA data sheet): the HBM rate
 # and, for a bound's operations, the rate for what their operands are.
@@ -473,19 +481,17 @@ def check_rht(gen, dev) -> dict:
 
 def time_rht(gen, dev, n, d, full=True) -> dict:
     """Kernel times by graph replay (``padded_ms``: the rotation as the
-    fused GEMM launches it, rows padded to a multiple of 64 with their sums;
-    absent from an earlier tree); with ``full`` also eager calls, the plain
-    version and the library call, which multiplies x by the dense (d, d)
-    matrix of the same linear map (practical_rht of the identity)."""
+    fused GEMM launches it, rows padded to a multiple of 64 with their
+    sums); with ``full`` also eager calls, the plain version and the library
+    call, which multiplies x by the dense (d, d) matrix of the same linear
+    map (practical_rht of the identity)."""
     x = torch.randn((n, d), generator=gen, device=dev)
     s1, s2 = draw_signs(d, gen)
-    out = {"n": n, "d": d,
-           "ms": graph_ms(lambda: hops.rht_cuda(x, s1, s2))}
-    if hasattr(hops, "rht_padded_cuda"):
-        out_ld = -(-d // qops.K_CHUNK) * qops.K_CHUNK
-        out["plan"] = hops.rotate_plan(d)
-        out["padded_ms"] = graph_ms(
-            lambda: hops.rht_padded_cuda(x, s1, s2, out_ld))
+    out_ld = -(-d // qops.K_CHUNK) * qops.K_CHUNK
+    out = {"n": n, "d": d, "plan": hops.rotate_plan(d),
+           "ms": graph_ms(lambda: hops.rht_cuda(x, s1, s2)),
+           "padded_ms": graph_ms(
+               lambda: hops.rht_padded_cuda(x, s1, s2, out_ld))}
     if full:
         out["call_ms"] = time_ms(lambda: hops.rht_cuda(x, s1, s2))
         out["plain_ms"] = time_ms(lambda: hadamard.practical_rht(x, s1, s2),
@@ -635,25 +641,21 @@ def search_bound(d, c):
 
 def time_code_search(gen, dev, d, c, bits=4, plain=True) -> dict:
     """Kernel and plain times at one weight shape (w is 67-470 MB, past
-    L2).  ``ms`` is CUDA-graph replay where the wrapper can be captured (an
-    earlier tree's copies its scales to the card on every call: there
-    ``ms`` is ``call_ms``, eager calls timed back to back)."""
+    L2): ``ms`` by CUDA-graph replay, ``call_ms`` eager calls back to
+    back."""
     w = torch.randn((d, c), generator=gen, device=dev)
 
     def kernel():
         return rq_ops.quantize_cuda(w, bits, N_CAND)
-    planned = hasattr(rq_ops, "search_plan")
     call_ms = time_ms(kernel, iters=5, warmup=1)
-    k_ms = graph_ms(kernel, iters=5) if planned else call_ms
+    k_ms = graph_ms(kernel, iters=5)
     # one candidate: the three passes over w with almost no sweep
-    one_ms = (graph_ms(lambda: rq_ops.quantize_cuda(w, bits, 1), iters=5)
-              if planned else None)
+    one_ms = graph_ms(lambda: rq_ops.quantize_cuda(w, bits, 1), iters=5)
     p_ms = (time_ms(lambda: rq_ops.quantize_ref(w, bits, N_CAND), iters=3,
                     warmup=1) if plain else None)
     del w
     return {"d": d, "c": c, "bits": bits,
-            "slices": rq_ops.search_plan(d) if planned else None, "ms": k_ms,
-            "ms_by": "graph replay" if planned else "eager calls",
+            "slices": rq_ops.search_plan(d), "ms": k_ms,
             "call_ms": call_ms, "one_candidate_ms": one_ms,
             "plain_ms": p_ms, "library_ms": None,
             **search_bound(d, c)}
@@ -724,12 +726,8 @@ ATTN_TIMED = [
 ]
 
 
-def attn_splits(args) -> int | None:
-    """The grid splits the wrapper picks for these inputs; None for a
-    package tree whose wrapper plans otherwise (an earlier tree given by
-    REPRO_TORCH_SRC)."""
-    if not hasattr(pops, "MIN_SPLIT_KEYS"):
-        return None
+def attn_splits(args) -> int:
+    """The grid splits the wrapper picks for these inputs."""
     q, k, _, bt = args[:4]
     return pops.kv_splits(q.shape[0], k.shape[2], bt.shape[1], k.shape[1],
                           torch.cuda.get_device_properties(
@@ -1235,18 +1233,13 @@ def quantize_plain_and_compare(cfg, params, stats, rep, qls, dev) -> dict:
 
 def zero_counts() -> None:
     """Every kernel wrapper's launch counter to 0."""
-    qops.launches = qops.unfused_launches = 0
-    qops.grouped_launches = qops.grouped_unfused_launches = 0
-    hops.launches = pops.launches = fops.launches = rq_ops.launches = 0
+    kernels.set_launch_counts(dict.fromkeys(kernels.launch_counts(), 0))
 
 
 def counts() -> dict:
-    """Every kernel wrapper's launch counter, by kernel."""
-    return {"rht_qmatmul": qops.launches, "qmatmul": qops.unfused_launches,
-            "grouped_rht_qmatmul": qops.grouped_launches,
-            "grouped_qmatmul": qops.grouped_unfused_launches,
-            "rht": hops.launches, "paged_attention": pops.launches,
-            "flash_attention": fops.launches, "rabitq_quant": rq_ops.launches}
+    """Every kernel wrapper's launch counter, by kernel (a replayed graph
+    credits the launches its capture recorded)."""
+    return kernels.launch_counts()
 
 
 def gemm_launches() -> int:
@@ -1346,9 +1339,188 @@ def serve_summary(engine, results, wall, cfg, params,
             "gemm_launches": engine.gemms,
             "decode_step_ms": 1e3 * st["decode_s"] / st["decode_steps"],
             "mean_occupancy": st["mean_occupancy"],
+            "captures": {"decode": engine.decode_trace_count,
+                         "chunk": engine.chunk_trace_count},
+            "capture_s": st["capture_s"],
+            "graph_pool_mib": st["graph_pool_bytes"] / 2**20,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "tokens_past_ring": engine.past_ring,
             "decode_step_bound_ms": decode_step_bound_ms(
                 cfg, params, float(np.mean(engine.step_tokens)))}
+
+
+# serve runs per mode, for the spread of the host-clock step times
+REPEATS = 3
+SPREAD_KEYS = ("decode_step_ms", "prefill_s", "wall_s", "tok_per_s",
+               "capture_s")
+
+
+def serve_repeats(cfg, params, dev, pool, prompt_lens, mode: str) -> tuple:
+    """REPEATS serve runs of the same requests in one mode -- "graph" (the
+    engine's default: each step captured once, then replayed) or "eager"
+    (under ``graphs.eager()``, op by op) -- each counted from zero.  Every
+    run must give the first run's tokens and launch counts.  Returns the
+    first run's engine and results, and its summary with each
+    SPREAD_KEYS metric over the runs (``repeats``)."""
+    runs = []
+    for _ in range(REPEATS):
+        zero_counts()
+        with graphs.eager(mode == "eager"):
+            engine, results, wall = serve(cfg, params, dev, pool,
+                                          prompt_lens=prompt_lens)
+        summary = serve_summary(engine, results, wall, cfg, params,
+                                prompt_lens)
+        summary["launches"] = counts()
+        runs.append(summary)
+        if len(runs) == 1:
+            first, first_results = engine, results
+        else:
+            check(all(np.array_equal(r.tokens, first_results[rid].tokens)
+                      for rid, r in results.items())
+                  and summary["launches"] == runs[0]["launches"],
+                  f"{mode} serve runs differ in tokens or launches")
+        del engine
+    out = dict(runs[0])
+    out["repeats"] = {k: [r[k] for r in runs] for k in SPREAD_KEYS}
+    return first, first_results, out
+
+
+def spread(values) -> str:
+    return (f"median {float(np.median(values)):.4g} (min {min(values):.4g}, "
+            f"max {max(values):.4g})")
+
+
+def log_serve(name, mode, out, cfg) -> None:
+    rep = out["repeats"]
+    log(f"{name} serve {mode}: {out['tokens']} tokens, {REPEATS} runs; decode "
+        f"ms/step {spread(rep['decode_step_ms'])} over "
+        f"{out['decode_steps']} steps (bound "
+        f"{out['decode_step_bound_ms']:.3f} ms); prefill_s "
+        f"{spread(rep['prefill_s'])} over {out['prefill_chunks']} chunks; "
+        f"tok/s {spread(rep['tok_per_s'])}; captures {out['captures']} in "
+        f"{spread(rep['capture_s'])} s; graph pool "
+        f"{out['graph_pool_mib']:.1f} MiB; peak {out['peak_mem_gib']:.2f} "
+        f"GiB; launches {out['launches']}; GEMM launches "
+        f"{out['gemm_launches']}; {out['tokens_past_ring']} tokens past the "
+        f"{cfg.window}-token ring")
+
+
+def mode_row(out) -> dict:
+    """One serving mode's numbers: host-clock step times over the repeats,
+    the profiles' device ms, idle share and launches per decode step and
+    per prefill chunk, the captures and the graph pool."""
+    row = {k: out["repeats"][k] for k in ("decode_step_ms", "prefill_s",
+                                          "capture_s")}
+    for prof in ("decode_profile", "prefill_profile"):
+        row[prof] = {k: out[prof][k] for k in (
+            "wall_ms_per_step", "unprofiled_wall_ms_per_step",
+            "device_ms_per_step", "idle_share", "unprofiled_idle_share",
+            "launches_per_step")}
+    row.update(captures=out["captures"], graph_pool_mib=out["graph_pool_mib"])
+    return row
+
+
+def serve_four_ways(name, cfg, params, dev, pool, prompt_lens, labels=()
+                    ) -> dict:
+    """The same requests served four ways: by graph (the default), by eager
+    kernels (``graphs.eager()``), each REPEATS times; unfused (by graph);
+    and with the plain versions forced (eager: the engine captures nothing
+    while a kernel is forced onto its plain version).  Graph and eager must
+    give identical tokens and identical launch counts per kernel; unfused
+    and plain may diverge only at a near-tie.  Decode steps and prefill
+    chunks are profiled in both modes (``labels`` name ranges in the eager
+    profiles; a replayed graph runs no Python)."""
+    for fused in (True, False):     # warm-up outside the counts
+        PagedServer(cfg, params, pool, fused=fused, device=dev).run(
+            [Request(rid=-1, prompt=np.arange(16, dtype=np.int32), max_new=2)])
+
+    engine, results, out = serve_repeats(cfg, params, dev, pool, prompt_lens,
+                                         "graph")
+    _, eager_results, eager = serve_repeats(cfg, params, dev, pool,
+                                            prompt_lens, "eager")
+    out["weights_only_bound_ms"] = decode_step_bound_ms(cfg, params, 0.0)
+    out["eager"] = eager
+    log_serve(name, "by graph", out, cfg)
+    log_serve(name, "eager", eager, cfg)
+    same = sum(np.array_equal(r.tokens, eager_results[rid].tokens)
+               for rid, r in results.items())
+    log(f"{name}: graph and eager tokens identical for {same}/"
+        f"{len(results)} requests; launches equal: "
+        f"{out['launches'] == eager['launches']}")
+    check(same == len(results), f"{name}: graph and eager tokens differ")
+    check(out["launches"] == eager["launches"],
+          f"{name}: graph launches {out['launches']} != eager "
+          f"{eager['launches']}")
+    check(out["captures"] == {"decode": 1, "chunk": len(
+        {min(pool.prefill_chunk, n - s) for n in prompt_lens
+         for s in range(0, n, pool.prefill_chunk)})}
+          and eager["captures"] == {"decode": 0, "chunk": 0},
+          f"{name}: captures graph {out['captures']}, eager "
+          f"{eager['captures']}")
+
+    # launches one decode step makes, counted on a direct call, against
+    # what the decode graph's capture recorded
+    per_step = launches_per_decode_step(cfg, params, dev, engine)
+    out["launches_per_decode_step"] = per_step
+    recorded = engine.graphs.steps[("decode", True, pool.max_slots)].launches
+    log(f"{name} launches per decode step: {per_step}; the decode graph "
+        f"replays {recorded}")
+    check(recorded == per_step["fused"],
+          f"{name}: the decode graph recorded {recorded}, a direct step "
+          f"launches {per_step['fused']}")
+    del engine
+    out["decode_profile"] = profile_decode(cfg, params, dev, pool)
+    out["prefill_profile"] = profile_prefill(cfg, params, dev, pool)
+    with graphs.eager():
+        eager["decode_profile"] = profile_decode(cfg, params, dev, pool,
+                                                 labels=labels)
+        eager["prefill_profile"] = profile_prefill(cfg, params, dev, pool,
+                                                   labels=labels)
+    out["modes"] = {mode: mode_row(o) for mode, o in (("graph", out),
+                                                      ("eager", eager))}
+    log(f"{name} graph vs eager: {json.dumps(out['modes'])}")
+
+    # the unfused A/B path: the RHT kernel, then the unfused GEMM kernel
+    zero_counts()
+    unf, unf_results, unf_wall = serve(cfg, params, dev, pool, fused=False,
+                                       prompt_lens=prompt_lens)
+    unfused = serve_summary(unf, unf_results, unf_wall, cfg, params,
+                            prompt_lens)
+    unfused["launches"] = counts()
+    unfused["divergences"] = divergences(results, unf_results, unf)
+    out["unfused"] = unfused
+    log(f"{name} serve unfused (by graph): {unfused['tokens']} tokens in "
+        f"{unf_wall:.2f} s = {unfused['tok_per_s']:.1f} tok/s; prefill "
+        f"{unfused['prefill_s']:.2f} s; decode "
+        f"{unfused['decode_step_ms']:.2f} ms/step (bound "
+        f"{unfused['decode_step_bound_ms']:.3f} ms); captures "
+        f"{unfused['captures']}; launches {unfused['launches']}; greedy "
+        f"tokens identical to fused for "
+        f"{len(results) - len(unfused['divergences'])}/{len(results)}")
+    del unf
+
+    # the same requests with the plain versions forced on the card
+    for ops in (qops, pops, hops):
+        ops.set_forced_path("ref")
+    try:
+        plain, plain_results, plain_wall = serve(cfg, params, dev, pool,
+                                                 prompt_lens=prompt_lens)
+    finally:
+        for ops in (qops, pops, hops):
+            ops.set_forced_path(None)
+    out["plain_wall_s"] = plain_wall
+    out["plain_tok_per_s"] = out["tokens"] / plain_wall
+    out["plain_captures"] = {"decode": plain.decode_trace_count,
+                             "chunk": plain.chunk_trace_count}
+    out["divergences"] = divergences(results, plain_results, plain)
+    log(f"{name} serve fused (plain versions, eager): {plain_wall:.2f} s; "
+        f"greedy tokens identical for "
+        f"{len(results) - len(out['divergences'])}/{len(results)} requests; "
+        f"accepted near-tie divergences: {len(out['divergences'])}; "
+        f"captures {out['plain_captures']}")
+    check(out["plain_captures"] == {"decode": 0, "chunk": 0},
+          f"{name}: the plain run captured {out['plain_captures']}")
+    return out
 
 
 def divergences(base, other_results, other_engine) -> list:
@@ -1393,7 +1565,8 @@ def profile_decode(cfg, params, dev, pool, steps: int = 8,
                    labels=()) -> dict:
     """Where a decode step's time goes: 8 requests (prompt 128, 64 new
     tokens) are admitted and prefilled, then ``steps`` pure decode steps
-    run under torch.profiler (``profile_steps``)."""
+    run on the host clock and ``steps`` more under torch.profiler
+    (``profile_steps``)."""
     engine = PagedServer(cfg, params, pool, device=dev)
     rng = np.random.default_rng(SEED + 1)
     for i in range(pool.max_slots):
@@ -1406,19 +1579,20 @@ def profile_decode(cfg, params, dev, pool, steps: int = 8,
     return out
 
 
-def profile_prefill(cfg, params, dev, pool, chunks: int = 4,
+def profile_prefill(cfg, params, dev, pool, chunks: int = 3,
                     labels=()) -> dict:
-    """Where a prefill chunk's time goes: one request of (chunks + 2) full
-    chunks is admitted, its first chunk runs outside the profile, then
-    ``chunks`` steps that each run one 64-token chunk and nothing else
-    (no request is decoding yet) run under torch.profiler."""
+    """Where a prefill chunk's time goes: one request of (2 chunks + 2)
+    full chunks is admitted, its first chunk runs outside the measurement,
+    then ``chunks`` steps that each run one 64-token chunk and nothing else
+    (no request is decoding yet) run on the host clock and ``chunks`` more
+    under torch.profiler."""
     engine = PagedServer(cfg, params, pool, device=dev)
     rng = np.random.default_rng(SEED + 2)
     engine.submit(Request(rid=200, max_new=2, prompt=rng.integers(
-        0, cfg.vocab, (chunks + 2) * pool.prefill_chunk).astype(np.int32)))
+        0, cfg.vocab, (2 * chunks + 2) * pool.prefill_chunk).astype(np.int32)))
     engine.step()
     out = profile_steps(engine, chunks, labels)
-    check(engine.stats["prefill_chunks"] == chunks + 1
+    check(engine.stats["prefill_chunks"] == 2 * chunks + 1
           and not engine.stats.get("decode_steps"),
           "the prefill profile ran something other than prompt chunks")
     log(f"prefill profile: {json.dumps(out)}")
@@ -1426,13 +1600,21 @@ def profile_prefill(cfg, params, dev, pool, chunks: int = 4,
 
 
 def profile_steps(engine, steps: int, labels=()) -> dict:
-    """``steps`` engine steps under torch.profiler.  Device time is the sum
-    of kernel times (one stream, so kernels do not overlap); the idle share
-    is the rest of the host-clock step time.  ``labels`` (see ``labelled``)
-    name ranges whose device time is reported too."""
+    """``steps`` engine steps on the host clock, then ``steps`` more under
+    torch.profiler.  Device time is the sum of kernel times (one stream, so
+    kernels do not overlap); the idle share is the rest of the host-clock
+    step time, under the profiler (``idle_share``, which the profiler's own
+    cost inflates) and without it (``unprofiled_idle_share``: the first
+    steps' wall against the profiled steps' device time).  ``labels`` (see
+    ``labelled``) name ranges whose device time is reported too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    unprofiled = time.monotonic() - t0
     with labelled(labels), profile(activities=[ProfilerActivity.CPU,
                                                ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -1449,8 +1631,11 @@ def profile_steps(engine, steps: int, labels=()) -> dict:
     dev_us = sum(e.self_device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:40]
     out = {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+           "unprofiled_wall_ms_per_step": 1e3 * unprofiled / steps,
            "device_ms_per_step": dev_us / 1e3 / steps if dev_us else None,
            "idle_share": 1 - dev_us / 1e6 / wall if dev_us else None,
+           "unprofiled_idle_share": (1 - dev_us / 1e6 / unprofiled
+                                     if dev_us else None),
            "launches_per_step": sum(e.count for e in kern) / steps,
            "top_kernels": [{"name": e.key[:100], "count": e.count,
                             "ms_per_step": e.self_device_time_total / 1e3 / steps}
@@ -1485,71 +1670,13 @@ def llama2_pool():
 
 def serve_phase(dev, params) -> dict:
     cfg = get_config("llama2-7b")
-    pool = llama2_pool()
-    # warm-up (library loads, allocator, cuBLAS handles) outside the counts
-    for fused in (True, False):
-        PagedServer(cfg, params, pool, fused=fused, device=dev).run(
-            [Request(rid=-1, prompt=np.arange(16, dtype=np.int32), max_new=2)])
-
-    zero_counts()
-    engine, results, wall = serve(cfg, params, dev, pool)
-    launches = counts()
-    out = serve_summary(engine, results, wall, cfg, params)
-    out["weights_only_bound_ms"] = decode_step_bound_ms(cfg, params, 0.0)
-    out["launches"] = launches
-    log(f"serve fused (kernels): {out['tokens']} tokens in {wall:.2f} s = "
-        f"{out['tok_per_s']:.1f} tok/s; prefill {out['prefill_s']:.2f} s over "
-        f"{out['prefill_chunks']} chunks ({out['prefill_chunk_ms']:.2f} "
-        f"ms/chunk), decode {out['decode_s']:.2f} s over "
-        f"{out['decode_steps']} steps ({out['decode_step_ms']:.2f} ms/step, "
-        f"bound {out['decode_step_bound_ms']:.3f} ms); peak "
-        f"{out['peak_mem_gib']:.2f} GiB; launches {launches}; GEMM launches "
-        f"{engine.gemms}")
+    out = serve_four_ways("llama2", cfg, params, dev, llama2_pool(),
+                          PROMPT_LENS)
+    launches, unf = out["launches"], out["unfused"]["launches"]
     check(launches["rht_qmatmul"] > 0 and launches["paged_attention"] > 0,
           f"a kernel of the fused path never launched: {launches}")
-
-    # launches one decode step makes, counted on a direct call
-    per_step = launches_per_decode_step(cfg, params, dev, engine)
-    out["launches_per_decode_step"] = per_step
-    log(f"launches per decode step: {per_step}")
-    del engine                  # its arena; later peaks count their own
-    out["decode_profile"] = profile_decode(cfg, params, dev, pool)
-    out["prefill_profile"] = profile_prefill(cfg, params, dev, pool)
-
-    # the unfused A/B path: the RHT kernel, then the unfused GEMM kernel
-    zero_counts()
-    unf, unf_results, unf_wall = serve(cfg, params, dev, pool, fused=False)
-    unf_launches = counts()
-    unfused = serve_summary(unf, unf_results, unf_wall, cfg, params)
-    unfused["launches"] = unf_launches
-    unfused["divergences"] = divergences(results, unf_results, unf)
-    out["unfused"] = unfused
-    log(f"serve unfused (kernels): {unfused['tokens']} tokens in "
-        f"{unf_wall:.2f} s = {unfused['tok_per_s']:.1f} tok/s; prefill "
-        f"{unfused['prefill_s']:.2f} s; decode "
-        f"{unfused['decode_step_ms']:.2f} ms/step (bound "
-        f"{unfused['decode_step_bound_ms']:.3f} ms); launches {unf_launches};"
-        f" greedy tokens identical to fused for "
-        f"{len(results) - len(unfused['divergences'])}/{len(results)}")
-    check(unf_launches["rht"] > 0 and unf_launches["qmatmul"] > 0
-          and unf_launches["rht_qmatmul"] == 0,
-          f"the unfused path did not run its kernels: {unf_launches}")
-
-    # the same requests with the plain versions forced on the card
-    for ops in (qops, pops, hops):
-        ops.set_forced_path("ref")
-    try:
-        plain, plain_results, plain_wall = serve(cfg, params, dev, pool)
-    finally:
-        for ops in (qops, pops, hops):
-            ops.set_forced_path(None)
-    out["plain_wall_s"] = plain_wall
-    out["plain_tok_per_s"] = out["tokens"] / plain_wall
-    out["divergences"] = divergences(results, plain_results, plain)
-    log(f"serve fused (plain versions): {plain_wall:.2f} s; greedy tokens "
-        f"identical for {len(results) - len(out['divergences'])}/"
-        f"{len(results)} requests; accepted near-tie divergences: "
-        f"{len(out['divergences'])}")
+    check(unf["rht"] > 0 and unf["qmatmul"] > 0 and unf["rht_qmatmul"] == 0,
+          f"the unfused path did not run its kernels: {unf}")
     return out
 
 
@@ -1678,96 +1805,33 @@ def launches_per_decode_step(cfg, params, dev, engine) -> dict:
 
 def moe_serve_phase(dev, params) -> dict:
     cfg = moe_config()
-    pool = moe_pool()
-    for fused in (True, False):     # warm-up outside the counts
-        PagedServer(cfg, params, pool, fused=fused, device=dev).run(
-            [Request(rid=-1, prompt=np.arange(16, dtype=np.int32), max_new=2)])
-
-    zero_counts()
-    engine, results, wall = serve(cfg, params, dev, pool,
-                                  prompt_lens=MOE_PROMPT_LENS)
-    launches = counts()
-    out = serve_summary(engine, results, wall, cfg, params, MOE_PROMPT_LENS)
-    out["weights_only_bound_ms"] = decode_step_bound_ms(cfg, params, 0.0)
-    out["launches"] = launches
-    out["tokens_past_ring"] = engine.past_ring
-    log(f"mixtral serve fused (kernels): {out['tokens']} tokens in "
-        f"{wall:.2f} s = {out['tok_per_s']:.1f} tok/s; prefill "
-        f"{out['prefill_s']:.2f} s over {out['prefill_chunks']} chunks "
-        f"({out['prefill_chunk_ms']:.2f} ms/chunk; GEMM launches "
-        f"{engine.gemms}), decode "
-        f"{out['decode_s']:.2f} s over {out['decode_steps']} steps "
-        f"({out['decode_step_ms']:.2f} ms/step, bound "
-        f"{out['decode_step_bound_ms']:.3f} ms); peak "
-        f"{out['peak_mem_gib']:.2f} GiB; launches {launches}; the long "
-        f"request ran {engine.past_ring} tokens past its "
-        f"{cfg.window}-token ring")
+    out = serve_four_ways(
+        "mixtral", cfg, params, dev, moe_pool(), MOE_PROMPT_LENS,
+        labels=MOE_PREFILL_LABELS + [(attnmod, "paged_decode_attention",
+                                      "paged_attention")])
+    launches, unf = out["launches"], out["unfused"]["launches"]
     check(launches["rht_qmatmul"] > 0 and launches["grouped_rht_qmatmul"] > 0
           and launches["paged_attention"] > 0,
           f"a kernel of the Mixtral fused path never launched: {launches}")
-    check(engine.past_ring > 0, "the long request never wrapped its ring")
-
-    per_step = launches_per_decode_step(cfg, params, dev, engine)
-    out["launches_per_decode_step"] = per_step
-    log(f"mixtral launches per decode step: {per_step}")
-    n = cfg.n_layers
+    check(out["tokens_past_ring"] > 0, "the long request never wrapped its "
+          "ring")
+    per_step, n = out["launches_per_decode_step"], cfg.n_layers
     check(per_step["fused"]["grouped_rht_qmatmul"] == 2 * n
           and per_step["unfused"]["grouped_qmatmul"] == 2 * n
           and per_step["unfused"]["rht"] == 6 * n,
           f"mixtral launches per decode step: {per_step}")
-    del engine
-    out["decode_profile"] = profile_decode(
-        cfg, params, dev, pool,
-        labels=[(moemod, "moe_ffn", "moe_ffn"),
-                (moemod, "_expert_matmul", "moe_expert_gemms"),
-                (attnmod, "paged_decode_attention", "paged_attention")])
-    out["prefill_profile"] = profile_prefill(cfg, params, dev, pool,
-                                             labels=MOE_PREFILL_LABELS)
-
-    zero_counts()
-    unf, unf_results, unf_wall = serve(cfg, params, dev, pool, fused=False,
-                                       prompt_lens=MOE_PROMPT_LENS)
-    unf_launches = counts()
-    unfused = serve_summary(unf, unf_results, unf_wall, cfg, params,
-                            MOE_PROMPT_LENS)
-    unfused["launches"] = unf_launches
-    unfused["divergences"] = divergences(results, unf_results, unf)
-    out["unfused"] = unfused
-    log(f"mixtral serve unfused (kernels): {unfused['tokens']} tokens in "
-        f"{unf_wall:.2f} s = {unfused['tok_per_s']:.1f} tok/s; prefill "
-        f"{unfused['prefill_s']:.2f} s; decode "
-        f"{unfused['decode_step_ms']:.2f} ms/step; launches {unf_launches}; "
-        f"greedy tokens identical to fused for "
-        f"{len(results) - len(unfused['divergences'])}/{len(results)}")
-    check(unf_launches["rht"] > 0 and unf_launches["qmatmul"] > 0
-          and unf_launches["grouped_qmatmul"] > 0
-          and unf_launches["rht_qmatmul"] == 0
-          and unf_launches["grouped_rht_qmatmul"] == 0,
-          f"the Mixtral unfused path did not run its kernels: {unf_launches}")
-
-    for ops in (qops, pops, hops):
-        ops.set_forced_path("ref")
-    try:
-        plain, plain_results, plain_wall = serve(
-            cfg, params, dev, pool, prompt_lens=MOE_PROMPT_LENS)
-    finally:
-        for ops in (qops, pops, hops):
-            ops.set_forced_path(None)
-    out["plain_wall_s"] = plain_wall
-    out["plain_tok_per_s"] = out["tokens"] / plain_wall
-    out["divergences"] = divergences(results, plain_results, plain)
-    log(f"mixtral serve fused (plain versions): {plain_wall:.2f} s; greedy "
-        f"tokens identical for {len(results) - len(out['divergences'])}/"
-        f"{len(results)} requests; accepted near-tie divergences: "
-        f"{len(out['divergences'])}")
+    check(unf["rht"] > 0 and unf["qmatmul"] > 0 and unf["grouped_qmatmul"] > 0
+          and unf["rht_qmatmul"] == 0 and unf["grouped_rht_qmatmul"] == 0,
+          f"the Mixtral unfused path did not run its kernels: {unf}")
     return out
 
 
 def prefill_profile_main(dev, smi) -> int:
     """``--prefill-profile``: build, quantize llama2-7b and Mixtral as the
     full run does (without the plain code-search comparison) and run only
-    ``profile_prefill`` for each, once to warm up and once measured; prints
-    one JSON line.  With REPRO_TORCH_SRC naming an unpacked earlier tree
+    ``profile_prefill`` for each, replayed from its graph and eager (under
+    ``graphs.eager()``), each once to warm up and once measured; prints one
+    JSON line.  With REPRO_TORCH_SRC naming an unpacked earlier tree
     (``git archive``), it measures that tree's package, so two trees'
     prefill device times can be compared on one card in one call:
 
@@ -1783,10 +1847,12 @@ def prefill_profile_main(dev, smi) -> int:
             ("mixtral", moe_quantize_phase, moe_config, moe_pool,
              MOE_PREFILL_LABELS)):
         _, qparams = phase(dev, compare=False)
-        for _ in range(2):
-            prof = profile_prefill(cfg_of(), qparams, dev, pool_of(),
-                                   labels=labels)
-        out[name] = prof
+        for mode in ("graph", "eager"):
+            with graphs.eager(mode == "eager"):
+                for _ in range(2):
+                    prof = profile_prefill(cfg_of(), qparams, dev, pool_of(),
+                                           labels=labels)
+            out[f"{name} {mode}"] = prof
         del qparams
         torch.cuda.empty_cache()
     log(json.dumps({"prefill_profile": out}))
@@ -1825,15 +1891,13 @@ AB_MODES = ("--rotation", "--code-search", "--division-sweep")
 
 def redesign_main(modes, smi) -> int:
     """``--rotation`` and/or ``--code-search`` (and ``--division-sweep``):
-    build the kernels they need; on a tree with the redesigned kernels hold
-    them against their plain versions (``check_rht``,
-    ``check_code_search``), then time them: the rotation at RHT_TIMED (graph
+    build the kernels they need, hold them against their plain versions
+    (``check_rht``, ``check_code_search``), then time them: the rotation at RHT_TIMED (graph
     replay), the fused GEMM at FUSED_AB_NS and an empty kernel's launch (the
     card's launch floor); the code search at SEARCH_TIMED.  ``--division-sweep`` holds the code search's
     division against IEEE division on all 2^46 pairs of f32 mantissas.
     Prints one JSON line.  REPRO_TORCH_SRC picks the package tree, as for
-    ``--attention``: an earlier tree is only timed, so one call can run
-    parent, change, change, parent."""
+    ``--attention``, so one call can run parent, change, change, parent."""
     names = (["hadamard", "rht_qmatmul"] if "--rotation" in modes else []) + (
         ["rabitq_quant"] if modes & {"--code-search", "--division-sweep"}
         else [])
@@ -1846,19 +1910,15 @@ def redesign_main(modes, smi) -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = torch.device("cuda")
     if "--rotation" in modes:
-        redesigned = hasattr(hops, "rotate_plan")
-        if redesigned:
-            out["rht_check"] = check_rht(gen, dev)
-            out["launch_floor_ms"] = launch_floor_ms(dev)
+        out["rht_check"] = check_rht(gen, dev)
+        out["launch_floor_ms"] = launch_floor_ms(dev)
         out["rht_times"] = [time_rht(gen, dev, n, d, full=False)
                             for n, d in RHT_TIMED]
         out["fused_gemm_times"] = [time_gemm(gen, dev, n, 4083, 4096, 4,
                                              full=False)
                                    for n in FUSED_AB_NS]
     if "--code-search" in modes:
-        redesigned = hasattr(rq_ops, "search_plan")
-        if redesigned:
-            out["code_search_check"] = check_code_search(gen, dev)
+        out["code_search_check"] = check_code_search(gen, dev)
         out["code_search_times"] = [time_code_search(gen, dev, d, c,
                                                      plain=False)
                                     for d, c in SEARCH_TIMED]

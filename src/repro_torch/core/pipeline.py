@@ -16,7 +16,7 @@ experts), or takes them from ``signs`` (name -> (signs1, signs2)) — how
 the parity tests pass the reference's signs in.
 
 Not ported yet: ``quantize_model_dual`` (speculation, ROADMAP Queue 1 item
-10) and ``quantize_params_uniform`` (dry-run tooling, item 15).
+4) and ``quantize_params_uniform`` (dry-run tooling, item 10).
 """
 from __future__ import annotations
 

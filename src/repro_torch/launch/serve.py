@@ -11,14 +11,16 @@ Random weights from a seeded generator; with ``--avg-bits`` the model is
 calibrated on the paper's zero-shot sentence, bit widths are allocated
 (AllocateBits) and every linear is RaBitQ-H quantized before serving through
 ``PagedServer``.  ``--unfused`` serves with the unfused RHT + GEMM pair.
-The prefix cache is not ported yet (ROADMAP Queue 1 item 8): the port runs
+On the card the engine captures each serving step once as a CUDA graph and
+replays it; the stats line reports the captures and the seconds they took.
+The prefix cache is not ported yet (ROADMAP Queue 1 item 3): the port runs
 with it off, and greedy tokens do not depend on it.
 
-Not ported yet, each under its ROADMAP item: ``--lockstep`` (12),
-``--prefix-cache`` (8), ``--kv-dtype`` (7), ``--paged-kernel`` (5: the
-kernel always runs on the card), ``--speculate`` / ``--draft-bits`` (10),
-``--tp`` (13), ``--serve`` / ``--port`` / ``--slo-p95-ms`` /
-``--max-tenant-share`` (14).
+Not ported yet, each under its ROADMAP Queue 1 item: ``--lockstep`` (7),
+``--prefix-cache`` (3), ``--kv-dtype`` (5), ``--paged-kernel`` (5: the
+kernel always runs on the card), ``--speculate`` / ``--draft-bits`` (4),
+``--tp`` (8), ``--serve`` / ``--port`` / ``--slo-p95-ms`` /
+``--max-tenant-share`` (9).
 """
 from __future__ import annotations
 
@@ -98,11 +100,13 @@ def main(argv=None):
                           for i in range(args.requests)])
     _sync(dev)
     dt = time.monotonic() - t0
+    stats = engine.stats                # finalized by run()
     sample = results[0].tokens
     path = "unfused" if args.unfused else "fused"
     print(f"served {args.requests} requests x {args.gen} tokens in {dt:.2f}s "
           f"({args.requests * args.gen / dt:.1f} tok/s, {path} decode path, "
-          f"paged, occupancy={engine.stats['mean_occupancy']:.2f}, "
+          f"paged, occupancy={stats['mean_occupancy']:.2f}, "
+          f"captures={stats['captures']} in {stats['capture_s']:.2f}s, "
           f"device={dev.type}, prefix_cache=off (not ported))")
     print("sample:", tok.decode(np.asarray(sample))[:80])
 

@@ -9,10 +9,13 @@ the decode read runs the paged flash-decode kernel.
 
 The reference's jitted steps donate the arenas so XLA aliases them in and
 out; here the arenas are updated in place (``index_put_``) instead, and the
-steps return the same cache objects.  The decode step takes only
-fixed-shape tensors (tokens, pos, active, block_tables, ring_cap), so batch
-churn changes their contents, never their shapes — the property a CUDA
-graph capture of the step needs.
+steps return the same cache objects.  Both steps take only tensors whose
+shapes are fixed by the engine: the decode step (tokens, pos, active,
+block_tables, ring_cap) by the slot count, the prompt chunk (tokens, pos0,
+bt_row, ring_cap) by the chunk length C.  Batch churn and a request's
+progress change their contents, never their shapes, and nothing here reads
+a value back to the host — what a CUDA graph capture of a step needs
+(``serve/graphs.py``).
 """
 from __future__ import annotations
 
@@ -87,21 +90,22 @@ def decode_step_paged(cfg: ModelConfig, params: dict, caches: list,
 
 
 def layer_prefill_chunk(cfg: ModelConfig, lp: dict, h: torch.Tensor,
-                        cache: dict, pos0: int, bt_row: torch.Tensor,
-                        ring_cap: int) -> torch.Tensor:
+                        cache: dict, pos0: torch.Tensor, bt_row: torch.Tensor,
+                        ring_cap: torch.Tensor) -> torch.Tensor:
     """One layer over one request's prompt chunk h (1, C, d) starting at
-    absolute position ``pos0``, reading history from and writing the chunk
-    into the arena through the request's block-table row."""
+    absolute position ``pos0`` (a 0-d int32 tensor, as is ``ring_cap``),
+    reading history from and writing the chunk into the arena through the
+    request's block-table row."""
     b, c, _ = h.shape
     hn = apply_norm(cfg.norm, h, lp["ln1"])
-    chunk_pos = pos0 + torch.arange(c, dtype=torch.int64, device=h.device)
+    chunk_pos = pos0.to(torch.int64) + torch.arange(c, dtype=torch.int64,
+                                                    device=h.device)
     p = lp["attn"]
     q, k, v = _attn_qkv(cfg, p, hn, chunk_pos[None])
     k_hist = attnmod.paged_gather_kv(cache["k"], bt_row[None])
     v_hist = attnmod.paged_gather_kv(cache["v"], bt_row[None])
-    pos0_t = torch.full((1,), pos0, dtype=torch.int64, device=h.device)
-    cap_t = torch.full((1,), ring_cap, dtype=torch.int64, device=h.device)
-    hist_pos = attnmod.paged_slot_positions(pos0_t, cap_t, k_hist.shape[1])
+    hist_pos = attnmod.paged_slot_positions(pos0[None], ring_cap[None],
+                                            k_hist.shape[1])
     out = attnmod.paged_prefill_attention(q, k_hist, v_hist, hist_pos, k, v,
                                           chunk_pos[None], window=cfg.window)
     mix = linear(p["wo"], out.reshape(b, c, -1))
@@ -117,10 +121,12 @@ def layer_prefill_chunk(cfg: ModelConfig, lp: dict, h: torch.Tensor,
 
 
 def prefill_chunk_paged(cfg: ModelConfig, params: dict, caches: list,
-                        tokens: torch.Tensor, pos0: int, bt_row: torch.Tensor,
-                        ring_cap: int):
+                        tokens: torch.Tensor, pos0: torch.Tensor,
+                        bt_row: torch.Tensor, ring_cap: torch.Tensor):
     """One prompt chunk for one request: tokens (1, C) starting at absolute
-    position ``pos0`` -> (last-token logits (1, V), caches)."""
+    position ``pos0`` -> (last-token logits (1, V), caches).  ``pos0`` and
+    ``ring_cap`` are 0-d int32 tensors, as the reference's ``_chunk`` takes
+    ``jnp.int32`` scalars, so the chunk's shapes depend on C alone."""
     h = embed_tokens(cfg, params, tokens)
     for lp, cache in zip(params["layers"], caches):
         h = layer_prefill_chunk(cfg, lp, h, cache, pos0, bt_row, ring_cap)

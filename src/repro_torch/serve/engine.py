@@ -10,33 +10,51 @@ that finishes frees its slot and blocks at once, so queued requests join
 mid-flight.
 
 The decode step takes fixed-shape (tokens, pos, active, block_tables,
-ring_cap) tensors, so batch churn changes contents only.  On the card every
-quantized projection runs the fused RHT + dequant GEMM kernel (with
-``fused=False`` the RHT kernel, then the unfused GEMM kernel) and every
-decode attention read the paged flash-decode kernel; on the CPU their plain
-versions run.
+ring_cap) tensors, so batch churn changes contents only; a prompt chunk's
+shapes depend on its length alone.  On the card every quantized projection
+runs the fused RHT + dequant GEMM kernel (with ``fused=False`` the RHT
+kernel, then the unfused GEMM kernel) and every decode attention read the
+paged flash-decode kernel; on the CPU their plain versions run.
+
+Compile once, as the reference jits ``_step`` and ``_chunk``: on the card
+each step is captured as a CUDA graph the first time its key is seen and
+replayed after (``serve/graphs.py``).  A decode step is keyed by (fusion
+setting, slot count), a prompt chunk by (fusion setting, chunk length);
+``decode_trace_count`` and ``chunk_trace_count`` count the captures.  The
+engine captures only when it runs on the card and no kernel is forced onto
+its plain version (``set_forced_path("ref")``: the plain paged attention
+reads its block count back to the host, which a capture cannot hold); under
+``graphs.eager()`` it runs every step op by op.  On the CPU the same steps
+run eagerly over their static buffers, keyed and counted as on the card.
 
 Not ported yet (ROADMAP Queue 1): the prefix cache with copy-on-write and
-preemption/cancel (item 8), speculative decoding (item 10) and tensor
-parallelism (item 13).
+preemption/cancel (item 3), speculative decoding (item 4) and tensor
+parallelism (item 8).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import kernels, resolve_device
 from repro_torch.kernels.qmatmul import ops as qops
 from repro_torch.models import decode as decmod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import check_supported
 
+from . import graphs
 from .pool import BlockAllocator, PoolConfig, init_pool_caches, request_blocks
+
+
+def _logits(step_fn, cfg: ModelConfig, params: dict, caches: list,
+            **inputs) -> torch.Tensor:
+    return step_fn(cfg, params, caches, **inputs)[0]
 
 
 @dataclasses.dataclass
@@ -86,7 +104,8 @@ class PagedServer:
     ``models.transformer.init_params``).  ``fused`` selects the RHT + GEMM
     fusion for every step of this engine (``qops.fusion``; False runs the
     unfused A/B pair).  Construct once per (model, PoolConfig); ``run``
-    drains a workload to completion."""
+    drains a workload to completion.  Each step is captured once per key
+    and replayed (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params: dict,
                  pool: PoolConfig | None = None, *, fused: bool = True,
@@ -107,6 +126,7 @@ class PagedServer:
         self.free_slots = list(range(self.pool.max_slots - 1, -1, -1))
         self.table_width = max(
             request_blocks(cfg, self.pool, self.pool.max_context), 1)
+        self.graphs = graphs.StepGraphs(self.device)
         self.stats: dict = {}
         self._pending: collections.deque[Request] = collections.deque()
         self._prefilling: collections.deque[_InFlight] = collections.deque()
@@ -126,6 +146,53 @@ class PagedServer:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(a, device=self.device)
+
+    @property
+    def decode_trace_count(self) -> int:
+        """Decode-step captures (the reference's count of ``_step`` traces)."""
+        return self.graphs.captures["decode"]
+
+    @property
+    def chunk_trace_count(self) -> int:
+        """Prompt-chunk captures: one per chunk length and fusion setting."""
+        return self.graphs.captures["chunk"]
+
+    def _compiled(self, key: tuple, step_fn, inert):
+        """``inputs -> logits`` of ``step_fn`` (``decmod.decode_step_paged``
+        or ``prefill_chunk_paged``) on this engine's model and arenas: the
+        step captured for ``key`` (made on ``inert()``'s inputs at first
+        use), or under ``graphs.eager()`` and with a kernel forced onto its
+        plain version on the card, ``step_fn`` op by op on fresh tensors.
+        The step holds the model and the arenas, not the engine, so an
+        engine and its graphs are freed when it is dropped."""
+        fn = functools.partial(_logits, step_fn, self.cfg, self.params,
+                               self.caches)
+        if graphs.eager_enabled() or (self.device.type == "cuda"
+                                      and kernels.plain_forced()):
+            return lambda inputs: fn(**{k: self._tensor(a)
+                                        for k, a in inputs.items()})
+        return self.graphs.get(key, fn, inert)
+
+    def _chunk_inputs(self, tokens: np.ndarray, pos0: int, bt_row: np.ndarray,
+                      ring_cap: int) -> dict:
+        return {"tokens": tokens[None], "pos0": np.int32(pos0),
+                "bt_row": bt_row, "ring_cap": np.int32(ring_cap)}
+
+    def _decode_inputs(self, active: dict) -> dict:
+        """The decode step's inputs for the slots in ``active``; with none,
+        the inert inputs (every slot inactive, tables on the null block)."""
+        s = self.pool.max_slots
+        arrays = {"tokens": np.zeros((s, 1), np.int32),
+                  "pos": np.zeros(s, np.int32), "active": np.zeros(s, bool),
+                  "block_tables": np.zeros((s, self.table_width), np.int32),
+                  "ring_cap": np.ones(s, np.int32)}
+        for slot, st in active.items():
+            arrays["tokens"][slot, 0] = st.out[-1]
+            arrays["pos"][slot] = len(st.served) + len(st.out) - 1
+            arrays["active"][slot] = True
+            arrays["block_tables"][slot] = st.bt_row
+            arrays["ring_cap"][slot] = st.ring_cap
+        return arrays
 
     def _add_stat(self, key: str, value) -> None:
         self.stats[key] = self.stats.get(key, 0) + value
@@ -216,12 +283,14 @@ class PagedServer:
         st = self._prefilling[0]
         plen = len(st.served)
         c = min(self.pool.prefill_chunk, plen - st.filled, st.ring_cap)
-        toks = self._tensor(st.served[st.filled:st.filled + c])[None]
+        step = self._compiled(
+            ("chunk", qops.fused_enabled(), c), decmod.prefill_chunk_paged,
+            lambda: self._chunk_inputs(np.zeros(c, np.int32), 0,
+                                       np.zeros(self.table_width, np.int32), 1))
+        inputs = self._chunk_inputs(st.served[st.filled:st.filled + c],
+                                    st.filled, st.bt_row, st.ring_cap)
         t_start = time.monotonic()
-        logits, self.caches = decmod.prefill_chunk_paged(
-            self.cfg, self.params, self.caches, toks, st.filled,
-            self._tensor(st.bt_row), st.ring_cap)
-        logits = logits.to(torch.float32).cpu().numpy()  # waits for the chunk
+        logits = step(inputs).to(torch.float32).cpu().numpy()  # waits for it
         self._add_stat("prefill_s", time.monotonic() - t_start)
         st.filled += c
         self._add_stat("prefill_chunks", 1)
@@ -237,24 +306,12 @@ class PagedServer:
 
     def _decode_once(self, t0: float,
                      results: dict[int, RequestResult]) -> None:
-        s = self.pool.max_slots
-        tokens = np.zeros((s, 1), np.int32)
-        pos = np.zeros(s, np.int32)
-        active = np.zeros(s, bool)
-        bts = np.zeros((s, self.table_width), np.int32)
-        ring = np.ones(s, np.int32)
-        for slot, st in self._active.items():
-            tokens[slot, 0] = st.out[-1]
-            pos[slot] = len(st.served) + len(st.out) - 1
-            active[slot] = True
-            bts[slot] = st.bt_row
-            ring[slot] = st.ring_cap
+        step = self._compiled(
+            ("decode", qops.fused_enabled(), self.pool.max_slots),
+            decmod.decode_step_paged, lambda: self._decode_inputs({}))
+        inputs = self._decode_inputs(self._active)
         t_start = time.monotonic()
-        logits, self.caches = decmod.decode_step_paged(
-            self.cfg, self.params, self.caches, self._tensor(tokens),
-            self._tensor(pos), self._tensor(active), self._tensor(bts),
-            self._tensor(ring))
-        logits = logits.to(torch.float32).cpu().numpy()  # waits for the step
+        logits = step(inputs).to(torch.float32).cpu().numpy()  # waits for it
         self._add_stat("decode_s", time.monotonic() - t_start)
         now = time.monotonic() - t0
         self._add_stat("decode_steps", 1)
@@ -290,6 +347,9 @@ class PagedServer:
         """Fold per-step counters into summary numbers; returns ``stats``."""
         occ = self.stats.get("occupancy", [])
         self.stats["mean_occupancy"] = float(np.mean(occ)) if occ else 0.0
+        self.stats["captures"] = sum(self.graphs.captures.values())
+        self.stats["capture_s"] = self.graphs.capture_s
+        self.stats["graph_pool_bytes"] = self.graphs.pool_bytes
         return self.stats
 
     def run(self, requests: list[Request] | None = None

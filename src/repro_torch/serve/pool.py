@@ -8,7 +8,7 @@ inactive-slot writes land in it; stored-position masks guarantee it is never
 read as a real key.
 
 The content-addressed prefix cache (and with it copy-on-write, LRU parking
-and preemption) is ROADMAP Queue 1 item 8; until it lands,
+and preemption) is ROADMAP Queue 1 item 3; until it lands,
 ``PoolConfig(prefix_cache=True)`` raises instead of being ignored.
 """
 from __future__ import annotations
@@ -30,12 +30,12 @@ class PoolConfig:
     max_context: int = 512      # per-request cap (prompt + generation)
     num_blocks: int | None = None
     prefill_chunk: int = 32     # prompt tokens per engine iteration
-    prefix_cache: bool = False  # not ported yet (ROADMAP Queue 1 item 8)
+    prefix_cache: bool = False  # not ported yet (ROADMAP Queue 1 item 3)
 
     def __post_init__(self):
         if self.prefix_cache:
             raise NotImplementedError(
-                "the prefix cache is not ported yet (ROADMAP Queue 1 item 8: "
+                "the prefix cache is not ported yet (ROADMAP Queue 1 item 3: "
                 "prefix cache, copy-on-write and preemption)")
 
     def resolved_num_blocks(self, cfg: ModelConfig) -> int:

@@ -104,7 +104,9 @@ def _close(got, want):
 @pytest.mark.parametrize("kind", ["fp32", "quant"])
 def test_step_logits_match_reference(models, kind):
     """Two requests prefilled in chunks into disjoint blocks, then three
-    decode steps over both slots, fed the reference's greedy tokens."""
+    decode steps over both slots, fed the reference's greedy tokens.  The
+    chunk takes pos0 and ring_cap as 0-d int32 tensors, as the reference's
+    jitted chunk takes jnp.int32 scalars."""
     cfg = tiny(ARCH)
     jparams, tparams = models[kind]
     jpool = small_pool(prefix_cache=False)
@@ -127,8 +129,10 @@ def test_step_logits_match_reference(models, kind):
                 jparams, jc, jnp.asarray(chunk), jnp.int32(s),
                 jnp.int32(slot), jnp.asarray(bts[slot]), jnp.int32(32))
             tl, tc = tdec.prefill_chunk_paged(
-                cfg, tparams, tc, torch.from_numpy(chunk), s,
-                torch.from_numpy(bts[slot]), 32)
+                cfg, tparams, tc, torch.from_numpy(chunk),
+                torch.tensor(s, dtype=torch.int32),
+                torch.from_numpy(bts[slot]),
+                torch.tensor(32, dtype=torch.int32))
             _close(tl.numpy(), jl)
         last.append(int(np.argmax(np.asarray(jl)[0])))
     pos = np.array([len(p) for p in prompts], np.int32)
@@ -167,7 +171,7 @@ def test_engine_greedy_tokens_identical_to_reference(models, kind):
 
 
 def test_prefix_cache_is_refused_until_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         PoolConfig(prefix_cache=True)
 
 
