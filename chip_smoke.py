@@ -54,18 +54,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      with the plain code search and compared; the fp weights dropped and
      the 8 requests plus one of 4160 prompt tokens (its window
      ring wraps in prefill and in decode) served the same four ways;
-  7. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
+     the llama2 serve runs go through the prefix cache (on by default;
+     their random prompts save nothing, which is checked), Mixtral's
+     window bypasses it;
+  7. prefix cache (``prefix_phase``, on llama2's quantization of phase 4):
+     16 requests sharing a 512-token system prompt, one that diverges
+     inside a cached block (copy-on-write) and a second turn of request 0,
+     with 8 slots, block 16, chunk 64, f32 KV and max_context 672: cache on
+     by graph, off by graph, on eagerly; with a pool of 4 requests'
+     capacity, on (evicting) and cold; then the churn workload with
+     request 0 preempted and replayed, and with cancels while queued,
+     mid-prefill and mid-decode.  Tokens identical in every pair, cache
+     counters consistent, blocks drained after every run;
+  8. dense configs (``dense_phase``): internlm2-1.8b, llama3.2-3b,
+     qwen3-0.6b at their published widths and depths, yi-34b with its
+     depth cut to 4 layers, quantized at 4.0 bits and served by graph,
+     unfused and plain;
+  9. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
      path's runs counted from zero), the nvidia-smi line, and as the last
      line ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --prefill-profile`` runs only the quantization and
-the prefill-chunk profiles of both models, by graph and eager (see
-``prefill_profile_main``);
+``python3 chip_smoke.py --profiles`` runs only the quantization and the
+decode-step and prefill-chunk profiles of both models, by graph and eager
+(see ``profiles_main``);
 ``python3 chip_smoke.py --attention`` only builds, checks and times the
 paged-attention kernel (see ``attention_main``); ``--rotation`` and
 ``--code-search`` (either or both, with ``--division-sweep`` for the
 division on all 2^46 mantissa pairs) the same for the rotation and the
-code search (see ``redesign_main``).
+code search (see ``redesign_main``); ``--prefix-cache`` builds every
+kernel and runs only phase 7 (see ``prefix_main``).
 
 Imports nothing of JAX or of the reference package.  Exits non-zero with no
 result when no CUDA device is present.  Details too long for the end of the
@@ -84,7 +101,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # the package tree to import: this checkout's src/ unless REPRO_TORCH_SRC
-# names another (``--prefill-profile`` compares two trees' packages)
+# names another (``--profiles`` compares two trees' packages)
 SRC = Path(os.environ.get("REPRO_TORCH_SRC", ROOT / "src")).resolve()
 sys.path.insert(0, str(SRC))
 
@@ -116,6 +133,7 @@ from repro_torch.models import decode as decmod  # noqa: E402
 from repro_torch.models import moe as moemod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve import PagedServer, PoolConfig, Request, graphs  # noqa: E402
+from repro_torch.serve.pool import request_blocks  # noqa: E402
 
 # H100 SXM published dense peaks at 700 W (NVIDIA data sheet): the HBM rate
 # and, for a bound's operations, the rate for what their operands are.
@@ -182,18 +200,34 @@ GEMM_SHAPES = [(4083, 4096), (4083, 22016), (10974, 4096), (4096, 4096)]
 # the code search also at Mixtral's weights: an expert's wi and wo (no
 # outlier rows are split off the grouped form) and wk/wv over 8 KV heads
 SEARCH_SHAPES = GEMM_SHAPES + [(4096, 28672), (14336, 4096), (4083, 1024)]
+# and at each rotation width the dense configs add, one of its weights
+SEARCH_SHAPES += [(1020, 6144), (2041, 1024), (3062, 1024), (7146, 1024),
+                  (8167, 2048), (20418, 7168)]
 GEMM_BITS = list(range(1, 9))
-# n = 1 and 8 are decode; 16-64 prefill chunks and their remainders, 20 a
-# prefill chunk's MoE capacity; 100 takes two 64-row blocks (no path of the
-# two models sends more than 64 rows, the wrapper accepts any n)
-GEMM_NS = [1, 8, 16, 20, 32, 64, 100]
-# rows: decode (llama2 8 slots, Mixtral's E*C = 16), prefill chunks
-# (llama2 64, Mixtral 160); widths: llama2's kept 4083 / 10974, Mixtral's
-# expert wo 14336, yi-34b's FFN wo 20480, the powers of 2 and 8191 (the
-# widest row of plan (256, 16): its shared memory and the static row sums
-# just past 48 KB)
-RHT_NS = [1, 8, 16, 64, 160]
-RHT_DIMS = [2048, 4096, 8192, 16384, 4083, 8191, 10974, 14336, 20480]
+# n = 1 and 8 are decode; 16-64 prefill chunks and their remainders (3,
+# 48 and 56 the prefix path's chunks after a cache hit), 20 a prefill
+# chunk's MoE capacity; 100 takes two 64-row blocks (no path of the two
+# models sends more than 64 rows, the wrapper accepts any n)
+GEMM_NS = [1, 3, 8, 16, 20, 32, 48, 56, 64, 100]
+# the dense configs' (d_keep, c): wq, wk/wv, wo, wi, the FFN's wo of
+# internlm2-1.8b, llama3.2-3b, qwen3-0.6b and yi-34b (shared ones once);
+# their rows: decode over 4 slots, the chunks of DENSE_PROMPT_LENS, and
+# the prefix path's chunk lengths
+DENSE_GEMM_SHAPES = [
+    (2041, 2048), (2041, 1024), (2041, 16384), (8167, 2048),
+    (3062, 3072), (3062, 1024), (3062, 16384), (8167, 3072),
+    (1020, 2048), (1020, 1024), (1020, 6144), (3062, 1024),
+    (7146, 7168), (7146, 1024), (7146, 40960), (20418, 7168)]
+DENSE_GEMM_NS = [1, 3, 4, 8, 32, 48, 56, 64]
+# rows: decode (llama2 8 slots, the dense configs 4, Mixtral's E*C = 16),
+# prefill chunks (llama2 64 and the prefix path's 3, 48 and 56 after a
+# hit, Mixtral 160); widths: llama2's kept 4083 / 10974, Mixtral's expert
+# wo 14336, the powers of 2, 20480 and 8191 (the widest row of plan
+# (256, 16): its shared memory and the static row sums just past 48 KB),
+# and the dense configs' kept widths 1020-20418
+RHT_NS = [1, 3, 4, 8, 16, 48, 56, 64, 160]
+RHT_DIMS = [2048, 4096, 8192, 16384, 4083, 8191, 10974, 14336, 20480,
+            1020, 2041, 3062, 7146, 8167, 20418]
 RHT_TIMED = [(8, 4083), (8, 10974), (64, 4083), (8, 4096), (8, 16384),
              (16, 4096), (16, 14336), (160, 4096), (160, 14336)]
 TIME_SHAPES = [(1, 4083, 4096), (8, 4083, 4096), (8, 4083, 22016),
@@ -345,34 +379,35 @@ def gemm_bound(n, d, c, bits, fused=True):
 
 def check_gemms(gen, dev) -> dict:
     """Both GEMM entries against their plain versions: bits 1-8 at every
-    shape and row count.  The unfused GEMM gets an already-rotated x."""
+    shape and its row counts (GEMM_SHAPES x GEMM_NS, DENSE_GEMM_SHAPES x
+    DENSE_GEMM_NS).  The unfused GEMM gets an already-rotated x."""
     worst = dict.fromkeys(("fused", "unfused", "rel"), 0.0)
-    for d, c in GEMM_SHAPES:
+    shapes = [(d, c, n) for group, ns in ((GEMM_SHAPES, GEMM_NS),
+                                          (DENSE_GEMM_SHAPES, DENSE_GEMM_NS))
+              for d, c in group for n in ns]
+    for d, c, n in shapes:
         for bits in GEMM_BITS:
-            for n in GEMM_NS:
-                x, packed, rescale, s1, s2 = gemm_inputs(gen, dev, n, d, c,
-                                                         bits)
-                cases = {
-                    "fused": (qops.rht_quantized_matmul_cuda(
-                        x, packed, rescale, s1, s2, bits=bits, d=d),
-                        rht_quantized_matmul_ref(x, packed, rescale, s1, s2,
-                                                 bits=bits, d=d)),
-                    "unfused": (qops.quantized_matmul_cuda(
-                        x, packed, rescale, bits=bits, d=d),
-                        quantized_matmul_ref(x, packed, rescale, bits=bits,
-                                             d=d))}
-                torch.cuda.synchronize()
-                for name, (got, want) in cases.items():
-                    err, scale = err_and_scale(got, want)
-                    check(bool(torch.isfinite(got).all())
-                          and err <= RTOL * scale,
-                          f"{name} GEMM n={n} d={d} c={c} bits={bits}: "
-                          f"max|err| {err} > {RTOL} * {scale}")
-                    worst[name] = max(worst[name], err)
-                    worst["rel"] = max(worst["rel"], err / scale)
-    n_cases = len(GEMM_SHAPES) * len(GEMM_BITS) * len(GEMM_NS)
-    log(f"rht_qmatmul and qmatmul: {n_cases} cases each (bits 1-8, n "
-        f"{GEMM_NS}) within {RTOL} * max|plain|; max|err| fused "
+            x, packed, rescale, s1, s2 = gemm_inputs(gen, dev, n, d, c, bits)
+            cases = {
+                "fused": (qops.rht_quantized_matmul_cuda(
+                    x, packed, rescale, s1, s2, bits=bits, d=d),
+                    rht_quantized_matmul_ref(x, packed, rescale, s1, s2,
+                                             bits=bits, d=d)),
+                "unfused": (qops.quantized_matmul_cuda(
+                    x, packed, rescale, bits=bits, d=d),
+                    quantized_matmul_ref(x, packed, rescale, bits=bits,
+                                         d=d))}
+            torch.cuda.synchronize()
+            for name, (got, want) in cases.items():
+                err, scale = err_and_scale(got, want)
+                check(bool(torch.isfinite(got).all()) and err <= RTOL * scale,
+                      f"{name} GEMM n={n} d={d} c={c} bits={bits}: "
+                      f"max|err| {err} > {RTOL} * {scale}")
+                worst[name] = max(worst[name], err)
+                worst["rel"] = max(worst["rel"], err / scale)
+    log(f"rht_qmatmul and qmatmul: {len(shapes) * len(GEMM_BITS)} cases each "
+        f"(bits 1-8; n {GEMM_NS} at {GEMM_SHAPES}, n {DENSE_GEMM_NS} at "
+        f"{DENSE_GEMM_SHAPES}) within {RTOL} * max|plain|; max|err| fused "
         f"{worst['fused']:.3e}, unfused {worst['unfused']:.3e}; largest "
         f"|err|/max|plain| {worst['rel']:.2e}")
     return worst
@@ -709,6 +744,11 @@ ATTN_CASES = [  # name, w, h, kv, dtype, window, ring_blocks, ctx_max, ctx_lo
     # combine launch skips its rows
     ("f32 G=4 one split per request (contexts 20-240)", 1, 32, 8,
      torch.float32, None, None, 240, 20),
+    # the dense configs' decode at their serving contexts (64-232):
+    # qwen3-0.6b and internlm2-1.8b G = 2, llama3.2-3b G = 3, yi-34b G = 7
+    ("f32 G=2: H=16, KV=8", 1, 16, 8, torch.float32, None, None, 232, 64),
+    ("f32 G=3: H=24, KV=8", 1, 24, 8, torch.float32, None, None, 232, 64),
+    ("f32 G=7: H=56, KV=8", 1, 56, 8, torch.float32, None, None, 232, 64),
 ]
 # timed: name, w, h, kv, dtype, window, ring_blocks, table width, ctx_max,
 # ctx_lo (None: every request at ctx_max)
@@ -758,13 +798,28 @@ def check_attention(gen, dev) -> dict:
             again = pops.paged_attention_cuda(*args, window=window)
             check(torch.equal(got, again),
                   f"paged_attention {name}: two calls differ")
+    # the prefix cache: every slot's table starts with slot 0's 32 blocks
+    # (a cached 512-token system prompt), contexts 520-600 past them
+    args = attn_inputs(gen, dev, b, 1, 32, 32, hd, bs, 42, 600,
+                       torch.float32, None, ctx_lo=520)
+    args[3][1:, :32] = args[3][0, :32]
+    got = pops.paged_attention_cuda(*args)
+    want = paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    err, scale = err_and_scale(got, want)
+    check(bool(torch.isfinite(got).all()) and err <= RTOL * scale,
+          f"paged_attention over shared blocks: max|err| {err} > {RTOL} * "
+          f"{scale}")
+    worst = max(worst, err)
+    cases.append({"case": "f32 shared 32-block prefix", "splits": attn_splits(
+        args), "max_abs_err": err, "max_abs_plain": scale})
     # an inactive engine slot: pos 0, ring 1, all-zero table -> null block
     q, k, v, bt, pos, ring = attn_inputs(gen, dev, 2, 1, 32, 32, hd, bs, 4,
                                          64, torch.float32, None)
     bt[1], pos[1], ring[1] = 0, 0, 1
     got = pops.paged_attention_cuda(q, k, v, bt, pos, ring)
     check(bool(torch.isfinite(got).all()), "inactive slot gave non-finite")
-    log(f"paged_attention: {len(ATTN_CASES)} cases + an inactive slot within "
+    log(f"paged_attention: {len(cases)} cases + an inactive slot within "
         f"{RTOL} * max|plain|, two cases bitwise repeatable; max|err| "
         f"{worst:.3e}; splits {[c['splits'] for c in cases]}")
     return {"max_abs_err": worst, "cases": cases, "deterministic": True}
@@ -1345,6 +1400,10 @@ def serve_summary(engine, results, wall, cfg, params,
             "graph_pool_mib": st["graph_pool_bytes"] / 2**20,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "tokens_past_ring": engine.past_ring,
+            # llama2's random churn prompts never hit; Mixtral bypasses
+            "prefix_cache": ("bypassed" if engine.prefix_cache is None
+                             else "on"),
+            "prefill_tokens_saved": st.get("prefill_tokens_saved", 0),
             "decode_step_bound_ms": decode_step_bound_ms(
                 cfg, params, float(np.mean(engine.step_tokens)))}
 
@@ -1402,7 +1461,8 @@ def log_serve(name, mode, out, cfg) -> None:
         f"{out['graph_pool_mib']:.1f} MiB; peak {out['peak_mem_gib']:.2f} "
         f"GiB; launches {out['launches']}; GEMM launches "
         f"{out['gemm_launches']}; {out['tokens_past_ring']} tokens past the "
-        f"{cfg.window}-token ring")
+        f"{cfg.window}-token ring; prefix cache {out['prefix_cache']} "
+        f"({out['prefill_tokens_saved']} prompt tokens saved)")
 
 
 def mode_row(out) -> dict:
@@ -1675,8 +1735,290 @@ def serve_phase(dev, params) -> dict:
     launches, unf = out["launches"], out["unfused"]["launches"]
     check(launches["rht_qmatmul"] > 0 and launches["paged_attention"] > 0,
           f"a kernel of the fused path never launched: {launches}")
+    # the cache is on, but no churn prompt shares a block with another, so
+    # every run prefills every prompt token, as before the cache existed
+    check(out["prefix_cache"] == "on" and out["prefill_tokens_saved"] == 0
+          and out["eager"]["prefill_tokens_saved"] == 0,
+          "llama2's churn prompts hit the prefix cache")
     check(unf["rht"] > 0 and unf["qmatmul"] > 0 and unf["rht_qmatmul"] == 0,
           f"the unfused path did not run its kernels: {unf}")
+    return out
+
+
+# ------------------------------------------------------------ prefix cache
+
+PREFIX_SYSTEM = 512      # the shared system prompt: 32 blocks of 16
+PREFIX_TAIL = 64         # each request's own tail
+PREFIX_REQUESTS = 16     # two admission waves over 8 slots
+PREFIX_COW_KEEP = 8      # tokens of request 0's tail the COW request keeps
+PRESSURE_REQUESTS = 4    # the pressure pool: 4 requests' full capacity
+ENGINE_COUNTERS = ("prompt_tokens", "prefill_tokens_saved", "prefix_hits",
+                   "prefix_cow", "prefix_hit_rate", "prefix_evictions",
+                   "prefix_cached_blocks", "replays", "preemptions",
+                   "cancelled")
+
+
+def prefix_pool(num_blocks=None, prefix_cache=True) -> PoolConfig:
+    """llama2's serving pool (8 slots, block 16, chunk 64, f32 KV) with a
+    context for the second turn: request 0's prompt and output, 32 new
+    tokens, 32 generated (672 tokens, 42 blocks)."""
+    return PoolConfig(max_slots=8, block_size=16,
+                      max_context=PREFIX_SYSTEM + PREFIX_TAIL + 3 * GEN_LEN,
+                      num_blocks=num_blocks, prefill_chunk=64,
+                      prefix_cache=prefix_cache)
+
+
+def prefix_requests(cfg) -> list:
+    """16 requests sharing a 512-token system prompt, each with its own
+    64-token tail, and one that follows the system prompt and 8 tokens of
+    request 0's tail, then diverges inside that block (a COW clone)."""
+    rng = np.random.default_rng(SEED + 3)
+
+    def toks(n):
+        return rng.integers(0, cfg.vocab, n).astype(np.int32)
+    system = toks(PREFIX_SYSTEM)
+    tails = [toks(PREFIX_TAIL) for _ in range(PREFIX_REQUESTS)]
+    cow = np.concatenate([system, tails[0][:PREFIX_COW_KEEP],
+                          toks(PREFIX_TAIL - PREFIX_COW_KEEP)])
+    return [Request(rid=i, prompt=np.concatenate([system, t]),
+                    max_new=GEN_LEN) for i, t in enumerate(tails)] + [
+        Request(rid=PREFIX_REQUESTS, prompt=cow, max_new=GEN_LEN)]
+
+
+def second_turn(cfg, first: Request, output) -> Request:
+    """A second turn of ``first``'s conversation: its prompt, its output,
+    then 32 new tokens; it hits the blocks ``first`` generated."""
+    new = np.random.default_rng(SEED + 4).integers(0, cfg.vocab, GEN_LEN)
+    return Request(rid=PREFIX_REQUESTS + 1, max_new=GEN_LEN,
+                   prompt=np.concatenate([first.prompt, output,
+                                          new]).astype(np.int32))
+
+
+def prefix_summary(engine, wall: float) -> dict:
+    """One run's numbers, its launches counted from zero, and the pool's
+    state after it; every block must be back (free or cached idle) with no
+    reference left."""
+    st, a = engine.stats, engine.allocator
+    out = {"wall_s": wall, "prefill_s": st["prefill_s"],
+           "prefill_chunks": st["prefill_chunks"],
+           "prefill_tokens": st["prefill_tokens"],
+           "decode_steps": st["decode_steps"],
+           "decode_step_ms": 1e3 * st["decode_s"] / st["decode_steps"],
+           "captures": dict(engine.graphs.captures),
+           "chunk_lengths": sorted(k[2] for k in engine.graphs.steps
+                                   if k[0] == "chunk"),
+           "capture_s": st["capture_s"],
+           "graph_pool_mib": st["graph_pool_bytes"] / 2**20,
+           "launches": counts(), "gemm_launches": engine.gemms,
+           "num_blocks": a.num_blocks, "free_blocks": a.free_blocks,
+           "cached_idle_blocks": a.cached_idle_blocks,
+           "referenced_blocks": len(a._ref),
+           **{k: st[k] for k in ENGINE_COUNTERS if k in st}}
+    check(a.free_blocks == a.num_blocks - 1 and not a._ref,
+          f"blocks did not drain: {a.free_blocks} of {a.num_blocks - 1} "
+          f"free, {len(a._ref)} still referenced")
+    return out
+
+
+def serve_prefix(cfg, params, dev, pool) -> tuple:
+    """The shared-prefix workload on a fresh engine, counted from zero:
+    the 17 requests, then the second turn built from request 0's output.
+    Returns (results, top-2 gaps, summary)."""
+    zero_counts()
+    engine = GapRecordingServer(cfg, params, pool, device=dev)
+    reqs = prefix_requests(cfg)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    results = engine.run(reqs)
+    results.update(engine.run([second_turn(cfg, reqs[0],
+                                           results[0].tokens)]))
+    torch.cuda.synchronize()
+    out = prefix_summary(engine, time.monotonic() - t0)
+    check(len(results) == PREFIX_REQUESTS + 2
+          and all(len(r.tokens) == GEN_LEN
+                  and all(0 <= int(t) < cfg.vocab for t in r.tokens)
+                  for r in results.values()),
+          "the prefix workload produced malformed output")
+    return results, engine.gaps, out
+
+
+def same_tokens(what: str, want: dict, got: dict, gaps: dict) -> None:
+    """Every request's tokens identical; a failure names each differing
+    request, its first differing step and that step's top-2 logit gap."""
+    bad = []
+    for rid, r in want.items():
+        a, b = r.tokens, got[rid].tokens
+        if not np.array_equal(a, b):
+            step = int(np.argmax(a != b)) if len(a) == len(b) else 0
+            bad.append((rid, step, gaps.get((rid, step))))
+    check(not bad, f"{what}: tokens differ (rid, step, (gap, scale)): {bad}")
+
+
+def log_prefix(name: str, out: dict) -> None:
+    log(f"prefix {name}: prefill_s {out['prefill_s']:.4f} over "
+        f"{out['prefill_chunks']} chunks ({out['prefill_tokens']} tokens); "
+        f"decode {out['decode_step_ms']:.3f} ms/step over "
+        f"{out['decode_steps']} steps; wall {out['wall_s']:.2f} s; captures "
+        f"{out['captures']} (chunk lengths {out['chunk_lengths']}) in "
+        f"{out['capture_s']:.3f} s; graph pool {out['graph_pool_mib']:.1f} "
+        f"MiB; cache {({k: out[k] for k in ENGINE_COUNTERS if k in out})}; "
+        f"blocks {out['free_blocks']}/{out['num_blocks'] - 1} free, "
+        f"{out['cached_idle_blocks']} cached idle; launches "
+        f"{out['launches']}")
+
+
+def preempt_run(cfg, params, dev, pool, victim: int = 0,
+                after: int = 3) -> tuple:
+    """The churn workload by graph with ``victim`` preempted after its
+    ``after``-th token and resubmitted at once; counted from zero."""
+    zero_counts()
+    engine = GapRecordingServer(cfg, params, pool, device=dev)
+    engine.start_clock()
+    for r in requests(cfg):
+        engine.submit(r)
+    results, preempted = {}, False
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    while engine.poll():
+        results.update(engine.step())
+        for req, phase, n, _ in ([] if preempted else engine.inflight()):
+            if req.rid == victim and phase == "decode" and n >= after:
+                engine.submit(engine.preempt(victim))
+                preempted = True
+    torch.cuda.synchronize()
+    engine.finalize_stats()
+    check(preempted, f"request {victim} finished before its preemption")
+    return results, prefix_summary(engine, time.monotonic() - t0)
+
+
+def cancel_run(cfg, params, dev, pool) -> tuple:
+    """The churn workload plus a ninth request by graph: the ninth is
+    cancelled while queued, request 1 (512 prompt tokens) after its first
+    chunk, request 0 after two decode tokens.  Counted from zero."""
+    zero_counts()
+    engine = GapRecordingServer(cfg, params, pool, device=dev)
+    engine.start_clock()
+    extra = Request(rid=len(PROMPT_LENS), max_new=GEN_LEN, prompt=np.arange(
+        128, dtype=np.int32))
+    for r in requests(cfg) + [extra]:
+        engine.submit(r)
+    results, phases = {}, {}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    while engine.poll():
+        results.update(engine.step())
+        for req, phase, n, _ in engine.inflight():
+            started = any(s.filled for s in engine._prefilling
+                          if s.req.rid == req.rid)
+            if (req.rid not in phases and (
+                    (req.rid == extra.rid and phase == "pending")
+                    or (req.rid == 1 and phase == "prefill" and started)
+                    or (req.rid == 0 and phase == "decode" and n >= 2))):
+                check(engine.cancel(req.rid), f"cancel({req.rid}) failed")
+                phases[req.rid] = phase
+    torch.cuda.synchronize()
+    engine.finalize_stats()
+    check(phases == {extra.rid: "pending", 1: "prefill", 0: "decode"}
+          and set(results) == set(range(2, len(PROMPT_LENS))),
+          f"cancelled {phases}, finished {sorted(results)}")
+    return results, phases, prefix_summary(engine, time.monotonic() - t0)
+
+
+def prefix_phase(dev, params) -> dict:
+    """The prefix cache, copy-on-write and drop-and-replay preemption on
+    full-width llama2-7b, four ways:
+
+      (a) the shared-prefix workload (``prefix_requests`` and the second
+          turn) with the cache on by graph, off by graph, on eagerly;
+      (b) the same with a pool of 4 requests' capacity, so admissions wait
+          on blocks and evict idle cached ones, cache on and cold;
+      (c) the churn workload with request 0 preempted after its third
+          token and resubmitted, against an uninterrupted run;
+      (d) cancels while queued, mid-prefill and mid-decode.
+
+    Tokens must be identical in every pair (on / off, graph / eager,
+    pressure / cold, preempted / uninterrupted, cancelled / uninterrupted
+    for the rest), and the blocks must drain after every run."""
+    cfg = get_config("llama2-7b")
+    PagedServer(cfg, params, prefix_pool(), device=dev).run(   # warm-up
+        [Request(rid=-1, prompt=np.arange(16, dtype=np.int32), max_new=2)])
+    out = {}
+    base, gaps, out["on"] = serve_prefix(cfg, params, dev, prefix_pool())
+    runs = {"off": (prefix_pool(prefix_cache=False), False),
+            "on eager": (prefix_pool(), True)}
+    need = request_blocks(cfg, prefix_pool(),
+                          PREFIX_SYSTEM + PREFIX_TAIL + GEN_LEN)
+    pressure = 1 + PRESSURE_REQUESTS * need
+    runs.update({"pressure": (prefix_pool(pressure), False),
+                 "pressure cold": (prefix_pool(pressure, False), False)})
+    for name, (pool, eager) in runs.items():
+        with graphs.eager(eager):
+            results, _, out[name] = serve_prefix(cfg, params, dev, pool)
+        same_tokens(f"prefix {name} against on", base, results, gaps)
+    for name in ("on", *runs):
+        log_prefix(name, out[name])
+    on, off = out["on"], out["off"]
+    for name in ("on", "on eager", "pressure"):
+        r = out[name]
+        check(r["prefill_tokens"] + r["prefill_tokens_saved"]
+              == r["prompt_tokens"] and r["prefill_tokens_saved"] > 0
+              and r["prefix_cow"] >= 1,
+              f"prefix {name}: cache counters {r}")
+    check("prompt_tokens" not in off and "prompt_tokens" not in
+          out["pressure cold"], "the cache-off runs used the cache")
+    check(on["captures"].get("decode") == 1 and on["captures"].get("cow") == 1
+          and off["captures"].get("decode") == 1
+          and out["pressure"]["captures"].get("decode") == 1,
+          f"captures: on {on['captures']}, off {off['captures']}, pressure "
+          f"{out['pressure']['captures']}")
+    check(not out["on eager"]["captures"], "the eager run captured")
+    check(on["launches"] == out["on eager"]["launches"],
+          f"prefix on: graph launches {on['launches']} != eager "
+          f"{out['on eager']['launches']}")
+    check(out["pressure"]["prefix_evictions"] > 0,
+          "the pressure pool evicted no cached block")
+
+    # (c) preemption, against an uninterrupted run of the same requests
+    pool = llama2_pool()
+    zero_counts()
+    plain_eng, want, wall = serve(cfg, params, dev, pool)
+    out["churn"] = prefix_summary(plain_eng, wall)
+    del plain_eng
+    got, out["preempt"] = preempt_run(cfg, params, dev, pool)
+    same_tokens("preempted against uninterrupted", want, got, {})
+    res0 = got[0]
+    recomputed = out["preempt"]["prefill_tokens"] - sum(PROMPT_LENS)
+    out["preempt"]["replay_recomputed_tokens"] = recomputed
+    check(out["preempt"]["replays"] == out["preempt"]["preemptions"] == 1
+          and res0.preemptions == 1
+          and 0 < recomputed <= pool.prefill_chunk
+          and out["preempt"]["prefix_hits"] == 1
+          and len(res0.token_times) == GEN_LEN
+          and bool(np.all(np.diff(res0.token_times) >= 0))
+          and out["preempt"]["captures"].get("decode") == 1,
+          f"preemption: {out['preempt']}; recomputed {recomputed}")
+    log_prefix("churn uninterrupted", out["churn"])
+    log_prefix("churn, request 0 preempted after 3 tokens", out["preempt"])
+
+    # (d) cancel while queued, mid-prefill and mid-decode
+    got, phases, out["cancel"] = cancel_run(cfg, params, dev, pool)
+    same_tokens("the requests that were not cancelled", {
+        rid: want[rid] for rid in got}, got, {})
+    check(out["cancel"]["cancelled"] == 3, f"cancel: {out['cancel']}")
+    out["cancel"]["phases"] = {str(k): v for k, v in phases.items()}
+    log_prefix(f"churn + 1, cancelled {phases}", out["cancel"])
+
+    saved = on["prefill_tokens_saved"] / on["prompt_tokens"]
+    log(f"prefix on vs off: prefill_s {on['prefill_s']:.4f} / "
+        f"{off['prefill_s']:.4f} ({on['prefill_chunks']} / "
+        f"{off['prefill_chunks']} chunks; {saved:.4f} of prompt tokens "
+        f"saved); decode ms/step {on['decode_step_ms']:.3f} / "
+        f"{off['decode_step_ms']:.3f}; prefix_hit_rate "
+        f"{on['prefix_hit_rate']:.4f}; captures {on['captures']} in "
+        f"{on['capture_s']:.3f} s / {off['captures']} in "
+        f"{off['capture_s']:.3f} s; graph pool {on['graph_pool_mib']:.1f} / "
+        f"{off['graph_pool_mib']:.1f} MiB; launches {on['launches']} / "
+        f"{off['launches']}; {gpu_line()}")
     return out
 
 
@@ -1815,6 +2157,8 @@ def moe_serve_phase(dev, params) -> dict:
           f"a kernel of the Mixtral fused path never launched: {launches}")
     check(out["tokens_past_ring"] > 0, "the long request never wrapped its "
           "ring")
+    check(out["prefix_cache"] == "bypassed",
+          "the windowed Mixtral must bypass the prefix cache")
     per_step, n = out["launches_per_decode_step"], cfg.n_layers
     check(per_step["fused"]["grouped_rht_qmatmul"] == 2 * n
           and per_step["unfused"]["grouped_qmatmul"] == 2 * n
@@ -1826,18 +2170,142 @@ def moe_serve_phase(dev, params) -> dict:
     return out
 
 
-def prefill_profile_main(dev, smi) -> int:
-    """``--prefill-profile``: build, quantize llama2-7b and Mixtral as the
-    full run does (without the plain code-search comparison) and run only
-    ``profile_prefill`` for each, replayed from its graph and eager (under
-    ``graphs.eager()``), each once to warm up and once measured; prints one
+# ------------------------------------------------------------ dense configs
+
+DENSE_ARCHS = ("internlm2-1.8b", "llama3.2-3b", "qwen3-0.6b", "yi-34b")
+# yi-34b's fp32 weights (2.2 GB a layer over 60 layers) exceed the card's
+# 80 GB, so its depth is cut; the other three are served at full depth
+DENSE_CUT = {"yi-34b": 4}
+DENSE_PROMPT_LENS = [64, 200, 128, 96]
+
+
+def dense_pool() -> PoolConfig:
+    return PoolConfig(max_slots=4, block_size=16,
+                      max_context=max(DENSE_PROMPT_LENS) + GEN_LEN,
+                      prefill_chunk=64)
+
+
+def dense_phase(dev) -> dict:
+    """The four dense GQA configs the port's registry adds, each at its
+    published width and depth (cut as DENSE_CUT says): fp32 random weights
+    from a seed,
+    calibrated, allocated (4.0 bits) and quantized with the code-search
+    kernel (counted), the fp weights dropped, then DENSE_PROMPT_LENS
+    (32 new tokens each) served by graph, unfused by graph and with the
+    plain versions forced (eager).  Tokens must agree across the three
+    (a divergence only at a near-tie, as ``divergences`` holds); every run
+    is counted from zero and must launch its path's kernels."""
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        if arch in DENSE_CUT:
+            cfg = cfg.with_(n_layers=DENSE_CUT[arch])
+        t0 = time.monotonic()
+        params = tf.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 5), device=dev)
+        fp_gb = sum(t.numel() * 4 for t in (
+            *params["layers"][0]["attn"].values(),
+            *params["layers"][0]["mlp"].values())) / 1e9 * cfg.n_layers
+        fp_gb += (params["embed"].numel() + params["lm_head"].numel()) * 4e-9
+        zero_counts()
+        toks = torch.from_numpy(cal.zero_shot_tokens(cfg.vocab, 256)).to(dev)
+        stats = cal.calibrate(
+            lambda p, b, ctx, cfg=cfg: tf.loss_fn(cfg, p, b, ctx=ctx),
+            params, [{"tokens": toks}])
+        torch.cuda.synchronize()
+        calibrate_s = time.monotonic() - t0
+        qparams, rep = pipe.quantize_model(
+            cfg, params, stats, AVG_BITS,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 6),
+            device=dev)
+        searches = counts()["rabitq_quant"]
+        del params, stats
+        torch.cuda.empty_cache()
+        qls = quantized_linears(qparams)
+        rot = sorted({q.d_keep for q in qls.values()})
+        row = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "heads": [cfg.n_heads, cfg.n_kv],
+               "gqa_group": cfg.n_heads // cfg.n_kv, "head_dim": cfg.hd,
+               "d_ff": cfg.d_ff, "vocab": cfg.vocab, "qk_norm": cfg.qk_norm,
+               "fp32_gb": fp_gb, "calibrate_s": calibrate_s,
+               "allocate_s": rep.allocate_s, "quantize_s": rep.quantize_s,
+               "avg_bits": rep.avg_bits, "code_search_launches": searches,
+               "rotation_widths": rot,
+               "rotation_plans": {d: list(hops.rotate_plan(d))
+                                  for d in rot}}
+        check(searches == rep.n_layers == 6 * cfg.n_layers
+              and AVG_BITS - 0.5 < rep.avg_bits <= AVG_BITS,
+              f"{arch}: {rep.n_layers} weights, {searches} code searches, "
+              f"{rep.avg_bits} bits")
+        pool = dense_pool()
+        runs = {}
+        for name, fused in (("graph", True), ("unfused", False)):
+            zero_counts()
+            eng, res, wall = serve(cfg, qparams, dev, pool, fused=fused,
+                                   prompt_lens=DENSE_PROMPT_LENS)
+            runs[name] = (eng, res, serve_summary(
+                eng, res, wall, cfg, qparams, DENSE_PROMPT_LENS))
+            runs[name][2]["launches"] = counts()
+        for ops in (qops, pops, hops):
+            ops.set_forced_path("ref")
+        try:
+            zero_counts()
+            eng, res, wall = serve(cfg, qparams, dev, pool,
+                                   prompt_lens=DENSE_PROMPT_LENS)
+        finally:
+            for ops in (qops, pops, hops):
+                ops.set_forced_path(None)
+        runs["plain"] = (eng, res, {"wall_s": wall, "launches": counts()})
+        base = runs["graph"][1]
+        for name in ("graph", "unfused", "plain"):
+            eng, res, summ = runs[name]
+            summ["divergences"] = divergences(base, res, eng)
+            summ["identical"] = len(base) - len(summ["divergences"])
+            row[name] = {k: summ[k] for k in (
+                "decode_step_ms", "prefill_s", "wall_s", "tok_per_s",
+                "captures", "capture_s", "graph_pool_mib", "launches",
+                "identical", "divergences") if k in summ}
+        del runs, eng
+        fused, unf, plain = (row[k]["launches"] for k in (
+            "graph", "unfused", "plain"))
+        launched = {k: v for k, v in fused.items() if v}
+        log(f"{arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers, "
+            f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv} (G = "
+            f"{row['gqa_group']}), d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+            f"qk_norm {cfg.qk_norm}; {fp_gb:.2f} GB fp32): {rep.avg_bits:.4f} "
+            f"bits in {calibrate_s + rep.wall_time_s:.1f} s (allocate_s "
+            f"{rep.allocate_s:.2f}); rotation widths {rot}; tokens "
+            f"identical graph / unfused / plain "
+            f"{row['graph']['identical']} / {row['unfused']['identical']} / "
+            f"{row['plain']['identical']} of {len(DENSE_PROMPT_LENS)}; decode "
+            f"{row['graph']['decode_step_ms']:.3f} ms/step, prefill_s "
+            f"{row['graph']['prefill_s']:.4f}; kernels launched by graph "
+            f"{launched}, unfused {({k: v for k, v in unf.items() if v})}; "
+            f"{time.monotonic() - t0:.1f} s in all")
+        check(fused["rht_qmatmul"] > 0 and fused["paged_attention"] > 0
+              and unf["rht"] > 0 and unf["qmatmul"] > 0
+              and unf["rht_qmatmul"] == 0 and not any(plain.values()),
+              f"{arch}: kernels by run: fused {fused}, unfused {unf}, "
+              f"plain {plain}")
+        row["phase_s"] = time.monotonic() - t0
+        out[arch] = row
+        del qparams
+        torch.cuda.empty_cache()
+    return out
+
+
+def profiles_main(dev, smi) -> int:
+    """``--profiles``: build, quantize llama2-7b and Mixtral as the full run
+    does (without the plain code-search comparison) and run only
+    ``profile_decode`` and ``profile_prefill`` for each, replayed from its
+    graphs and eager (under ``graphs.eager()``), each once to warm up and
+    once measured, with no other serving phase before them; prints one
     JSON line.  With REPRO_TORCH_SRC naming an unpacked earlier tree
     (``git archive``), it measures that tree's package, so two trees'
-    prefill device times can be compared on one card in one call:
+    step times can be compared on one card in one call:
 
-        REPRO_TORCH_SRC=build/parent/src \
-            python3 chip_smoke.py --prefill-profile
-        python3 chip_smoke.py --prefill-profile
+        REPRO_TORCH_SRC=build/parent/src python3 chip_smoke.py --profiles
+        python3 chip_smoke.py --profiles
     """
     _build.build()
     out = {"src": str(SRC), "gpu": smi}
@@ -1849,13 +2317,15 @@ def prefill_profile_main(dev, smi) -> int:
         _, qparams = phase(dev, compare=False)
         for mode in ("graph", "eager"):
             with graphs.eager(mode == "eager"):
-                for _ in range(2):
-                    prof = profile_prefill(cfg_of(), qparams, dev, pool_of(),
-                                           labels=labels)
-            out[f"{name} {mode}"] = prof
+                for kind, profile in (("decode", profile_decode),
+                                      ("prefill", profile_prefill)):
+                    for _ in range(2):
+                        prof = profile(cfg_of(), qparams, dev, pool_of(),
+                                       labels=labels)
+                    out[f"{name} {mode} {kind}"] = prof
         del qparams
         torch.cuda.empty_cache()
-    log(json.dumps({"prefill_profile": out}))
+    log(json.dumps({"profiles": out}))
     return 0
 
 
@@ -1863,7 +2333,7 @@ def attention_main(smi) -> int:
     """``--attention``: build the paged-attention kernel, hold it against
     its plain version (``check_attention``) and time it (``ATTN_TIMED``);
     prints one JSON line.  REPRO_TORCH_SRC picks the package tree, as for
-    ``--prefill-profile``, so an earlier kernel can be timed beside this
+    ``--profiles``, so an earlier kernel can be timed beside this
     one on one card in one call (run parent, change, change, parent)."""
     t0 = time.monotonic()
     logs = _build.build(["paged_attention"])
@@ -1933,6 +2403,19 @@ def redesign_main(modes, smi) -> int:
     return 0
 
 
+def prefix_main(dev, smi) -> int:
+    """``--prefix-cache``: build every kernel, quantize llama2-7b as the
+    full run does (without the plain code-search comparison) and run only
+    ``prefix_phase``; prints one JSON line (also written to
+    ``chiprun_out/chip_smoke_prefix.json``)."""
+    _build.build()
+    _, qparams = quantize_phase(dev, compare=False)
+    out = {"gpu": smi, "prefix_cache": prefix_phase(dev, qparams)}
+    (OUT_DIR / "chip_smoke_prefix.json").write_text(json.dumps(out, indent=1))
+    log(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1943,13 +2426,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = gpu_line()
     log(f"gpu: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if sys.argv[1:] == ["--prefill-profile"]:
-        return prefill_profile_main(dev, smi)
+    if sys.argv[1:] == ["--profiles"]:
+        return profiles_main(dev, smi)
     if sys.argv[1:] == ["--attention"]:
         return attention_main(smi)
     modes = set(sys.argv[1:])
     if modes and modes <= set(AB_MODES):
         return redesign_main(modes, smi)
+    if sys.argv[1:] == ["--prefix-cache"]:
+        return prefix_main(dev, smi)
     if modes:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2009,21 +2494,36 @@ def main() -> int:
 
     quant_out, qparams = quantize_phase(dev)
     serve_out = serve_phase(dev, qparams)
+    prefix_out = prefix_phase(dev, qparams)
     del qparams
     torch.cuda.empty_cache()
     moe_quant, moe_params = moe_quantize_phase(dev)
     moe_serve = moe_serve_phase(dev, moe_params)
     del moe_params
+    torch.cuda.empty_cache()
+    dense_out = dense_phase(dev)
 
     # launches per path, each from that path's own run with every count
     # zeroed just before it: the quantize run (the code search), the fused
-    # serve run, the unfused serve run (the RHT and the unfused GEMMs)
+    # serve run, the unfused serve run (the RHT and the unfused GEMMs);
+    # the prefix path is the shared-prefix workload with the cache on, by
+    # graph (it reuses llama2's quantization and runs fused only); each
+    # dense config counts its own quantization, fused and unfused runs
+    none = dict.fromkeys(counts(), 0)
     runs = {"llama2": {"quantize": quant_out["code_search_launches"],
                        "fused": serve_out["launches"],
                        "unfused": serve_out["unfused"]["launches"]},
             "mixtral": {"quantize": moe_quant["code_search_launches"],
                         "fused": moe_serve["launches"],
-                        "unfused": moe_serve["unfused"]["launches"]}}
+                        "unfused": moe_serve["unfused"]["launches"]},
+            "llama2_prefix": {"quantize": 0,
+                              "fused": prefix_out["on"]["launches"],
+                              "unfused": none}}
+    runs.update({arch: {"quantize": row["code_search_launches"],
+                        "fused": row["graph"]["launches"],
+                        "unfused": row["unfused"]["launches"]}
+                 for arch, row in dense_out.items()})
+    dense = tuple(dense_out)
 
     def by_path(kernel, run):
         if run == "quantize":
@@ -2033,11 +2533,13 @@ def main() -> int:
                     for path, r in runs.items()}
         return {path: r[run][kernel] for path, r in runs.items()}
     on_path = {  # kernel -> (run that counts it, paths that must launch it)
-        "rht_qmatmul": ("fused", ("llama2", "mixtral")),
-        "paged_attention": ("fused", ("llama2", "mixtral")),
-        "qmatmul": ("unfused", ("llama2", "mixtral")),
-        "rht": ("unfused", ("llama2", "mixtral")),
-        "rabitq_quant": ("quantize", ("llama2", "mixtral")),
+        "rht_qmatmul": ("fused", ("llama2", "mixtral", "llama2_prefix",
+                                  *dense)),
+        "paged_attention": ("fused", ("llama2", "mixtral", "llama2_prefix",
+                                      *dense)),
+        "qmatmul": ("unfused", ("llama2", "mixtral", *dense)),
+        "rht": ("unfused", ("llama2", "mixtral", *dense)),
+        "rabitq_quant": ("quantize", ("llama2", "mixtral", *dense)),
         "grouped_rht_qmatmul": ("fused", ("mixtral",)),
         "grouped_qmatmul": ("unfused", ("mixtral",)),
         "flash_attention": ("fused", ()),
@@ -2155,7 +2657,8 @@ def main() -> int:
               "grouped_unfused_times": grouped_unfused_times,
               "flash_times": flash_times,
               "gemm_check": gemm_worst, "mixtral_quantize": moe_quant,
-              "mixtral_serve": moe_serve, "kernels": kernels}
+              "mixtral_serve": moe_serve, "prefix_cache": prefix_out,
+              "dense_configs": dense_out, "kernels": kernels}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -13,6 +13,10 @@ from repro_torch.models.config import ModelConfig
 _MODULES = {
     "llama2-7b": "llama2_7b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "internlm2-1.8b": "internlm2_1_8b",
+    "llama3.2-3b": "llama3_2_3b",
+    "qwen3-0.6b": "qwen3_0_6b",
+    "yi-34b": "yi_34b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -13,11 +13,15 @@ calibrated on the paper's zero-shot sentence, bit widths are allocated
 ``PagedServer``.  ``--unfused`` serves with the unfused RHT + GEMM pair.
 On the card the engine captures each serving step once as a CUDA graph and
 replays it; the stats line reports the captures and the seconds they took.
-The prefix cache is not ported yet (ROADMAP Queue 1 item 3): the port runs
-with it off, and greedy tokens do not depend on it.
+Shared prompt prefixes are served from the content-addressed prefix cache
+(on by default; ``--no-prefix-cache`` for a cold pool A/B).  The CLI's
+prompts are identical, so with more requests than ``--slots`` the second
+admission wave hits; the printed ``prefix_hit_rate`` is the share of
+prompt tokens whose prefill the cache saved, and greedy tokens do not
+depend on it.
 
 Not ported yet, each under its ROADMAP Queue 1 item: ``--lockstep`` (7),
-``--prefix-cache`` (3), ``--kv-dtype`` (5), ``--paged-kernel`` (5: the
+``--kv-dtype`` (5), ``--paged-kernel`` (5: the
 kernel always runs on the card), ``--speculate`` / ``--draft-bits`` (4),
 ``--tp`` (8), ``--serve`` / ``--port`` / ``--slo-p95-ms`` /
 ``--max-tenant-share`` (9).
@@ -60,6 +64,10 @@ def main(argv=None):
                     help="paged engine: tokens per KV block")
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="paged engine: prompt tokens per scheduler turn")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="content-addressed KV prefix reuse (bypassed by "
+                         "windowed archs)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cpu runs the kernels' "
                          "plain versions on the host)")
@@ -91,7 +99,8 @@ def main(argv=None):
     prompt = tok.encode("the quick brown fox " * 8)[: args.prompt_len]
     pool = PoolConfig(max_slots=args.slots, block_size=args.block_size,
                       max_context=args.prompt_len + args.gen,
-                      prefill_chunk=args.prefill_chunk)
+                      prefill_chunk=args.prefill_chunk,
+                      prefix_cache=args.prefix_cache)
     engine = PagedServer(cfg, params, pool, fused=not args.unfused,
                          device=dev)
     t0 = time.monotonic()
@@ -103,11 +112,16 @@ def main(argv=None):
     stats = engine.stats                # finalized by run()
     sample = results[0].tokens
     path = "unfused" if args.unfused else "fused"
+    prefix = "prefix_cache=off"
+    if engine.prefix_cache is not None:
+        prefix = (f"prefix_cache=on, prefix_hit_rate="
+                  f"{stats['prefix_hit_rate']:.2f}, prefill_tokens_saved="
+                  f"{stats.get('prefill_tokens_saved', 0)}")
     print(f"served {args.requests} requests x {args.gen} tokens in {dt:.2f}s "
           f"({args.requests * args.gen / dt:.1f} tok/s, {path} decode path, "
           f"paged, occupancy={stats['mean_occupancy']:.2f}, "
           f"captures={stats['captures']} in {stats['capture_s']:.2f}s, "
-          f"device={dev.type}, prefix_cache=off (not ported))")
+          f"device={dev.type}, {prefix})")
     print("sample:", tok.decode(np.asarray(sample))[:80])
 
 

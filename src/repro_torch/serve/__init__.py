@@ -2,13 +2,15 @@
 ``repro/serve`` for attention decoders).
 
 ``pool``   — fixed block arena per layer + block tables + refcounted
-             block ownership.
-``engine`` — request queue, admission control, chunked prefill
-             interleaved with decode, per-request completion,
-             re-entrant ``step()``.
+             block ownership + the content-addressed prefix cache.
+``engine`` — request queue, admission control (longest cached prefix,
+             copy-on-write), chunked prefill interleaved with decode,
+             per-request completion, preemption and cancel, re-entrant
+             ``step()``.
 """
 from .engine import PagedServer, Request, RequestResult
-from .pool import BlockAllocator, PoolConfig, init_pool_caches, request_blocks
+from .pool import (BlockAllocator, PoolConfig, PrefixCache, init_pool_caches,
+                   request_blocks)
 
 __all__ = ["PagedServer", "Request", "RequestResult", "BlockAllocator",
-           "PoolConfig", "init_pool_caches", "request_blocks"]
+           "PoolConfig", "PrefixCache", "init_pool_caches", "request_blocks"]

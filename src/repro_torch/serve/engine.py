@@ -16,20 +16,32 @@ runs the fused RHT + dequant GEMM kernel (with ``fused=False`` the RHT
 kernel, then the unfused GEMM kernel) and every decode attention read the
 paged flash-decode kernel; on the CPU their plain versions run.
 
-Compile once, as the reference jits ``_step`` and ``_chunk``: on the card
-each step is captured as a CUDA graph the first time its key is seen and
-replayed after (``serve/graphs.py``).  A decode step is keyed by (fusion
-setting, slot count), a prompt chunk by (fusion setting, chunk length);
-``decode_trace_count`` and ``chunk_trace_count`` count the captures.  The
-engine captures only when it runs on the card and no kernel is forced onto
-its plain version (``set_forced_path("ref")``: the plain paged attention
-reads its block count back to the host, which a capture cannot hold); under
+Compile once, as the reference jits ``_step``, ``_chunk`` and ``_cow``: on
+the card each step is captured as a CUDA graph the first time its key is
+seen and replayed after (``serve/graphs.py``).  A decode step is keyed by
+(fusion setting, slot count), a prompt chunk by (fusion setting, chunk
+length); ``decode_trace_count``, ``chunk_trace_count`` and
+``cow_trace_count`` count the captures.  The engine captures only when it
+runs on the card and no kernel is forced onto its plain version
+(``set_forced_path("ref")``: the plain paged attention reads its block
+count back to the host, which a capture cannot hold); under
 ``graphs.eager()`` it runs every step op by op.  On the CPU the same steps
 run eagerly over their static buffers, keyed and counted as on the card.
 
-Not ported yet (ROADMAP Queue 1): the prefix cache with copy-on-write and
-preemption/cancel (item 3), speculative decoding (item 4) and tensor
-parallelism (item 8).
+Admission consults the content-addressed prefix cache: the longest cached
+prefix of the prompt is served from the pool (refcounts bumped, chunked
+prefill starts at the first uncached token, a mid-block match is cloned
+copy-on-write by one captured clone, keyed ``("cow",)``), and completed
+requests release their blocks; fully written blocks stay cached on an LRU
+that is evicted only under allocation pressure.  Pure-attention archs
+without a window only: a window's ring blocks mutate in place, so Mixtral
+bypasses the cache.  ``preempt`` drops a request's blocks (registered
+first, so its replay walks them as hits) and keeps its emitted tokens to
+re-feed as prompt when it is resubmitted; ``cancel`` aborts a request
+wherever it is.
+
+Not ported yet (ROADMAP Queue 1): speculative decoding (item 4), tensor
+parallelism (item 8) and what only the front door reads (item 9).
 """
 from __future__ import annotations
 
@@ -49,7 +61,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import check_supported
 
 from . import graphs
-from .pool import BlockAllocator, PoolConfig, init_pool_caches, request_blocks
+from .pool import (BlockAllocator, PoolConfig, PrefixCache, init_pool_caches,
+                   request_blocks)
 
 
 def _logits(step_fn, cfg: ModelConfig, params: dict, caches: list,
@@ -59,24 +72,45 @@ def _logits(step_fn, cfg: ModelConfig, params: dict, caches: list,
 
 @dataclasses.dataclass
 class Request:
-    """One generation request, admissible as soon as it is submitted
-    (timed arrivals come with the front door, ROADMAP Queue 1)."""
+    """One generation request.  ``arrival`` is seconds after the engine
+    clock's start; the engine does not admit the request earlier.  (The
+    front door's scheduling metadata comes with ROADMAP Queue 1 item 9.)"""
     rid: int
     prompt: np.ndarray               # (plen,) int32
     max_new: int
     eos: Optional[int] = None
+    arrival: float = 0.0
 
 
 @dataclasses.dataclass
 class RequestResult:
     """Completion record: generated tokens plus admission / first-token /
-    completion timestamps (engine-clock seconds; every request arrives at
-    0, so ``t_first`` is its time to first token, queueing included)."""
+    completion timestamps (engine-clock seconds).  ``ttft_s`` is the time
+    to first token from the request's arrival (queueing included),
+    ``token_times`` the emission time of every generated token, and
+    ``preemptions`` how often the request was preempted and replayed (its
+    timestamps span incarnations: ``t_admit`` / ``t_first`` from the first,
+    ``t_done`` from the last)."""
     rid: int
     tokens: np.ndarray
     t_admit: float
     t_first: float
     t_done: float
+    ttft_s: float = 0.0
+    token_times: Optional[np.ndarray] = None
+    preemptions: int = 0
+
+
+@dataclasses.dataclass
+class _Replay:
+    """Continuation of a preempted request, kept by rid until it is
+    resubmitted: the tokens already emitted (re-fed as extra prompt) and
+    the first incarnation's timestamps."""
+    prior: list
+    t_admit: float
+    t_first: float
+    token_times: list
+    preemptions: int
 
 
 @dataclasses.dataclass
@@ -86,15 +120,22 @@ class _InFlight:
     blocks: list
     bt_row: np.ndarray               # (MB,) int32 physical block ids
     ring_cap: int                    # tokens
-    served: np.ndarray               # prompt tokens fed
-    filled: int = 0                  # prompt tokens prefilled so far
+    served: np.ndarray               # prompt + replayed tokens fed
+    filled: int = 0                  # served tokens prefilled so far
     out: list = dataclasses.field(default_factory=list)
+    prior: list = dataclasses.field(default_factory=list)  # pre-preemption
+    token_times: list = dataclasses.field(default_factory=list)
+    preemptions: int = 0
     t_admit: float = 0.0
     t_first: float = 0.0
+    chain: object = None             # prefix-cache hash of last full block
+    n_hashed: int = 0                # full blocks matched/registered so far
 
     @property
     def n_done(self) -> int:
-        return len(self.out)
+        """Tokens emitted across all incarnations (the sampling step
+        index, so a replay samples as the uninterrupted run would)."""
+        return len(self.prior) + len(self.out)
 
 
 class PagedServer:
@@ -105,7 +146,9 @@ class PagedServer:
     fusion for every step of this engine (``qops.fusion``; False runs the
     unfused A/B pair).  Construct once per (model, PoolConfig); ``run``
     drains a workload to completion.  Each step is captured once per key
-    and replayed (see the module docstring)."""
+    and replayed (see the module docstring).  ``prefix_cache`` is the
+    engine's ``PrefixCache``, or None where the pool turns it off or the
+    arch bypasses it."""
 
     def __init__(self, cfg: ModelConfig, params: dict,
                  pool: PoolConfig | None = None, *, fused: bool = True,
@@ -122,7 +165,14 @@ class PagedServer:
         self.temperature = temperature
         self.seed = seed
         self.caches = init_pool_caches(cfg, self.pool, self.device)
-        self.allocator = BlockAllocator(self.pool.resolved_num_blocks(cfg))
+        # the cache needs blocks that are immutable once written: a window's
+        # ring reuses its blocks in place, so windowed archs bypass it
+        self.cacheable = (self.pool.prefix_cache and cfg.window is None
+                          and all(mx == "attn" for mx in cfg.pattern))
+        self.prefix_cache = (PrefixCache(self.pool.block_size)
+                             if self.cacheable else None)
+        self.allocator = BlockAllocator(self.pool.resolved_num_blocks(cfg),
+                                        cache=self.prefix_cache)
         self.free_slots = list(range(self.pool.max_slots - 1, -1, -1))
         self.table_width = max(
             request_blocks(cfg, self.pool, self.pool.max_context), 1)
@@ -131,6 +181,7 @@ class PagedServer:
         self._pending: collections.deque[Request] = collections.deque()
         self._prefilling: collections.deque[_InFlight] = collections.deque()
         self._active: dict[int, _InFlight] = {}
+        self._replay: dict[int, _Replay] = {}
         self._t0: float | None = None
 
     # ------------------------------------------------------------- plumbing
@@ -157,21 +208,41 @@ class PagedServer:
         """Prompt-chunk captures: one per chunk length and fusion setting."""
         return self.graphs.captures["chunk"]
 
-    def _compiled(self, key: tuple, step_fn, inert):
-        """``inputs -> logits`` of ``step_fn`` (``decmod.decode_step_paged``
-        or ``prefill_chunk_paged``) on this engine's model and arenas: the
-        step captured for ``key`` (made on ``inert()``'s inputs at first
-        use), or under ``graphs.eager()`` and with a kernel forced onto its
-        plain version on the card, ``step_fn`` op by op on fresh tensors.
-        The step holds the model and the arenas, not the engine, so an
-        engine and its graphs are freed when it is dropped."""
-        fn = functools.partial(_logits, step_fn, self.cfg, self.params,
-                               self.caches)
+    @property
+    def cow_trace_count(self) -> int:
+        """Copy-on-write clone captures: at most one per engine."""
+        return self.graphs.captures["cow"]
+
+    def _compiled(self, key: tuple, fn, inert):
+        """``inputs -> fn(**inputs)``: the step captured for ``key`` (made
+        on ``inert()``'s inputs at first use), or under ``graphs.eager()``
+        and with a kernel forced onto its plain version on the card, ``fn``
+        op by op on fresh tensors.  ``fn`` holds the model and the arenas,
+        not the engine, so an engine and its graphs are freed when it is
+        dropped."""
         if graphs.eager_enabled() or (self.device.type == "cuda"
                                       and kernels.plain_forced()):
             return lambda inputs: fn(**{k: self._tensor(a)
                                         for k, a in inputs.items()})
         return self.graphs.get(key, fn, inert)
+
+    def _step_fn(self, step_fn):
+        """``step_fn`` (``decmod.decode_step_paged`` or
+        ``prefill_chunk_paged``) on this engine's model and arenas,
+        returning the logits."""
+        return functools.partial(_logits, step_fn, self.cfg, self.params,
+                                 self.caches)
+
+    def _cow(self, src: int, dst: int) -> None:
+        """Clone physical block ``src`` into ``dst`` in every layer's arena
+        (the reference's jitted ``_cow``): one captured clone, its blocks
+        through static one-element buffers."""
+        clone = self._compiled(
+            ("cow",), functools.partial(graphs.clone_block, self.caches),
+            lambda: {"src": np.zeros(1, np.int64),
+                     "dst": np.zeros(1, np.int64)})
+        clone({"src": np.array([src], np.int64),
+               "dst": np.array([dst], np.int64)})
 
     def _chunk_inputs(self, tokens: np.ndarray, pos0: int, bt_row: np.ndarray,
                       ring_cap: int) -> dict:
@@ -199,10 +270,17 @@ class PagedServer:
 
     # ------------------------------------------------------------ lifecycle
 
-    def now(self) -> float:
-        """Seconds since the engine clock started (starts it if needed)."""
-        if self._t0 is None:
+    def start_clock(self, reset: bool = False) -> None:
+        """Pin the engine clock's zero (idempotent unless ``reset``).
+        ``run`` resets it per call; a caller that steps the engine itself
+        pins it once, before the first ``Request.arrival`` counts."""
+        if reset or self._t0 is None:
             self._t0 = time.monotonic()
+
+    def now(self) -> float:
+        """Seconds since the engine clock started (starts it if needed): the
+        time base of ``Request.arrival`` and every result timestamp."""
+        self.start_clock()
         return time.monotonic() - self._t0
 
     def validate(self, req: Request) -> None:
@@ -225,13 +303,15 @@ class PagedServer:
                 f"{self.allocator.num_blocks - 1}")
 
     def submit(self, req: Request) -> None:
-        """Queue a request for admission."""
+        """Queue a request for admission (not before ``req.arrival``); a
+        preempted request's resubmission resumes its replay."""
         self.validate(req)
         self._pending.append(req)
 
     def can_admit(self, req: Request) -> bool:
         """Whether admitting ``req`` now would succeed: a free slot and
-        enough free blocks for its full capacity."""
+        enough allocatable blocks for its full capacity.  Conservative:
+        prefix hits only lower the fresh-block need."""
         if not self.free_slots:
             return False
         need = request_blocks(self.cfg, self.pool,
@@ -240,40 +320,111 @@ class PagedServer:
 
     def _try_admit(self, now: float) -> None:
         # FIFO with head-of-line blocking on a slot and the request's blocks
-        while self._pending:
+        while self._pending and self._pending[0].arrival <= now:
             req = self._pending[0]
             if not self.free_slots:
                 return
+            # a replayed (preempted) request re-feeds its emitted tokens as
+            # extra prompt; its footprint is unchanged (prompt + max_new
+            # counts every token once)
+            rp = self._replay.get(req.rid)
+            served = np.asarray(req.prompt, np.int32)
+            if rp and rp.prior:
+                served = np.concatenate([served,
+                                         np.asarray(rp.prior, np.int32)])
             need = request_blocks(self.cfg, self.pool,
                                   len(req.prompt) + req.max_new)
-            blocks = self.allocator.alloc(need)
-            if blocks is None:
+            # the longest cached prefix: whole-block hits are shared (incref
+            # before alloc, so pressure cannot evict them), a mid-block
+            # match is cloned copy-on-write into the first fresh block;
+            # capped at plen - 1, so one prompt token is always recomputed
+            hits: list[int] = []
+            parent, cached, cow_src = None, 0, None
+            if self.prefix_cache is not None:
+                hits, parent, cached, cow_src = self.prefix_cache.match(
+                    served, len(served) - 1)
+                for b in hits:
+                    self.allocator.incref(b)
+                if cow_src is not None:
+                    self.allocator.incref(cow_src)
+            fresh = self.allocator.alloc(need - len(hits))
+            if fresh is None:
+                if cow_src is not None:
+                    self.allocator.decref(cow_src)
+                for b in reversed(hits):      # leaf-first, like _finish
+                    self.allocator.decref(b)
                 return
+            if cow_src is not None:
+                # fresh[0] sits at logical index len(hits): where the
+                # partially matching block's contents belong
+                self._cow(cow_src, fresh[0])
+                self.allocator.decref(cow_src)
+                self._add_stat("prefix_cow", 1)
+            blocks = hits + fresh
             self._pending.popleft()
+            self._replay.pop(req.rid, None)
             slot = self.free_slots.pop()
             bt_row = np.zeros(self.table_width, np.int32)
             bt_row[:need] = blocks
             ring_cap = len(blocks) * self.pool.block_size if blocks else 1
+            if self.prefix_cache is not None:
+                self._add_stat("prompt_tokens", len(served))
+                self._add_stat("prefill_tokens_saved", cached)
+                if cached:
+                    self._add_stat("prefix_hits", 1)
+            if rp is not None:
+                self._add_stat("replays", 1)
             self._prefilling.append(_InFlight(
                 req=req, slot=slot, blocks=blocks, bt_row=bt_row,
-                ring_cap=ring_cap, served=np.asarray(req.prompt, np.int32),
-                t_admit=now))
+                ring_cap=ring_cap, served=served, filled=cached,
+                prior=list(rp.prior) if rp else [],
+                token_times=list(rp.token_times) if rp else [],
+                preemptions=rp.preemptions if rp else 0,
+                t_admit=rp.t_admit if rp else now,
+                t_first=rp.t_first if rp else 0.0,
+                chain=parent, n_hashed=len(hits)))
+
+    def _register_blocks(self, st: _InFlight, seq, upto: int) -> None:
+        """Register st's fully written blocks covering positions < upto
+        (their KV is in the arena) in the prefix cache."""
+        bs = self.pool.block_size
+        while (st.n_hashed + 1) * bs <= upto:
+            k = st.n_hashed
+            st.chain = self.prefix_cache.register(
+                st.chain, seq[k * bs:(k + 1) * bs], int(st.bt_row[k]))
+            st.n_hashed += 1
+
+    def _written(self, st: _InFlight) -> np.ndarray:
+        """The tokens whose KV a decoding request has written: its served
+        tokens and every emitted one but the newest (never fed back)."""
+        return np.concatenate([st.served, np.asarray(st.out[:-1], np.int32)])
 
     def _emit(self, st: _InFlight, tok: int, now: float) -> None:
-        """One token leaves the engine: record it, and stamp the first
-        token's time."""
+        """One token leaves the engine: record it and its emission time,
+        and stamp the request's very first token."""
         st.out.append(int(tok))
-        if st.t_first == 0.0:
+        st.token_times.append(now)
+        if st.t_first == 0.0 and not st.prior:
             st.t_first = now
 
     def _finish(self, st: _InFlight, now: float,
                 results: dict[int, RequestResult]) -> None:
+        if self.prefix_cache is not None:
+            # generated tokens extend the cached chain too, so a second
+            # turn's prompt hits its history
+            seq = self._written(st)
+            self._register_blocks(st, seq, len(seq))
+        # later blocks enter the idle LRU first, so pressure evicts leaves
+        # before the prefixes they chain off
         self.allocator.free(list(reversed(st.blocks)))
         self.free_slots.append(st.slot)
         del self._active[st.slot]
         results[st.req.rid] = RequestResult(
-            rid=st.req.rid, tokens=np.asarray(st.out, np.int32),
-            t_admit=st.t_admit, t_first=st.t_first, t_done=now)
+            rid=st.req.rid, tokens=np.asarray(st.prior + st.out, np.int32),
+            t_admit=st.t_admit, t_first=st.t_first, t_done=now,
+            ttft_s=st.t_first - st.req.arrival,
+            token_times=np.asarray(st.token_times, np.float64),
+            preemptions=st.preemptions)
 
     def _done(self, st: _InFlight, tok: int) -> bool:
         return st.n_done >= st.req.max_new or tok == st.req.eos
@@ -284,7 +435,8 @@ class PagedServer:
         plen = len(st.served)
         c = min(self.pool.prefill_chunk, plen - st.filled, st.ring_cap)
         step = self._compiled(
-            ("chunk", qops.fused_enabled(), c), decmod.prefill_chunk_paged,
+            ("chunk", qops.fused_enabled(), c),
+            self._step_fn(decmod.prefill_chunk_paged),
             lambda: self._chunk_inputs(np.zeros(c, np.int32), 0,
                                        np.zeros(self.table_width, np.int32), 1))
         inputs = self._chunk_inputs(st.served[st.filled:st.filled + c],
@@ -295,6 +447,10 @@ class PagedServer:
         st.filled += c
         self._add_stat("prefill_chunks", 1)
         self._add_stat("prefill_tokens", c)
+        if self.prefix_cache is not None:
+            # the blocks this chunk completed are fully written: publish
+            # them, so requests sharing the prompt hit them at once
+            self._register_blocks(st, st.served, st.filled)
         if st.filled == plen:
             self._prefilling.popleft()
             self._active[st.slot] = st
@@ -308,7 +464,8 @@ class PagedServer:
                      results: dict[int, RequestResult]) -> None:
         step = self._compiled(
             ("decode", qops.fused_enabled(), self.pool.max_slots),
-            decmod.decode_step_paged, lambda: self._decode_inputs({}))
+            self._step_fn(decmod.decode_step_paged),
+            lambda: self._decode_inputs({}))
         inputs = self._decode_inputs(self._active)
         t_start = time.monotonic()
         logits = step(inputs).to(torch.float32).cpu().numpy()  # waits for it
@@ -324,10 +481,88 @@ class PagedServer:
             if self._done(st, tok):
                 self._finish(st, now, results)
 
+    # ----------------------------------------------------------- preemption
+
+    def _evict_inflight(self, rid: int) -> Optional[_InFlight]:
+        """Pull request ``rid`` out of the prefill or decode set: register
+        its fully written blocks in the prefix cache (so they park on the
+        LRU with their KV rather than being recomputed), release its block
+        references and free its slot.  Returns the removed state, or None
+        if ``rid`` is not in flight."""
+        st = next((s for s in self._active.values() if s.req.rid == rid),
+                  None)
+        from_active = st is not None
+        if st is None:
+            st = next((s for s in self._prefilling if s.req.rid == rid),
+                      None)
+        if st is None:
+            return None
+        # mid-prefill, _prefill_one has registered every completed block
+        if self.prefix_cache is not None and st.out:
+            seq = self._written(st)
+            self._register_blocks(st, seq, len(seq))
+        self.allocator.free(list(reversed(st.blocks)))
+        self.free_slots.append(st.slot)
+        if from_active:
+            del self._active[st.slot]
+        else:
+            self._prefilling.remove(st)
+        return st
+
+    def preempt(self, rid: int) -> Request | None:
+        """Drop-and-replay preemption: release request ``rid``'s slot and
+        blocks and return its ``Request`` for the caller to resubmit; None
+        if ``rid`` is not in flight.  Its written blocks are registered in
+        the prefix cache first, so on a cacheable engine the replay's
+        prefill walks its own history as hits and recomputes at most one
+        chunk (unless pressure evicted the blocks meanwhile).  The emitted
+        tokens and first-incarnation timestamps are kept by rid and taken
+        up when the same rid is resubmitted; the tokens are re-fed as
+        prompt, so a greedy replay emits what an uninterrupted run
+        would."""
+        st = self._evict_inflight(rid)
+        if st is None:
+            return None
+        self._replay[rid] = _Replay(
+            prior=st.prior + st.out, t_admit=st.t_admit, t_first=st.t_first,
+            token_times=list(st.token_times),
+            preemptions=st.preemptions + 1)
+        self._add_stat("preemptions", 1)
+        return st.req
+
+    def cancel(self, rid: int) -> bool:
+        """Abort request ``rid`` wherever it is (queued, prefilling or
+        decoding), freeing its resources and dropping any replay
+        continuation.  Returns True if anything was removed."""
+        for i, r in enumerate(self._pending):
+            if r.rid == rid:
+                del self._pending[i]
+                self._replay.pop(rid, None)
+                self._add_stat("cancelled", 1)
+                return True
+        had_replay = self._replay.pop(rid, None) is not None
+        st = self._evict_inflight(rid)
+        if st is not None or had_replay:
+            self._add_stat("cancelled", 1)
+        return st is not None or had_replay
+
+    def inflight(self) -> list:
+        """Every request holding or queued for resources, as ``(request,
+        phase, tokens_done, t_admit)`` with phase "pending", "prefill" or
+        "decode"; the last two hold a slot and blocks and are
+        preemptible."""
+        out = [(r, "pending", 0, r.arrival) for r in self._pending]
+        out += [(s.req, "prefill", s.n_done, s.t_admit)
+                for s in self._prefilling]
+        out += [(s.req, "decode", s.n_done, s.t_admit)
+                for s in self._active.values()]
+        return out
+
     # ------------------------------------------------------------------ run
 
     def poll(self) -> bool:
-        """Whether the engine has outstanding work."""
+        """Whether the engine has outstanding work (a preempted request not
+        yet resubmitted is its caller's work, not the engine's)."""
         return bool(self._pending or self._prefilling or self._active)
 
     def step(self) -> dict[int, RequestResult]:
@@ -335,6 +570,7 @@ class PagedServer:
         chunk, then one decode step over the slot set.  Returns the
         requests that finished during this call."""
         results: dict[int, RequestResult] = {}
+        self.start_clock()
         self._try_admit(self.now())
         with qops.fusion(self.fused):
             if self._prefilling:
@@ -350,6 +586,12 @@ class PagedServer:
         self.stats["captures"] = sum(self.graphs.captures.values())
         self.stats["capture_s"] = self.graphs.capture_s
         self.stats["graph_pool_bytes"] = self.graphs.pool_bytes
+        if self.prefix_cache is not None:
+            pt = self.stats.get("prompt_tokens", 0)
+            self.stats["prefix_hit_rate"] = (
+                self.stats.get("prefill_tokens_saved", 0) / pt if pt else 0.0)
+            self.stats["prefix_evictions"] = self.prefix_cache.evictions
+            self.stats["prefix_cached_blocks"] = len(self.prefix_cache)
         return self.stats
 
     def run(self, requests: list[Request] | None = None
@@ -358,9 +600,15 @@ class PagedServer:
         rid -> RequestResult; aggregate stats land in ``self.stats``."""
         for r in requests or []:
             self.submit(r)
+        self._pending = collections.deque(
+            sorted(self._pending, key=lambda r: r.arrival))
         results: dict[int, RequestResult] = {}
-        self._t0 = time.monotonic()       # each run() restarts the clock
+        self.start_clock(reset=True)      # each run() restarts the clock
         while self.poll():
             results.update(self.step())
+            if not self._active and not self._prefilling and self._pending:
+                wait = self._pending[0].arrival - self.now()
+                if wait > 0:
+                    time.sleep(min(wait, 0.05))
         self.finalize_stats()
         return results

@@ -1,5 +1,6 @@
 """Compile-once serving steps: the port's counterpart of the reference's
-``jax.jit`` of ``_step`` and ``_chunk`` (``repro/serve/engine.py:338-371``).
+``jax.jit`` of ``_step``, ``_chunk`` and ``_cow``
+(``repro/serve/engine.py:338-371``).
 
 ``StepGraphs`` keeps one ``Step`` per key: a step function over static
 input buffers.  On the card the step is captured once as a CUDA graph, and
@@ -13,9 +14,17 @@ What a capture needs, and what this module does about it:
 
   * Static shapes and no host reads.  The engine keys each step by what
     fixes its shapes and code path (decode: the fusion setting and the
-    slot count; a prompt chunk: the fusion setting and its length), and
-    ``models/decode.py`` takes only tensors, reads nothing back to the
-    host, and updates the arenas in place.
+    slot count; a prompt chunk: the fusion setting and its length; the
+    copy-on-write clone: nothing), and ``models/decode.py`` takes only
+    tensors, reads nothing back to the host, and updates the arenas in
+    place.
+  * Arenas written in place, never rebound.  Every graph reads and writes
+    the arena tensors it was captured on, so the copy-on-write clone
+    (``clone_block``) copies into them with ``index_copy_``.  The
+    reference's functional ``.at[].set`` rebinds its caches; a port that
+    rebound ``engine.caches`` (or wrote ``arena[dst]`` through a tensor
+    index, which copies into a temporary) would leave every captured graph
+    reading stale storage, and no CPU run would show it.
   * Inputs through static buffers.  Each input has a static device buffer
     and a pinned host copy; a call writes the host copy (after the previous
     call's copies have finished) and copies it in on the current stream.
@@ -91,9 +100,20 @@ def _no_gc():
             gc.enable()
 
 
+def clone_block(caches: list, src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Copy physical block ``src`` into block ``dst`` in every layer's K
+    and V arena, in place (the reference's ``_cow_core``).  ``src`` and
+    ``dst`` are one-element int64 tensors, so one capture serves every
+    pair of blocks."""
+    for cache in caches:
+        for arena in cache.values():
+            arena.index_copy_(0, dst, arena.index_select(0, src))
+
+
 class Step:
-    """``fn(**inputs) -> tensor`` over static input buffers, captured as a
-    CUDA graph on the card (``graph``), run eagerly on the CPU."""
+    """``fn(**inputs)`` over static input buffers, captured as a CUDA graph
+    on the card (``graph``), run eagerly on the CPU.  ``fn`` returns a
+    tensor (a step's logits) or None (the clone, which only writes)."""
 
     def __init__(self, fn: Callable[..., torch.Tensor],
                  inert: dict[str, np.ndarray], device: torch.device,
@@ -147,8 +167,8 @@ class Step:
 
 
 class StepGraphs:
-    """An engine's steps by key (``key[0]`` names the kind: "decode" or
-    "chunk"), made at first use; ``captures`` counts them by kind and
+    """An engine's steps by key (``key[0]`` names the kind: "decode",
+    "chunk" or "cow"), made at first use; ``captures`` counts them by kind and
     ``capture_s`` the host seconds spent warming up and capturing."""
 
     def __init__(self, device: torch.device):

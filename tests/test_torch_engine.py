@@ -170,11 +170,6 @@ def test_engine_greedy_tokens_identical_to_reference(models, kind):
     assert engine.allocator.free_blocks == engine.allocator.num_blocks - 1
 
 
-def test_prefix_cache_is_refused_until_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        PoolConfig(prefix_cache=True)
-
-
 MOE_ARCH = "mixtral-8x7b"
 
 

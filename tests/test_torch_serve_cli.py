@@ -1,10 +1,11 @@
 """The port's quantize-then-serve CLI (``python -m repro_torch.launch.serve``)
 on the host: calibrate + AllocateBits + RaBitQ-H on tiny llama2 and on tiny
 mixtral (grouped MoE experts, window 16, so the 40-token requests wrap the
-ring), then the paged engine, fused and unfused.  Greedy decode is deterministic and the two
-paths compute the same function, so the ``sample:`` lines must be
-byte-identical.  Without ``--device cpu`` the CLI runs on the card, so on a
-host with no card it must refuse with ``resolve_device``'s message."""
+ring), then the paged engine, fused and unfused, and with the prefix cache
+on and off.  Greedy decode is deterministic and the paths compute the same
+function, so the ``sample:`` lines must be byte-identical.  Without
+``--device cpu`` the CLI runs on the card, so on a host with no card it
+must refuse with ``resolve_device``'s message."""
 import os
 import subprocess
 import sys
@@ -42,8 +43,22 @@ def test_fused_and_unfused_samples_identical():
     out = fused.stdout.decode(errors="replace")
     assert "calibrating + quantizing (3.3 avg bits)" in out
     assert "quantized 24 layers, achieved" in out and "allocate_s=" in out
-    assert "fused decode path" in out and "prefix_cache=off" in out
+    # 2 identical prompts admitted together: the cache is on, nothing hits
+    assert "fused decode path" in out and "prefix_cache=on" in out
+    assert "prefix_hit_rate=0.00" in out
     assert "unfused decode path" in unfused.stdout.decode(errors="replace")
+
+
+def test_prefix_cache_on_and_off_samples_identical():
+    """8 identical prompts over 4 slots: the second admission wave finds
+    the first wave's prompt blocks cached (31 of each 32-token prompt, the
+    last block's 15 tokens by a copy-on-write clone)."""
+    on = _run("--device", "cpu", "--requests", "8")
+    off = _run("--device", "cpu", "--requests", "8", "--no-prefix-cache")
+    assert _sample(on) == _sample(off)
+    out = on.stdout.decode(errors="replace")
+    assert "prefix_hit_rate=0.48, prefill_tokens_saved=124" in out
+    assert "prefix_cache=off" in off.stdout.decode(errors="replace")
 
 
 def test_mixtral_fused_and_unfused_samples_identical():
