@@ -21,17 +21,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      RaBitQ code search (two calls bitwise equal; its division held against
      IEEE division on sampled mantissa pairs),
      paged flash-decode (R up to 35, one split and several, two calls
-     bitwise equal; timed at llama2's, Mixtral's and a serving mix's
-     shapes, f32 and bf16), the grouped (MoE expert) GEMM fused and unfused at
-     Mixtral's decode and prefill shapes, and the flash-attention forward
-     at Mixtral's and llama2's shapes (also against its host tile walk);
+     bitwise equal; speculation's W = 2 and 4, Mixtral's verify over a
+     wrapped ring; timed at llama2's, Mixtral's and a serving mix's
+     shapes, f32 and bf16, and at the verify and catch-up spans), the
+     grouped (MoE expert) GEMM fused and unfused at Mixtral's decode and
+     prefill shapes and speculation's capacities (C = 5, 10), and the
+     flash-attention forward at Mixtral's and llama2's shapes (also
+     against its host tile walk);
   4. quantize: llama2-7b at its published width (32 layers, d_model 4096,
      32 heads, d_ff 11008, vocab 32000) in fp32, random weights from a
      seeded generator on the card; calibrated on the paper's zero-shot
      sentence (256 tokens), bit widths from AllocateBits at 4.0 average
-     bits, every linear RaBitQ-H quantized with the code-search kernel; then
-     the same layers again with the code search's plain version, compared
-     column by column;
+     bits, every linear RaBitQ-H quantized with the code-search kernel, and
+     from the same calibration and signs a 2.2-bit draft
+     (``quantize_model_dual``); then the target's layers again with the
+     code search's plain version, compared column by column;
   5. serve (``serve_four_ways``): the fp weights dropped, 8 requests
      through ``PagedServer.run`` four ways -- by graph (the engine's
      default: each decode step and prompt-chunk length captured once as a
@@ -53,7 +57,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (4.0 bits) and quantized with grouped experts, then quantized again
      with the plain code search and compared; the fp weights dropped and
      the 8 requests plus one of 4160 prompt tokens (its window
-     ring wraps in prefill and in decode) served the same four ways;
+     ring wraps in prefill and in decode) served the same four ways; its
+     2.2-bit draft is quantized with it;
      the llama2 serve runs go through the prefix cache (on by default;
      their random prompts save nothing, which is checked), Mixtral's
      window bypasses it;
@@ -66,11 +71,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      request 0 preempted and replayed, and with cancels while queued,
      mid-prefill and mid-decode.  Tokens identical in every pair, cache
      counters consistent, blocks drained after every run;
-  8. dense configs (``dense_phase``): internlm2-1.8b, llama3.2-3b,
-     qwen3-0.6b at their published widths and depths, yi-34b with its
-     depth cut to 4 layers, quantized at 4.0 bits and served by graph,
-     unfused and plain;
-  9. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
+  8. speculation (``spec_phase``, ``moe_spec_phase``): llama2 speculating
+     k = 3 deep over phase 5's requests with draft = target (every
+     proposal accepted) and with the 2.2-bit draft, each 3 runs by graph
+     and one eager, tokens identical to phase 5's spec-off graph run, a
+     round profiled; the prefix workload (a) with the cache on and the
+     draft, tokens identical to phase 7's, the COW clone checked in both
+     arenas; bf16 arenas, spec off and on, by graph and eager (identical
+     four ways); then Mixtral's 9 requests with its draft, the target's
+     capacity overflows counted per step, on = off except at a step that
+     dropped tokens, graph = eager.  Catch-up, draft and verify steps
+     each captured once per engine, no decode step;
+  9. dense configs (``dense_phase``): internlm2-1.8b, llama3.2-3b,
+     qwen3-0.6b and yi-34b at their published widths, each cut to 4
+     layers, quantized at 4.0 bits and served by graph, unfused and plain;
+ 10. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
      path's runs counted from zero), the nvidia-smi line, and as the last
      line ``{"ok": true, "device": {...}}``.
 
@@ -82,7 +97,9 @@ paged-attention kernel (see ``attention_main``); ``--rotation`` and
 ``--code-search`` (either or both, with ``--division-sweep`` for the
 division on all 2^46 mantissa pairs) the same for the rotation and the
 code search (see ``redesign_main``); ``--prefix-cache`` builds every
-kernel and runs only phase 7 (see ``prefix_main``).
+kernel and runs only phase 7 (see ``prefix_main``); ``--speculation``
+builds every kernel and runs only phase 8, with the spec-off runs it is
+held to (see ``spec_main``).
 
 Imports nothing of JAX or of the reference package.  Exits non-zero with no
 result when no CUDA device is present.  Details too long for the end of the
@@ -92,6 +109,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -99,6 +117,7 @@ import sys
 import time
 from pathlib import Path
 
+T_START = time.monotonic()
 ROOT = Path(__file__).resolve().parent
 # the package tree to import: this checkout's src/ unless REPRO_TORCH_SRC
 # names another (``--profiles`` compares two trees' packages)
@@ -238,7 +257,12 @@ TIME_SHAPES = [(1, 4083, 4096), (8, 4083, 4096), (8, 4083, 22016),
 GROUPED_SHAPES = [(8, 2, 4096, 28672), (8, 2, 14336, 4096),
                   (8, 20, 4096, 28672), (8, 20, 14336, 4096)]
 # checked, not timed: more rows per expert than one 64-row block holds
-GROUPED_CHECK_SHAPES = GROUPED_SHAPES + [(3, 100, 4083, 1024)]
+# + the capacities speculation gives Mixtral's 8 slots: C = 5 for the
+# draft's catch-up (16 tokens), C = 10 for the verify (32 tokens)
+GROUPED_CHECK_SHAPES = GROUPED_SHAPES + [(3, 100, 4083, 1024),
+                                         (8, 5, 4096, 28672),
+                                         (8, 10, 4096, 28672),
+                                         (8, 10, 14336, 4096)]
 FLASH_CASES = [  # name, b, s, h, kv, hd, causal, window, dtype
     ("mixtral S=4608 G=4 window 4096", 1, 4608, 32, 8, 128, True, 4096,
      torch.float32),
@@ -749,6 +773,22 @@ ATTN_CASES = [  # name, w, h, kv, dtype, window, ring_blocks, ctx_max, ctx_lo
     ("f32 G=2: H=16, KV=8", 1, 16, 8, torch.float32, None, None, 232, 64),
     ("f32 G=3: H=24, KV=8", 1, 24, 8, torch.float32, None, None, 232, 64),
     ("f32 G=7: H=56, KV=8", 1, 56, 8, torch.float32, None, None, 232, 64),
+    # speculation on llama2 (G = 1): the draft's catch-up (W = 2) and the
+    # verify of k = 3 proposals (W = 4), f32 and bf16 arenas
+    ("spec f32 W=2 G=1", 2, 32, 32, torch.float32, None, None, 1024, None),
+    ("spec bf16 W=2 G=1", 2, 32, 32, torch.bfloat16, None, None, 1024, None),
+    ("spec f32 W=4 G=1", 4, 32, 32, torch.float32, None, None, 1024, None),
+    ("spec bf16 W=4 G=1", 4, 32, 32, torch.bfloat16, None, None, 1024,
+     None),
+    # Mixtral's verify (W = 4, G = 4: R = 16) under its 4096 window over a
+    # wrapped ring, positions up to k = 3 past the decode case's frontier;
+    # the engine's ring holds window + lookahead (257 blocks)
+    ("mixtral verify f32 W=4 G=4 window 4096, ring of 256 blocks", 4, 32, 8,
+     torch.float32, 4096, 256, 4195, 3900),
+    ("mixtral verify f32 W=4 G=4 window 4096, ring of 257 blocks", 4, 32, 8,
+     torch.float32, 4096, 257, 4195, 3900),
+    ("mixtral verify bf16 W=4 G=4 window 4096, ring of 257 blocks", 4, 32,
+     8, torch.bfloat16, 4096, 257, 4195, 3900),
 ]
 # timed: name, w, h, kv, dtype, window, ring_blocks, table width, ctx_max,
 # ctx_lo (None: every request at ctx_max)
@@ -763,6 +803,14 @@ ATTN_TIMED = [
     # 34-block table (prompts 64-512 + 32 new tokens)
     ("serving mix f32 B=8 ctx 128-544", 1, 32, 32, torch.float32, None,
      None, 34, 544, 128),
+    # speculation on the same mix: the target's verify (W = 4) and the
+    # draft's catch-up (W = 2), the table 35 blocks wide (lookahead 3)
+    ("spec verify f32 B=8 W=4 ctx 128-547", 4, 32, 32, torch.float32, None,
+     None, 35, 547, 128),
+    ("spec catch-up f32 B=8 W=2 ctx 128-545", 2, 32, 32, torch.float32,
+     None, None, 35, 545, 128),
+    ("mixtral verify f32 B=8 W=4 G=4 window 4096, pos 3900-4195", 4, 32, 8,
+     torch.float32, 4096, 257, 257, 4195, 3900),
 ]
 
 
@@ -794,7 +842,8 @@ def check_attention(gen, dev) -> dict:
         worst = max(worst, err)
         cases.append({"case": name, "splits": attn_splits(args),
                       "max_abs_err": err, "max_abs_plain": scale})
-        if name in ("f32 W=1", "f32 G=4"):    # one split; four and combine
+        if name in ("f32 W=1", "f32 G=4", "mixtral verify f32 W=4 G=4 "
+                    "window 4096, ring of 257 blocks"):  # one split; more
             again = pops.paged_attention_cuda(*args, window=window)
             check(torch.equal(got, again),
                   f"paged_attention {name}: two calls differ")
@@ -820,17 +869,18 @@ def check_attention(gen, dev) -> dict:
     got = pops.paged_attention_cuda(q, k, v, bt, pos, ring)
     check(bool(torch.isfinite(got).all()), "inactive slot gave non-finite")
     log(f"paged_attention: {len(cases)} cases + an inactive slot within "
-        f"{RTOL} * max|plain|, two cases bitwise repeatable; max|err| "
+        f"{RTOL} * max|plain|, three cases bitwise repeatable; max|err| "
         f"{worst:.3e}; splits {[c['splits'] for c in cases]}")
     return {"max_abs_err": worst, "cases": cases, "deterministic": True}
 
 
 def sdpa_decode(q, k_arena, v_arena, bt, pos, ring):
     """One PyTorch call computing the same decode attention on K/V already
-    gathered dense (timing only): (B, H, W=1, hd) queries over each
+    gathered dense (timing only): (B, H, W, hd) queries over each
     request's min(pos, ring) live keys, a key-padding mask where the
-    requests differ."""
-    b, _, h, hd = q.shape
+    requests differ, and for W > 1 the causal mask within the span (where
+    the ring has not wrapped, a key's slot is its position)."""
+    b, w, h, hd = q.shape
     _, bs, kv, _ = k_arena.shape
     live = torch.minimum(pos.clamp(min=1), ring.clamp(min=1))
     nb = int((live.max() + bs - 1) // bs)
@@ -839,10 +889,13 @@ def sdpa_decode(q, k_arena, v_arena, bt, pos, ring):
     vd = v_arena[bt[:, :nb].long()].reshape(b, nb * bs, kv, hd).transpose(
         1, 2).contiguous()
     qd = q.transpose(1, 2).contiguous().to(kd.dtype)
-    mask = None
-    if bool((live != nb * bs).any()):
-        mask = (torch.arange(nb * bs, device=q.device)[None, :]
-                < live[:, None])[:, None, None, :]
+    kpos = torch.arange(nb * bs, device=q.device)[None, None, :]
+    keep = kpos < live[:, None, None]                       # (B, 1, L)
+    if w > 1:
+        qpos = (pos[:, None] - w + torch.arange(w, device=q.device))[
+            :, :, None]
+        keep = keep & ((kpos <= qpos) | (pos > ring)[:, None, None])
+    mask = None if bool(keep.all()) else keep[:, None]
     return lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, enable_gqa=kv != h)
 
@@ -1185,10 +1238,14 @@ def near_tie_gap(w, kc, pc, bits) -> float:
     return float(((ek - ep).abs() / ep.abs()).max())
 
 
-def quantize_phase(dev, compare: bool = True) -> tuple[dict, dict]:
+def quantize_phase(dev, compare: bool = True, draft_bits: float | None = None
+                   ) -> tuple[dict, dict, dict | None]:
     """Build fp32 llama2-7b on the card, calibrate, allocate and quantize it
     with the code-search kernel (the main path, counted), then (``compare``)
-    quantize the same layers with the plain code search and compare."""
+    quantize the same layers with the plain code search and compare.  With
+    ``draft_bits`` the target and a draft at that budget come from
+    ``quantize_model_dual`` (one calibration, one set of signs; both
+    quantizations counted); returns (summary, target, draft or None)."""
     cfg = get_config("llama2-7b")
     t0 = time.monotonic()
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
@@ -1212,10 +1269,15 @@ def quantize_phase(dev, compare: bool = True) -> tuple[dict, dict]:
                           params, [{"tokens": toks}])
     torch.cuda.synchronize()
     calibrate_s = time.monotonic() - t0
-    qparams, rep = pipe.quantize_model(
-        cfg, params, stats, AVG_BITS,
-        generator=torch.Generator(device=dev).manual_seed(SEED + 1),
-        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    draft = None
+    if draft_bits is None:
+        qparams, rep = pipe.quantize_model(cfg, params, stats, AVG_BITS,
+                                           generator=gen, device=dev)
+    else:
+        qparams, rep, draft, drep = pipe.quantize_model_dual(
+            cfg, params, stats, AVG_BITS, draft_bits, generator=gen,
+            device=dev)
     launches = counts()["rabitq_quant"]
     peak = torch.cuda.max_memory_allocated()
     qls = quantized_linears(qparams)
@@ -1239,7 +1301,10 @@ def quantize_phase(dev, compare: bool = True) -> tuple[dict, dict]:
         f"{out['bits_histogram']}; packed codes {packed_gb:.3f} GB + side "
         f"info {side_gb:.3f} GB; code-search launches {launches}; peak "
         f"{out['peak_mem_gib']:.2f} GiB")
-    check(launches == rep.n_layers == cfg.n_layers * 6,
+    if draft is not None:
+        out["draft"] = draft_summary(qparams, draft, drep, draft_bits)
+    check(launches == rep.n_layers * (1 if draft is None else 2)
+          and rep.n_layers == cfg.n_layers * 6,
           f"code-search kernel launched {launches} times for "
           f"{rep.n_layers} layers")
     check(abs(rep.avg_bits - AVG_BITS) < 0.05 and rep.avg_bits <= AVG_BITS,
@@ -1252,7 +1317,37 @@ def quantize_phase(dev, compare: bool = True) -> tuple[dict, dict]:
             cfg, params, stats, rep, qls, dev)
     del params, stats
     torch.cuda.empty_cache()
-    return out, qparams
+    return out, qparams, draft
+
+
+def draft_summary(target, draft, drep, draft_bits) -> dict:
+    """The draft's report beside the target's, and the sharing the dual
+    quantization promises, checked: every quantized weight's signs are the
+    target's tensors, the fp leaves are shared, the draft's bits are
+    lower."""
+    tq, dq = quantized_linears(target), quantized_linears(draft)
+    hist = collections.Counter(drep.per_layer_bits.values())
+    out = {"avg_bits": drep.avg_bits, "requested_avg_bits": draft_bits,
+           "allocate_s": drep.allocate_s, "quantize_s": drep.quantize_s,
+           "wall_s": drep.wall_time_s,
+           "bits_histogram": {str(b): hist[b] for b in sorted(hist)},
+           "packed_gb": sum(q.packed.numel() for q in dq.values()) / 1e9,
+           "side_info_gb": sum(quant_bytes(q, QUANT_TENSORS[1:])
+                               for q in dq.values()) / 1e9}
+    log(f"draft quantize ({draft_bits} bits): allocate_s "
+        f"{drep.allocate_s:.2f}, quantize_s {drep.quantize_s:.2f}; achieved "
+        f"{drep.avg_bits:.4f} bits; widths {out['bits_histogram']}; packed "
+        f"codes {out['packed_gb']:.3f} GB + side info "
+        f"{out['side_info_gb']:.3f} GB")
+    check(set(tq) == set(dq) and all(
+        dq[n].signs1 is tq[n].signs1 and dq[n].signs2 is tq[n].signs2
+        for n in tq) and draft["embed"] is target["embed"]
+          and draft["lm_head"] is target["lm_head"],
+          "the draft does not share the target's rotation and fp leaves")
+    check(drep.avg_bits < draft_bits + 0.05 and drep.avg_bits <= draft_bits
+          and drep.avg_bits < AVG_BITS,
+          f"the draft achieved {drep.avg_bits} bits for {draft_bits}")
+    return out
 
 
 def quantize_plain_and_compare(cfg, params, stats, rep, qls, dev) -> dict:
@@ -1500,6 +1595,7 @@ def serve_four_ways(name, cfg, params, dev, pool, prompt_lens, labels=()
                                             prompt_lens, "eager")
     out["weights_only_bound_ms"] = decode_step_bound_ms(cfg, params, 0.0)
     out["eager"] = eager
+    out["request_tokens"] = token_lists(results)
     log_serve(name, "by graph", out, cfg)
     log_serve(name, "eager", eager, cfg)
     same = sum(np.array_equal(r.tokens, eager_results[rid].tokens)
@@ -1799,11 +1895,16 @@ def prefix_summary(engine, wall: float) -> dict:
     state after it; every block must be back (free or cached idle) with no
     reference left."""
     st, a = engine.stats, engine.allocator
+    if engine.speculate:
+        steps = {"spec_rounds": st["spec_rounds"],
+                 "ms_per_round": 1e3 * st["spec_s"] / st["spec_rounds"],
+                 "acceptance_rate": st["acceptance_rate"]}
+    else:
+        steps = {"decode_steps": st["decode_steps"],
+                 "decode_step_ms": 1e3 * st["decode_s"] / st["decode_steps"]}
     out = {"wall_s": wall, "prefill_s": st["prefill_s"],
            "prefill_chunks": st["prefill_chunks"],
-           "prefill_tokens": st["prefill_tokens"],
-           "decode_steps": st["decode_steps"],
-           "decode_step_ms": 1e3 * st["decode_s"] / st["decode_steps"],
+           "prefill_tokens": st["prefill_tokens"], **steps,
            "captures": dict(engine.graphs.captures),
            "chunk_lengths": sorted(k[2] for k in engine.graphs.steps
                                    if k[0] == "chunk"),
@@ -1840,6 +1941,11 @@ def serve_prefix(cfg, params, dev, pool) -> tuple:
                   for r in results.values()),
           "the prefix workload produced malformed output")
     return results, engine.gaps, out
+
+
+def token_lists(results) -> dict:
+    """rid -> the request's tokens as a list (JSON-ready)."""
+    return {rid: [int(t) for t in r.tokens] for rid, r in results.items()}
 
 
 def same_tokens(what: str, want: dict, got: dict, gaps: dict) -> None:
@@ -1944,6 +2050,7 @@ def prefix_phase(dev, params) -> dict:
         [Request(rid=-1, prompt=np.arange(16, dtype=np.int32), max_new=2)])
     out = {}
     base, gaps, out["on"] = serve_prefix(cfg, params, dev, prefix_pool())
+    out["on"]["request_tokens"] = token_lists(base)
     runs = {"off": (prefix_pool(prefix_cache=False), False),
             "on eager": (prefix_pool(), True)}
     need = request_blocks(cfg, prefix_pool(),
@@ -2022,6 +2129,429 @@ def prefix_phase(dev, params) -> dict:
     return out
 
 
+# ------------------------------------------------------------ speculation
+
+SPEC_K = 3               # draft tokens per round
+DRAFT_BITS = 2.2         # the draft's average bit budget
+SPEC_PROFILE_NEW = 192   # new tokens a profiled request asks for: rounds
+#   emit up to SPEC_K + 1 tokens, so the requests outlast the profile
+
+
+class SpecServer(GapRecordingServer):
+    """A ``GapRecordingServer``, speculating or not, that also records per
+    emitted token the MoE capacity overflows of the target step that
+    produced it (with ``overflow``, a 0-d device counter the target's
+    decode, verify and chunk steps add to; see ``moe.count_overflow``),
+    checks every copy-on-write clone in each arena it must copy (the
+    draft's too), and counts the GEMM launches of its rounds."""
+
+    def __init__(self, *a, overflow=None, **kw):
+        super().__init__(*a, **kw)
+        self.overflow = overflow
+        self.emit_overflow: dict = {}     # (rid, token index) -> overflows
+        self.step_overflow: list = []     # per decode step or round
+        self._emitted: list = []
+        self.cow_checked = 0
+
+    def _compiled(self, key, fn, inert):
+        counter = self.overflow           # the closure holds no engine
+        if counter is not None and key[0] in ("decode", "chunk", "verify"):
+            inner = fn
+
+            def fn(**inputs):
+                with moemod.count_overflow(counter):
+                    return inner(**inputs)
+        return super()._compiled(key, fn, inert)
+
+    def _overflows(self, decode: bool, fn, *a):
+        self._emitted = []
+        before = int(self.overflow) if self.overflow is not None else 0
+        out = fn(*a)
+        if self.overflow is not None:
+            n = int(self.overflow) - before
+            if decode:
+                self.step_overflow.append(n)
+            self.emit_overflow.update(dict.fromkeys(self._emitted, n))
+        return out
+
+    def _prefill_one(self, t0, results):
+        return self._overflows(False, super()._prefill_one, t0, results)
+
+    def _decode_once(self, t0, results):
+        return self._overflows(True, super()._decode_once, t0, results)
+
+    def _spec_decode_once(self, t0, results):
+        return self._overflows(True, self._count_gemms, "decode",
+                               super()._spec_decode_once, t0, results)
+
+    def _emit(self, st, tok, now):
+        self._emitted.append((st.req.rid, st.n_done))
+        super()._emit(st, tok, now)
+
+    def _cow(self, src, dst):
+        super()._cow(src, dst)
+        for cache in self.caches + (self.draft_caches or []):
+            for arena in cache.values():
+                check(torch.equal(arena[dst], arena[src]),
+                      f"the copy-on-write clone of block {src} into {dst} "
+                      f"missed an arena")
+                self.cow_checked += 1
+
+
+def arena_gib(engine) -> float:
+    return sum(a.numel() * a.element_size() for c in
+               engine.caches + (engine.draft_caches or [])
+               for a in c.values()) / 2**30
+
+
+def spec_serve(cfg, params, dev, pool, draft=None, reqs=None,
+               overflow=None) -> tuple:
+    """One run of ``reqs`` (default: the churn workload) on a fresh
+    ``SpecServer``, speculating SPEC_K deep when ``draft`` is given; the
+    peak memory is reset just before it."""
+    kw = {"draft_params": draft, "speculate": SPEC_K} if draft else {}
+    engine = SpecServer(cfg, params, pool, device=dev, overflow=overflow,
+                        **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    results = engine.run(reqs or requests(cfg))
+    torch.cuda.synchronize()
+    return engine, results, time.monotonic() - t0
+
+
+def spec_summary(engine, results, wall, n_requests) -> dict:
+    """A speculating run's numbers: acceptance, rounds, a request's tokens
+    per round, host ms per round (catch-up, draft steps, verify and the
+    host work between them, ending in the verify's logits), ms per token a
+    request receives (ms per round over its tokens per round: the number
+    to hold against plain decode's ms/step), prefill, captures, the graph
+    pool, peak memory and the arenas."""
+    st = engine.stats
+    check(len(results) == n_requests
+          and all(len(r.tokens) == GEN_LEN for r in results.values()),
+          "a speculating run produced malformed output")
+    rounds = st["spec_rounds"]
+    # every request's first token comes from its last prompt chunk
+    emitted = sum(len(r.tokens) for r in results.values()) - len(results)
+    # a request's tokens per round: each active slot proposes k a round
+    per_round = emitted / (st["spec_proposed"] / SPEC_K)
+    ms_round = 1e3 * st["spec_s"] / rounds
+    return {"wall_s": wall, "acceptance_rate": st["acceptance_rate"],
+            "spec_rounds": rounds, "spec_proposed": st["spec_proposed"],
+            "spec_accepted": st["spec_accepted"], "spec_emitted": emitted,
+            "tokens_per_round": per_round, "ms_per_round": ms_round,
+            "ms_per_emitted_token": ms_round / per_round,
+            "prefill_s": st["prefill_s"],
+            "prefill_chunks": st["prefill_chunks"],
+            "captures": dict(engine.graphs.captures),
+            "chunk_lengths": sorted(k[2] for k in engine.graphs.steps
+                                    if k[0] == "chunk"),
+            "capture_s": st["capture_s"],
+            "graph_pool_mib": st["graph_pool_bytes"] / 2**20,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "arena_gib": arena_gib(engine), "lookahead": engine.pool.lookahead,
+            "gemm_launches": engine.gemms, "launches": counts()}
+
+
+def same_as(what: str, want: dict, got: dict) -> None:
+    """Every request's tokens identical (both rid -> token list)."""
+    bad = sorted(rid for rid in want if got.get(rid) != want[rid])
+    check(not bad and set(want) == set(got),
+          f"{what}: tokens differ for requests {bad}")
+
+
+SPEC_SPREAD = ("ms_per_round", "ms_per_emitted_token", "prefill_s", "wall_s",
+               "capture_s")
+
+
+def spec_repeats(name, cfg, params, draft, dev, pool, base, mode,
+                 repeats) -> tuple:
+    """``repeats`` speculating runs of the churn workload in one mode, each
+    counted from zero; tokens identical to ``base`` (the spec-off graph
+    run's) and the first run's launches in every run."""
+    runs = []
+    for _ in range(repeats):
+        zero_counts()
+        with graphs.eager(mode == "eager"):
+            engine, results, wall = spec_serve(cfg, params, dev, pool, draft)
+        summ = spec_summary(engine, results, wall, len(base))
+        same_as(f"{name} {mode} against speculation off", base,
+                token_lists(results))
+        if runs:
+            check(summ["launches"] == runs[0]["launches"]
+                  and summ["spec_accepted"] == runs[0]["spec_accepted"],
+                  f"{name} {mode}: runs differ in launches or acceptance")
+        runs.append(summ)
+        del engine
+    out = dict(runs[0])
+    out["repeats"] = {k: [r[k] for r in runs] for k in SPEC_SPREAD}
+    return out
+
+
+def log_spec(name, mode, out) -> None:
+    rep = out["repeats"]
+    log(f"{name} {mode}: acceptance_rate {out['acceptance_rate']:.4f} "
+        f"({out['spec_accepted']}/{out['spec_proposed']}); "
+        f"{out['spec_rounds']} rounds, {out['tokens_per_round']:.3f} tokens "
+        f"per round; ms/round {spread(rep['ms_per_round'])}; ms per emitted "
+        f"token {spread(rep['ms_per_emitted_token'])}; prefill_s "
+        f"{spread(rep['prefill_s'])} over {out['prefill_chunks']} chunks "
+        f"(target + draft); captures {out['captures']} in "
+        f"{spread(rep['capture_s'])} s; graph pool "
+        f"{out['graph_pool_mib']:.1f} MiB; peak {out['peak_mem_gib']:.2f} "
+        f"GiB with {out['arena_gib']:.2f} GiB of arenas (both models); "
+        f"lookahead {out['lookahead']}; launches {out['launches']}")
+
+
+def spec_captures(cfg, pool, prompt_lens) -> dict:
+    """The captures a speculating graph run of ``prompt_lens`` must make:
+    one catch-up, one draft step, one verify, each chunk length the
+    engine's prefill takes (capped by the ring, which holds
+    ``lookahead`` = SPEC_K more tokens) for the target and the draft, no
+    decode step."""
+    pool = dataclasses.replace(pool, lookahead=SPEC_K)
+    lengths = set()
+    for n in prompt_lens:
+        ring = request_blocks(cfg, pool, n + GEN_LEN) * pool.block_size
+        s = 0
+        while s < n:
+            lengths.add(min(pool.prefill_chunk, n - s, ring))
+            s += min(pool.prefill_chunk, n - s, ring)
+    return {"catchup": 1, "draft": 1, "verify": 1, "chunk": len(lengths),
+            "draft_chunk": len(lengths)}
+
+
+def profile_spec(cfg, params, draft, dev, pool) -> dict:
+    """Where a round's time goes, by graph: 8 requests (prompt 128,
+    SPEC_PROFILE_NEW new tokens) admitted and prefilled, then 8 rounds on
+    the host clock and 8 under torch.profiler (``profile_steps``)."""
+    engine = PagedServer(cfg, params, pool, draft_params=draft,
+                         speculate=SPEC_K, device=dev)
+    rng = np.random.default_rng(SEED + 1)
+    for i in range(pool.max_slots):
+        engine.submit(Request(rid=100 + i, max_new=SPEC_PROFILE_NEW,
+                              prompt=rng.integers(0, cfg.vocab, 128).astype(
+                                  np.int32)))
+    for _ in range(pool.max_slots * 128 // pool.prefill_chunk):
+        engine.step()
+    rounds = engine.stats["spec_rounds"]
+    out = profile_steps(engine, 8)
+    check(len(engine._active) == pool.max_slots and not engine._prefilling
+          and engine.stats["spec_rounds"] == rounds + 16,
+          "the round profile ran something other than full rounds")
+    log(f"round profile: {json.dumps(out)}")
+    return out
+
+
+def spec_phase(dev, params, draft, base, prefix_base, plain_ms,
+               plain_peak) -> dict:
+    """Self-speculative decoding on full-width llama2-7b (k = SPEC_K):
+
+      (a) the churn workload with draft = target (every proposal accepted:
+          the bonus token and the catch-up hole every round) and with the
+          DRAFT_BITS draft, each REPEATS times by graph and once eager;
+          tokens identical to ``base`` (phase 5's spec-off graph run), the
+          launches of graph and eager runs equal; a round profiled by
+          graph;
+      (b) the prefix workload, cache on, with the draft: tokens identical
+          to ``prefix_base`` (phase 7's cache-on run); the COW request's
+          clone checked in both arenas, captured once;
+      (c) bf16 arenas, speculation off and on, by graph and eager: graph =
+          eager and on = off exactly.
+
+    ``plain_ms`` and ``plain_peak`` are phase 5's median decode ms/step
+    and peak memory, spec off, f32 arenas."""
+    cfg = get_config("llama2-7b")
+    pool = llama2_pool()
+    out = {"k": SPEC_K, "plain_decode_ms_per_step": plain_ms}
+    for name, d in (("draft=target", params), ("draft", draft)):
+        graph = spec_repeats(name, cfg, params, d, dev, pool, base, "graph",
+                             REPEATS)
+        eager = spec_repeats(name, cfg, params, d, dev, pool, base, "eager",
+                             1)
+        graph["eager"] = eager
+        log_spec(f"llama2 spec {name}", "by graph", graph)
+        log_spec(f"llama2 spec {name}", "eager", eager)
+        check(graph["captures"] == spec_captures(cfg, pool, PROMPT_LENS)
+              and not eager["captures"],
+              f"spec {name}: captures graph {graph['captures']}, eager "
+              f"{eager['captures']}")
+        check(graph["launches"] == eager["launches"],
+              f"spec {name}: graph launches {graph['launches']} != eager "
+              f"{eager['launches']}")
+        check(graph["lookahead"] == SPEC_K, f"lookahead {graph['lookahead']}")
+        out[name] = graph
+    check(out["draft=target"]["acceptance_rate"] == 1.0,
+          "draft = target did not accept every proposal")
+    out["draft"]["round_profile"] = profile_spec(cfg, params, draft, dev,
+                                                 pool)
+    for name in ("draft=target", "draft"):
+        per_token = float(np.median(out[name]["repeats"][
+            "ms_per_emitted_token"]))
+        out[name]["against_plain_decode"] = per_token / plain_ms
+        log(f"llama2 spec {name}: {per_token:.3f} ms per emitted token "
+            f"against plain decode's {plain_ms:.3f} ms/step "
+            f"({per_token / plain_ms:.3f}x); {gpu_line()}")
+
+    # (b) the prefix workload with the cache on, speculating
+    zero_counts()
+    ppool = prefix_pool()
+    reqs = prefix_requests(cfg)
+    engine = SpecServer(cfg, params, ppool, draft_params=draft,
+                        speculate=SPEC_K, device=dev)
+    t0 = time.monotonic()
+    results = engine.run(reqs)
+    results.update(engine.run([second_turn(
+        cfg, reqs[0], np.asarray(prefix_base[0], np.int32))]))
+    torch.cuda.synchronize()
+    pre = prefix_summary(engine, time.monotonic() - t0)
+    same_as("prefix + speculation against prefix, spec off", prefix_base,
+            token_lists(results))
+    check(pre["prefix_cow"] >= 1 and pre["captures"].get("cow") == 1
+          and engine.cow_checked == pre["prefix_cow"] * 4 * cfg.n_layers
+          and pre["prefill_tokens_saved"] > 0
+          and "decode" not in pre["captures"],
+          f"prefix + speculation: {pre}; {engine.cow_checked} arenas checked")
+    pre["cow_arenas_checked"] = engine.cow_checked
+    out["prefix"] = pre
+    log(f"llama2 spec prefix (cache on, draft {DRAFT_BITS} bits): "
+        f"{json.dumps(pre)}")
+    del engine
+
+    # (c) bf16 arenas, spec off and on, by graph and eager
+    bpool = dataclasses.replace(pool, kv_dtype=torch.bfloat16)
+    bf16 = {}
+    for spec in (False, True):
+        for mode in ("graph", "eager"):
+            zero_counts()
+            with graphs.eager(mode == "eager"):
+                eng, res, wall = spec_serve(cfg, params, dev, bpool,
+                                            draft if spec else None)
+            row = {"wall_s": wall, "request_tokens": token_lists(res),
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "arena_gib": arena_gib(eng), "launches": counts(),
+                   "captures": dict(eng.graphs.captures),
+                   "gemm_launches": eng.gemms}
+            if spec:
+                row.update({k: v for k, v in spec_summary(
+                    eng, res, wall, len(base)).items() if k in (
+                        "acceptance_rate", "spec_rounds", "ms_per_round",
+                        "ms_per_emitted_token", "tokens_per_round")})
+            else:
+                row["decode_step_ms"] = (1e3 * eng.stats["decode_s"]
+                                         / eng.stats["decode_steps"])
+            check(all(a.dtype == torch.bfloat16 for c in
+                      eng.caches + (eng.draft_caches or [])
+                      for a in c.values()), "an arena is not bf16")
+            bf16[f"{'on' if spec else 'off'} {mode}"] = row
+            del eng
+    off = bf16["off graph"]["request_tokens"]
+    for key, row in bf16.items():
+        same_as(f"bf16 {key} against bf16 off by graph", off,
+                row["request_tokens"])
+    bf16["identical_to_f32_off"] = sum(off[rid] == toks
+                                       for rid, toks in base.items())
+    bf16["f32_peak_mem_gib"] = {"off": plain_peak,
+                                "on": out["draft"]["peak_mem_gib"]}
+    bf16["f32_arena_gib_on"] = out["draft"]["arena_gib"]
+    out["bf16"] = bf16
+    log(f"llama2 bf16 KV: " + json.dumps(
+        {k: ({kk: vv for kk, vv in v.items() if kk != "request_tokens"}
+             if isinstance(v, dict) else v)
+         for k, v in bf16.items()}) + f"; {gpu_line()}")
+    return out
+
+
+def moe_spec_phase(dev, params, draft, base) -> dict:
+    """Mixtral (4 of 32 layers) speculating SPEC_K deep from its DRAFT_BITS
+    draft over its 9 requests (the 4160-token one wraps its ring, which
+    holds window + lookahead tokens): spec off and on by graph, the
+    target's MoE capacity overflows counted per step, on eagerly too.
+    Spec off must give ``base`` (phase 6's graph tokens: the counter
+    changes nothing); on = off except where a step of either run that
+    produced the first differing token dropped tokens at capacity (a
+    verify step routes S (k + 1) tokens, a decode step S, so the
+    capacities differ); two graph runs and an eager one exactly equal."""
+    cfg = moe_config()
+    pool = moe_pool()
+    reqs = requests(cfg, MOE_PROMPT_LENS)
+    counter = torch.zeros((), dtype=torch.int64, device=dev)
+    zero_counts()
+    off, off_res, _ = spec_serve(cfg, params, dev, pool, reqs=reqs,
+                                 overflow=counter)
+    same_as("mixtral spec off with overflows counted, against phase 6",
+            base, token_lists(off_res))
+    zero_counts()
+    on, on_res, wall = spec_serve(cfg, params, dev, pool, draft, reqs=reqs,
+                                  overflow=counter)
+    out = spec_summary(on, on_res, wall, len(reqs))
+    zero_counts()
+    again, again_res, again_wall = spec_serve(cfg, params, dev, pool, draft,
+                                              reqs=reqs)
+    out["again"] = spec_summary(again, again_res, again_wall, len(reqs))
+    same_as("mixtral spec by graph, a second run", token_lists(on_res),
+            token_lists(again_res))
+    zero_counts()
+    with graphs.eager():
+        eager, eager_res, eager_wall = spec_serve(cfg, params, dev, pool,
+                                                  draft, reqs=reqs)
+    out["eager"] = spec_summary(eager, eager_res, eager_wall, len(reqs))
+    same_as("mixtral spec eager against by graph", token_lists(on_res),
+            token_lists(eager_res))
+    check(out["spec_accepted"] == out["again"]["spec_accepted"]
+          == out["eager"]["spec_accepted"],
+          "mixtral spec: the runs accepted different proposals")
+    check(out["launches"] == out["eager"]["launches"],
+          f"mixtral spec: graph launches {out['launches']} != eager "
+          f"{out['eager']['launches']}")
+    check(out["captures"] == spec_captures(cfg, pool, MOE_PROMPT_LENS)
+          and not out["eager"]["captures"] and out["lookahead"] == SPEC_K
+          and on.pool.lookahead == SPEC_K,
+          f"mixtral spec: captures {out['captures']}, lookahead "
+          f"{out['lookahead']}")
+    ring = request_blocks(cfg, on.pool, MOE_LONG_PROMPT + GEN_LEN) * 16
+    check(MOE_LONG_PROMPT + GEN_LEN > ring,
+          f"the long request does not wrap its {ring}-token ring")
+    diverged = []
+    for rid, r in off_res.items():
+        a, b = r.tokens, on_res[rid].tokens
+        if np.array_equal(a, b):
+            continue
+        i = int(np.argmax(a != b))
+        drops = (off.emit_overflow.get((rid, i), 0),
+                 on.emit_overflow.get((rid, i), 0))
+        diverged.append({"rid": rid, "token": i, "overflow_off": drops[0],
+                         "overflow_on": drops[1]})
+        check(max(drops) > 0, f"mixtral rid {rid}: speculation changed "
+              f"token {i} at steps that dropped no token at capacity")
+
+    def drops(steps):
+        return {"steps": len(steps), "with_overflow": sum(
+            n > 0 for n in steps), "mean": float(np.mean(steps)),
+                "max": int(max(steps)), "per_step": steps}
+    out.update(ring_tokens=ring, identical_to_off=len(reqs) - len(diverged),
+               divergences=diverged,
+               overflow_off=drops(off.step_overflow),
+               overflow_on=drops(on.step_overflow))
+    off_drops, on_drops = ({k: v for k, v in out[key].items()
+                            if k != "per_step"}
+                           for key in ("overflow_off", "overflow_on"))
+    log(f"mixtral spec (draft {DRAFT_BITS} bits, k {SPEC_K}): acceptance_rate "
+        f"{out['acceptance_rate']:.4f}; {out['spec_rounds']} rounds, "
+        f"{out['tokens_per_round']:.3f} tokens/round, "
+        f"{out['ms_per_round']:.3f} ms/round (eager "
+        f"{out['eager']['ms_per_round']:.3f}), "
+        f"{out['ms_per_emitted_token']:.3f} ms per emitted token; tokens "
+        f"identical to spec off for {out['identical_to_off']}/{len(reqs)}, "
+        f"divergences {diverged}; capacity overflows per step off "
+        f"{off_drops}, per round on {on_drops}; captures {out['captures']}; lookahead {out['lookahead']}, ring "
+        f"{ring} tokens; peak {out['peak_mem_gib']:.2f} GiB with "
+        f"{out['arena_gib']:.2f} GiB of arenas; launches {out['launches']}; "
+        f"{gpu_line()}")
+    return out
+
+
 # ------------------------------------------------------------------ Mixtral
 
 
@@ -2033,12 +2563,15 @@ def moe_config():
 MOE_PROMPT_LENS = PROMPT_LENS + [MOE_LONG_PROMPT]
 
 
-def moe_quantize_phase(dev, compare: bool = True) -> tuple[dict, dict]:
+def moe_quantize_phase(dev, compare: bool = True,
+                       draft_bits: float | None = None
+                       ) -> tuple[dict, dict, dict | None]:
     """fp32 Mixtral (4 layers, published widths) on the card, calibrated,
     allocated (4.0 bits) and quantized, the experts as QuantizedGrouped with
     one code-search launch per expert (the main path, counted); then
     (``compare``) the same weights again with the plain code search,
-    compared column by column.  The fp weights are dropped after."""
+    compared column by column.  With ``draft_bits``, a draft too, as
+    ``quantize_phase`` makes it.  The fp weights are dropped after."""
     cfg = moe_config()
     t0 = time.monotonic()
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(
@@ -2069,10 +2602,15 @@ def moe_quantize_phase(dev, compare: bool = True) -> tuple[dict, dict]:
           and all(np.isfinite(st.alpha) and st.alpha > 0
                   for st in stats.values()),
           f"calibration: grouped taps {grouped} or a bad alpha")
-    qparams, rep = pipe.quantize_model(
-        cfg, params, stats, AVG_BITS,
-        generator=torch.Generator(device=dev).manual_seed(SEED + 3),
-        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    draft = None
+    if draft_bits is None:
+        qparams, rep = pipe.quantize_model(cfg, params, stats, AVG_BITS,
+                                           generator=gen, device=dev)
+    else:
+        qparams, rep, draft, drep = pipe.quantize_model_dual(
+            cfg, params, stats, AVG_BITS, draft_bits, generator=gen,
+            device=dev)
     launches = counts()["rabitq_quant"]
     peak = torch.cuda.max_memory_allocated()
     qls = quantized_linears(qparams)
@@ -2098,6 +2636,9 @@ def moe_quantize_phase(dev, compare: bool = True) -> tuple[dict, dict]:
         f"{rep.per_layer_bits}; packed codes {out['packed_gb']:.3f} GB + side "
         f"info {out['side_info_gb']:.4f} GB; code-search launches {launches};"
         f" peak {out['peak_mem_gib']:.2f} GiB")
+    if draft is not None:
+        out["draft"] = draft_summary(qparams, draft, drep, draft_bits)
+        expected_searches *= 2
     check(rep.n_layers == n_entries and launches == expected_searches,
           f"mixtral: {rep.n_layers} weights quantized with {launches} code "
           f"searches, expected {n_entries} and {expected_searches}")
@@ -2112,7 +2653,7 @@ def moe_quantize_phase(dev, compare: bool = True) -> tuple[dict, dict]:
             cfg, params, stats, rep, qls, dev)
     del params, stats
     torch.cuda.empty_cache()
-    return out, qparams
+    return out, qparams, draft
 
 
 def moe_pool():
@@ -2173,9 +2714,11 @@ def moe_serve_phase(dev, params) -> dict:
 # ------------------------------------------------------------ dense configs
 
 DENSE_ARCHS = ("internlm2-1.8b", "llama3.2-3b", "qwen3-0.6b", "yi-34b")
-# yi-34b's fp32 weights (2.2 GB a layer over 60 layers) exceed the card's
-# 80 GB, so its depth is cut; the other three are served at full depth
-DENSE_CUT = {"yi-34b": 4}
+# every dense config's depth is cut to 4 layers (widths as published): the
+# script's 1200 s limit holds the speculation phase beside them (at full
+# depth the three small configs took 164 s of a 588 s run); yi-34b's fp32
+# weights (2.2 GB a layer over 60 layers) would exceed the card's 80 GB
+DENSE_LAYERS = 4
 DENSE_PROMPT_LENS = [64, 200, 128, 96]
 
 
@@ -2187,7 +2730,7 @@ def dense_pool() -> PoolConfig:
 
 def dense_phase(dev) -> dict:
     """The four dense GQA configs the port's registry adds, each at its
-    published width and depth (cut as DENSE_CUT says): fp32 random weights
+    published width, the depth cut to DENSE_LAYERS: fp32 random weights
     from a seed,
     calibrated, allocated (4.0 bits) and quantized with the code-search
     kernel (counted), the fp weights dropped, then DENSE_PROMPT_LENS
@@ -2198,8 +2741,7 @@ def dense_phase(dev) -> dict:
     out = {}
     for arch in DENSE_ARCHS:
         cfg = get_config(arch)
-        if arch in DENSE_CUT:
-            cfg = cfg.with_(n_layers=DENSE_CUT[arch])
+        cfg = cfg.with_(n_layers=DENSE_LAYERS)
         t0 = time.monotonic()
         params = tf.init_params(
             cfg, torch.Generator(device=dev).manual_seed(SEED + 5), device=dev)
@@ -2314,7 +2856,7 @@ def profiles_main(dev, smi) -> int:
              llama2_pool, ()),
             ("mixtral", moe_quantize_phase, moe_config, moe_pool,
              MOE_PREFILL_LABELS)):
-        _, qparams = phase(dev, compare=False)
+        _, qparams, _ = phase(dev, compare=False)
         for mode in ("graph", "eager"):
             with graphs.eager(mode == "eager"):
                 for kind, profile in (("decode", profile_decode),
@@ -2409,11 +2951,58 @@ def prefix_main(dev, smi) -> int:
     ``prefix_phase``; prints one JSON line (also written to
     ``chiprun_out/chip_smoke_prefix.json``)."""
     _build.build()
-    _, qparams = quantize_phase(dev, compare=False)
+    _, qparams, _ = quantize_phase(dev, compare=False)
     out = {"gpu": smi, "prefix_cache": prefix_phase(dev, qparams)}
     (OUT_DIR / "chip_smoke_prefix.json").write_text(json.dumps(out, indent=1))
     log(json.dumps(out))
     return 0
+
+
+def spec_main(dev, smi) -> int:
+    """``--speculation``: build every kernel, quantize llama2-7b with its
+    DRAFT_BITS draft (``quantize_model_dual``, without the plain
+    code-search comparison), serve the churn workload once by graph with
+    speculation off and the prefix workload with the cache on (the tokens
+    speculation is held to), then ``spec_phase``; the same for Mixtral
+    (one spec-off graph run, then ``moe_spec_phase``).  Prints one JSON
+    line (also ``chiprun_out/chip_smoke_spec.json``)."""
+    _build.build()
+    cfg = get_config("llama2-7b")
+    quant, qparams, draft = quantize_phase(dev, compare=False,
+                                           draft_bits=DRAFT_BITS)
+    zero_counts()
+    eng, res, _ = serve(cfg, qparams, dev, llama2_pool())
+    plain_ms = 1e3 * eng.stats["decode_s"] / eng.stats["decode_steps"]
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    del eng
+    prefix_base, _, _ = serve_prefix(cfg, qparams, dev, prefix_pool())
+    out = {"gpu": smi, "quantize": quant,
+           "speculation": spec_phase(dev, qparams, draft, token_lists(res),
+                                     token_lists(prefix_base), plain_ms,
+                                     plain_peak)}
+    del qparams, draft
+    torch.cuda.empty_cache()
+    moe_quant, moe_params, moe_draft = moe_quantize_phase(
+        dev, compare=False, draft_bits=DRAFT_BITS)
+    zero_counts()
+    _, moe_res, _ = serve(moe_config(), moe_params, dev, moe_pool(),
+                          prompt_lens=MOE_PROMPT_LENS)
+    out["mixtral_quantize"] = moe_quant
+    out["mixtral_speculation"] = moe_spec_phase(dev, moe_params, moe_draft,
+                                                token_lists(moe_res))
+    (OUT_DIR / "chip_smoke_spec.json").write_text(json.dumps(out, indent=1))
+    log(json.dumps(compact(out)))
+    return 0
+
+
+def compact(node):
+    """``node`` without its token lists, per-step lists and profiles (for
+    a line short enough for the end of the output)."""
+    if isinstance(node, dict):
+        return {k: compact(v) for k, v in node.items() if k not in (
+            "request_tokens", "per_step", "round_profile", "decode_profile",
+            "prefill_profile", "per_layer_bits")}
+    return node
 
 
 def main() -> int:
@@ -2435,6 +3024,8 @@ def main() -> int:
         return redesign_main(modes, smi)
     if sys.argv[1:] == ["--prefix-cache"]:
         return prefix_main(dev, smi)
+    if sys.argv[1:] == ["--speculation"]:
+        return spec_main(dev, smi)
     if modes:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2492,14 +3083,21 @@ def main() -> int:
             log(f"{name} time {json.dumps(t)}")
     torch.cuda.empty_cache()
 
-    quant_out, qparams = quantize_phase(dev)
+    quant_out, qparams, draft = quantize_phase(dev, draft_bits=DRAFT_BITS)
     serve_out = serve_phase(dev, qparams)
     prefix_out = prefix_phase(dev, qparams)
-    del qparams
+    spec_out = spec_phase(dev, qparams, draft, serve_out["request_tokens"],
+                          prefix_out["on"]["request_tokens"],
+                          float(np.median(serve_out["repeats"][
+                              "decode_step_ms"])), serve_out["peak_mem_gib"])
+    del qparams, draft
     torch.cuda.empty_cache()
-    moe_quant, moe_params = moe_quantize_phase(dev)
+    moe_quant, moe_params, moe_draft = moe_quantize_phase(
+        dev, draft_bits=DRAFT_BITS)
     moe_serve = moe_serve_phase(dev, moe_params)
-    del moe_params
+    moe_spec = moe_spec_phase(dev, moe_params, moe_draft,
+                              moe_serve["request_tokens"])
+    del moe_params, moe_draft
     torch.cuda.empty_cache()
     dense_out = dense_phase(dev)
 
@@ -2507,8 +3105,11 @@ def main() -> int:
     # zeroed just before it: the quantize run (the code search), the fused
     # serve run, the unfused serve run (the RHT and the unfused GEMMs);
     # the prefix path is the shared-prefix workload with the cache on, by
-    # graph (it reuses llama2's quantization and runs fused only); each
-    # dense config counts its own quantization, fused and unfused runs
+    # graph (it reuses llama2's quantization and runs fused only); the
+    # speculation paths are the first graph run with the DRAFT_BITS draft
+    # (llama2, Mixtral; their quantizations are counted with the targets')
+    # and the bf16-arena path llama2's spec-off graph run; each dense
+    # config counts its own quantization, fused and unfused runs
     none = dict.fromkeys(counts(), 0)
     runs = {"llama2": {"quantize": quant_out["code_search_launches"],
                        "fused": serve_out["launches"],
@@ -2518,7 +3119,15 @@ def main() -> int:
                         "unfused": moe_serve["unfused"]["launches"]},
             "llama2_prefix": {"quantize": 0,
                               "fused": prefix_out["on"]["launches"],
-                              "unfused": none}}
+                              "unfused": none},
+            "llama2_spec": {"quantize": 0,
+                            "fused": spec_out["draft"]["launches"],
+                            "unfused": none},
+            "llama2_bf16": {"quantize": 0,
+                            "fused": spec_out["bf16"]["off graph"][
+                                "launches"], "unfused": none},
+            "mixtral_spec": {"quantize": 0, "fused": moe_spec["launches"],
+                             "unfused": none}}
     runs.update({arch: {"quantize": row["code_search_launches"],
                         "fused": row["graph"]["launches"],
                         "unfused": row["unfused"]["launches"]}
@@ -2532,15 +3141,16 @@ def main() -> int:
             return {path: r["fused"][kernel] + r["unfused"][kernel]
                     for path, r in runs.items()}
         return {path: r[run][kernel] for path, r in runs.items()}
+    spec = ("llama2_spec", "llama2_bf16", "mixtral_spec")
     on_path = {  # kernel -> (run that counts it, paths that must launch it)
         "rht_qmatmul": ("fused", ("llama2", "mixtral", "llama2_prefix",
-                                  *dense)),
+                                  *spec, *dense)),
         "paged_attention": ("fused", ("llama2", "mixtral", "llama2_prefix",
-                                      *dense)),
+                                      *spec, *dense)),
         "qmatmul": ("unfused", ("llama2", "mixtral", *dense)),
         "rht": ("unfused", ("llama2", "mixtral", *dense)),
         "rabitq_quant": ("quantize", ("llama2", "mixtral", *dense)),
-        "grouped_rht_qmatmul": ("fused", ("mixtral",)),
+        "grouped_rht_qmatmul": ("fused", ("mixtral", "mixtral_spec")),
         "grouped_qmatmul": ("unfused", ("mixtral",)),
         "flash_attention": ("fused", ()),
     }
@@ -2553,6 +3163,9 @@ def main() -> int:
                  ("fused", serve_r), ("unfused", serve_r["unfused"]))}
              for path, serve_r in (("llama2", serve_out),
                                    ("mixtral", moe_serve))}
+    gemms.update({"llama2_spec": {"fused": spec_out["draft"][
+                      "gemm_launches"]},
+                  "mixtral_spec": {"fused": moe_spec["gemm_launches"]}})
     check(all(run["prefill"] and run["decode"] for by_run in gemms.values()
               for run in by_run.values()),
           f"the prefill chunks or the decode steps did not reach the GEMM "
@@ -2658,8 +3271,11 @@ def main() -> int:
               "flash_times": flash_times,
               "gemm_check": gemm_worst, "mixtral_quantize": moe_quant,
               "mixtral_serve": moe_serve, "prefix_cache": prefix_out,
-              "dense_configs": dense_out, "kernels": kernels}
+              "speculation": spec_out, "mixtral_speculation": moe_spec,
+              "dense_configs": dense_out, "kernels": kernels,
+              "seconds": time.monotonic() - T_START}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    log(f"chip_smoke: {detail['seconds']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -22,6 +22,12 @@ like any other subtree.
 The caller flattens a JAX tree into that form (``numpy.asarray`` on every
 array, a dict per ``QuantizedLinear``); the result is the port's param
 dict with ``layers`` as a list of per-layer dicts on ``device``.
+
+``draft_from_reference`` carries the draft of the reference's
+``quantize_model_dual`` pair across beside its converted target, with the
+sharing the dual quantization promises: the draft's sign tensors are the
+target's (``pipeline._alias_rotation``) and its full-precision leaves are
+the target's tensors.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.pipeline import _alias_rotation
 from repro_torch.core.qlinear import QuantizedGrouped, QuantizedLinear
 
 QL_TENSORS = ("packed", "rescale", "signs1", "signs2", "mean_col", "w_out",
@@ -102,3 +109,43 @@ def params_from_reference(tree: dict, device=None) -> dict:
             "layers": [_convert(lp, dev) for lp in per_layer],
             "final_norm": _convert(tree["final_norm"], dev),
             "lm_head": _convert(tree["lm_head"], dev)}
+
+
+def _share_leaves(t, d):
+    """``d`` with each full-precision tensor replaced by ``t``'s, which must
+    hold the same values; quantized weights are kept."""
+    if isinstance(d, dict):
+        return {k: _share_leaves(t[k], v) for k, v in d.items()}
+    if isinstance(d, list):
+        return [_share_leaves(a, b) for a, b in zip(t, d)]
+    if isinstance(d, torch.Tensor):
+        if not torch.equal(t, d):
+            raise ValueError("the draft's full-precision leaves differ from "
+                             "the target's: not a dual quantization pair")
+        return t
+    return d
+
+
+def draft_from_reference(target: dict, draft_tree: dict, device=None) -> dict:
+    """The port's draft params from the draft half of a reference
+    ``quantize_model_dual`` pair, beside ``target`` (the port's conversion
+    of the target half): full-precision leaves shared with ``target``, and
+    every quantized weight's signs aliased to the target's tensors."""
+    draft = _share_leaves(target, params_from_reference(draft_tree, device))
+    for t, d in zip(target["layers"], draft["layers"]):
+        for tq, dq in _quantized_pairs(t, d):
+            if not (torch.equal(tq.signs1, dq.signs1)
+                    and (tq.signs2 is None) == (dq.signs2 is None)
+                    and (tq.signs2 is None
+                         or torch.equal(tq.signs2, dq.signs2))):
+                raise ValueError("the draft's rotation differs from the "
+                                 "target's: not a dual quantization pair")
+    return _alias_rotation(target, draft)
+
+
+def _quantized_pairs(t, d):
+    if isinstance(d, (QuantizedLinear, QuantizedGrouped)):
+        yield t, d
+    elif isinstance(d, dict):
+        for k, v in d.items():
+            yield from _quantized_pairs(t[k], v)

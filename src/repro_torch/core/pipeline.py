@@ -15,11 +15,18 @@ in the same entry order (a grouped weight: ``draw_signs(d)``, shared by its
 experts), or takes them from ``signs`` (name -> (signs1, signs2)) — how
 the parity tests pass the reference's signs in.
 
-Not ported yet: ``quantize_model_dual`` (speculation, ROADMAP Queue 1 item
-4) and ``quantize_params_uniform`` (dry-run tooling, item 10).
+``quantize_model_dual`` quantizes the same weights twice from one
+calibration, a target and a low-bit draft for self-speculative decoding.
+The reference passes one PRNG key to both runs so the signs come out
+equal; torch cannot replay a ``jax.random`` stream, so the port draws the
+signs once (``draw_model_signs``) and passes the same dict to both.
+
+Not ported yet: ``quantize_params_uniform`` (dry-run tooling, ROADMAP
+Queue 1 item 10).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 
@@ -31,7 +38,8 @@ from repro_torch.models.config import ModelConfig
 
 from . import allocate as alloc
 from .calibrate import LayerStat
-from .qlinear import draw_signs, quantize_grouped, quantize_linear
+from .qlinear import (QuantizedGrouped, QuantizedLinear, draw_signs,
+                      quantize_grouped, quantize_linear)
 
 QUANTIZABLE_2D = {"wq", "wk", "wv", "wo", "wi", "swi", "swo", "ck", "cv",
                   "cr", "wr", "wg", "wq_a", "wq_b", "wkv_a"}
@@ -74,6 +82,37 @@ def _copy_dicts(node):
     if isinstance(node, dict):
         return {k: _copy_dicts(v) for k, v in node.items()}
     return node
+
+
+def _entries(params: dict) -> list:
+    """(name, layer index, path, kind, shape) of every quantizable weight,
+    in the order the allocation and the signs take them."""
+    entries = []
+    for i, lp in enumerate(params["layers"]):
+        for path, kind in _walk_layer(lp):
+            entries.append((f"L{i}." + ".".join(path), i, path, kind,
+                            tuple(_get(lp, path).shape)))
+    return entries
+
+
+def draw_model_signs(params: dict, stats: dict[str, LayerStat], *,
+                     generator: torch.Generator,
+                     outlier_frac: float = 0.003,
+                     signs: dict | None = None) -> dict:
+    """name -> (signs1, signs2) for every quantizable weight: taken from
+    ``signs`` where it names the weight, else drawn from ``generator`` in
+    entry order for the width the weight keeps after its outlier split."""
+    out = {}
+    for name, _, _, kind, shape in _entries(params):
+        if signs is not None and name in signs:
+            out[name] = signs[name]
+            continue
+        frac = (outlier_frac if kind == "linear" and stats.get(name)
+                is not None else 0.0)
+        d = shape[-2]
+        k = int(np.ceil(frac * d)) if frac > 0 else 0
+        out[name] = draw_signs(d - k, generator)
+    return out
 
 
 @dataclass
@@ -120,12 +159,9 @@ def quantize_model(cfg: ModelConfig, params: dict,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
 
-    entries = []  # (name, layer index, path, kind, shape)
-    for i, lp in enumerate(params["layers"]):
-        for path, kind in _walk_layer(lp):
-            name = f"L{i}." + ".".join(path)
-            entries.append((name, i, path, kind,
-                            tuple(_get(lp, path).shape)))
+    entries = _entries(params)
+    signs = draw_model_signs(params, stats, generator=generator,
+                             outlier_frac=outlier_frac, signs=signs)
 
     ms, alphas, overheads = [], [], []
     for name, _, _, kind, shape in entries:
@@ -155,12 +191,7 @@ def quantize_model(cfg: ModelConfig, params: dict,
         x_col = (np.sqrt(np.maximum(st.x_col_sq, 0.0))
                  if st is not None and kind == "linear" else None)
         frac = outlier_frac if x_col is not None else 0.0
-        if signs is not None and name in signs:
-            s1, s2 = signs[name]
-        else:
-            d = shape[-2]
-            k = int(np.ceil(frac * d)) if frac > 0 else 0
-            s1, s2 = draw_signs(d - k, generator)
+        s1, s2 = signs[name]
         if kind == "grouped":
             q = quantize_grouped(w, bits, s1, s2, n_candidates=n_candidates,
                                  device=dev)
@@ -189,3 +220,47 @@ def quantize_model(cfg: ModelConfig, params: dict,
         allocate_s=allocate_s,
         quantize_s=quantize_s)
     return qparams, report
+
+
+def _alias_rotation(tq: dict, dq: dict) -> dict:
+    """``dq`` with every quantized weight's sign vectors replaced by the
+    same tensors of ``tq`` (equal in value already): the rotation is held
+    once, and the sharing can be checked by identity."""
+    def share(t, d):
+        if isinstance(d, (QuantizedLinear, QuantizedGrouped)):
+            return dataclasses.replace(d, signs1=t.signs1, signs2=t.signs2)
+        if isinstance(d, dict):
+            return {k: share(t[k], v) for k, v in d.items()}
+        return d
+    out = dict(dq)
+    out["layers"] = [share(t, d) for t, d in zip(tq["layers"], dq["layers"])]
+    return out
+
+
+def quantize_model_dual(cfg: ModelConfig, params: dict,
+                        stats: dict[str, LayerStat], avg_bits: float,
+                        draft_avg_bits: float, *,
+                        generator: torch.Generator | None = None,
+                        signs: dict | None = None,
+                        outlier_frac: float = 0.003, device=None, **kwargs):
+    """Self-speculative pair from one calibration: the same weights
+    quantized at ``avg_bits`` (the target) and at ``draft_avg_bits`` (the
+    draft).  Both runs take ``stats`` and one set of signs, drawn once, so
+    every layer's rotation is the same and the draft's sign tensors are the
+    target's; full-precision leaves (embedding, norms, routers, lm_head)
+    are shared by reference, so the draft costs only its codes and side
+    information.  AllocateBits runs once per budget.  Returns
+    ``(target_params, target_report, draft_params, draft_report)`` for
+    ``PagedServer(..., draft_params=, speculate=k)``."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    signs = draw_model_signs(params, stats, generator=generator,
+                             outlier_frac=outlier_frac, signs=signs)
+    tparams, treport = quantize_model(cfg, params, stats, avg_bits,
+                                      signs=signs, outlier_frac=outlier_frac,
+                                      device=dev, **kwargs)
+    dparams, dreport = quantize_model(cfg, params, stats, draft_avg_bits,
+                                      signs=signs, outlier_frac=outlier_frac,
+                                      device=dev, **kwargs)
+    return tparams, treport, _alias_rotation(tparams, dparams), dreport

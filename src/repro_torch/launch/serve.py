@@ -6,6 +6,8 @@
         --requests 2 --gen 8                                       # on the host
     python -m repro_torch.launch.serve --arch mixtral-8x7b --tiny --device cpu \\
         --avg-bits 3.3                                # MoE + sliding window
+    python -m repro_torch.launch.serve --device cpu --tiny --avg-bits 3.3 \\
+        --speculate 2 --draft-bits 2.2                # self-speculative
 
 Random weights from a seeded generator; with ``--avg-bits`` the model is
 calibrated on the paper's zero-shot sentence, bit widths are allocated
@@ -18,13 +20,18 @@ Shared prompt prefixes are served from the content-addressed prefix cache
 prompts are identical, so with more requests than ``--slots`` the second
 admission wave hits; the printed ``prefix_hit_rate`` is the share of
 prompt tokens whose prefill the cache saved, and greedy tokens do not
-depend on it.
+depend on it.  ``--kv-dtype bf16`` stores the KV arenas in bf16.
+
+``--speculate K`` serves self-speculatively: the same calibration
+quantizes a second, ``--draft-bits`` draft (with ``--avg-bits`` both come
+from ``quantize_model_dual``; without it the target stays fp32), the
+draft proposes K tokens a round and the target verifies them in one step.
+Greedy tokens equal the ``--speculate 0`` run's; the report gives
+``acceptance_rate``.
 
 Not ported yet, each under its ROADMAP Queue 1 item: ``--lockstep`` (7),
-``--kv-dtype`` (5), ``--paged-kernel`` (5: the
-kernel always runs on the card), ``--speculate`` / ``--draft-bits`` (4),
-``--tp`` (8), ``--serve`` / ``--port`` / ``--slo-p95-ms`` /
-``--max-tenant-share`` (9).
+``--paged-kernel`` (5: the kernel always runs on the card), ``--tp`` (8),
+``--serve`` / ``--port`` / ``--slo-p95-ms`` / ``--max-tenant-share`` (9).
 """
 from __future__ import annotations
 
@@ -68,6 +75,15 @@ def main(argv=None):
                     default=True,
                     help="content-addressed KV prefix reuse (bypassed by "
                          "windowed archs)")
+    ap.add_argument("--kv-dtype", choices=["f32", "bf16"], default="f32",
+                    help="paged engine: KV arena dtype")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="self-speculative decoding: draft K tokens a round "
+                         "from a low-bit quantization of the same weights, "
+                         "verify them in one target step")
+    ap.add_argument("--draft-bits", type=float, default=2.2,
+                    help="average bit budget of the speculative draft "
+                         "(used when --speculate > 0)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cpu runs the kernels' "
                          "plain versions on the host)")
@@ -78,8 +94,13 @@ def main(argv=None):
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
 
-    if args.avg_bits:
-        print(f"calibrating + quantizing ({args.avg_bits} avg bits) ...")
+    draft_params = None
+    if args.avg_bits or args.speculate:
+        what = (f"{args.avg_bits} avg bits" if args.avg_bits
+                else "fp32 target")
+        if args.speculate:
+            what += f", {args.draft_bits}-bit draft"
+        print(f"calibrating + quantizing ({what}) ...")
         t0 = time.monotonic()
         toks = cal.zero_shot_tokens(cfg.vocab, 256)
         stats = cal.calibrate(
@@ -87,21 +108,42 @@ def main(argv=None):
             [{"tokens": torch.from_numpy(toks).to(dev)}])
         _sync(dev)
         calibrate_s = time.monotonic() - t0
-        params, rep = pipe.quantize_model(
-            cfg, params, stats, args.avg_bits,
-            generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-        print(f"quantized {rep.n_layers} layers, achieved "
-              f"{rep.avg_bits:.3f} bits in {calibrate_s + rep.wall_time_s:.1f}s"
-              f" (calibrate_s={calibrate_s:.2f}, allocate_s="
-              f"{rep.allocate_s:.2f}, quantize_s={rep.quantize_s:.2f})")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        if args.avg_bits and args.speculate:
+            params, rep, draft_params, drep = pipe.quantize_model_dual(
+                cfg, params, stats, args.avg_bits, args.draft_bits,
+                generator=gen, device=dev)
+            print(f"quantized {rep.n_layers} layers, achieved "
+                  f"{rep.avg_bits:.3f} target / {drep.avg_bits:.3f} draft "
+                  f"bits in {calibrate_s + rep.wall_time_s + drep.wall_time_s:.1f}s"
+                  f" (calibrate_s={calibrate_s:.2f}, allocate_s="
+                  f"{rep.allocate_s:.2f} + {drep.allocate_s:.2f}, "
+                  f"quantize_s={rep.quantize_s:.2f} + {drep.quantize_s:.2f})")
+        elif args.avg_bits:
+            params, rep = pipe.quantize_model(
+                cfg, params, stats, args.avg_bits, generator=gen, device=dev)
+            print(f"quantized {rep.n_layers} layers, achieved "
+                  f"{rep.avg_bits:.3f} bits in "
+                  f"{calibrate_s + rep.wall_time_s:.1f}s (calibrate_s="
+                  f"{calibrate_s:.2f}, allocate_s={rep.allocate_s:.2f}, "
+                  f"quantize_s={rep.quantize_s:.2f})")
+        else:                       # fp32 target, quantized draft
+            draft_params, drep = pipe.quantize_model(
+                cfg, params, stats, args.draft_bits, generator=gen,
+                device=dev)
+            print(f"quantized draft: {drep.avg_bits:.3f} bits in "
+                  f"{calibrate_s + drep.wall_time_s:.1f}s")
 
     tok = ByteTokenizer(cfg.vocab)
     prompt = tok.encode("the quick brown fox " * 8)[: args.prompt_len]
     pool = PoolConfig(max_slots=args.slots, block_size=args.block_size,
                       max_context=args.prompt_len + args.gen,
                       prefill_chunk=args.prefill_chunk,
-                      prefix_cache=args.prefix_cache)
+                      prefix_cache=args.prefix_cache,
+                      kv_dtype=(torch.bfloat16 if args.kv_dtype == "bf16"
+                                else torch.float32))
     engine = PagedServer(cfg, params, pool, fused=not args.unfused,
+                         draft_params=draft_params, speculate=args.speculate,
                          device=dev)
     t0 = time.monotonic()
     results = engine.run([Request(rid=i, prompt=np.asarray(prompt),
@@ -117,11 +159,15 @@ def main(argv=None):
         prefix = (f"prefix_cache=on, prefix_hit_rate="
                   f"{stats['prefix_hit_rate']:.2f}, prefill_tokens_saved="
                   f"{stats.get('prefill_tokens_saved', 0)}")
+    if engine.speculate:
+        prefix += (f", speculate={engine.speculate}, acceptance_rate="
+                   f"{stats['acceptance_rate']:.2f}, spec_rounds="
+                   f"{stats.get('spec_rounds', 0)}")
     print(f"served {args.requests} requests x {args.gen} tokens in {dt:.2f}s "
           f"({args.requests * args.gen / dt:.1f} tok/s, {path} decode path, "
           f"paged, occupancy={stats['mean_occupancy']:.2f}, "
           f"captures={stats['captures']} in {stats['capture_s']:.2f}s, "
-          f"device={dev.type}, {prefix})")
+          f"device={dev.type}, kv={args.kv_dtype}, {prefix})")
     print("sample:", tok.decode(np.asarray(sample))[:80])
 
 

@@ -14,7 +14,8 @@ block: unallocated table entries and writes from inactive slots land there
 and are never read as valid.
 
 Chunked-prefill attention is plain jnp in the reference, so it is plain
-torch here; the decode read goes through the paged flash-decode kernel.
+torch here; the decode read and the speculative verify / catch-up read go
+through the paged flash-decode kernel.
 """
 from __future__ import annotations
 
@@ -86,6 +87,39 @@ def paged_write_indices(pos: torch.Tensor, ring_cap, block_table: torch.Tensor,
     if active is not None:
         pb = torch.where(active, pb, torch.zeros_like(pb))
         off = torch.where(active, off, torch.zeros_like(off))
+    return pb, off
+
+
+def paged_multi_write_indices(positions: torch.Tensor, ring_cap: torch.Tensor,
+                              block_tables: torch.Tensor, block_size: int,
+                              write_mask: torch.Tensor | None = None,
+                              active: torch.Tensor | None = None):
+    """(physical block, in-block offset) for writing a span of positions:
+    ``positions`` (B, W) absolute, ``ring_cap`` (B,), ``block_tables``
+    (B, MB).  Positions whose ``write_mask`` (B, W) entry is False go to
+    the null block 0, so one fixed-shape scatter serves every slot: an
+    inactive slot's (``active`` (B,) False) to offset 0, an active slot's
+    (a catch-up position whose K/V is already valid) to the last offset.
+
+    The reference sends both to offset 0 (``repro/models/attention.py:
+    191-211``).  An inactive slot's ring holds one token, so its attention
+    reads offset 0 back; when it alone writes there, it reads its own K/V
+    (zeros: its hidden state is 0), as in a decode step, whatever a chunk
+    graph's warm-up left there.  A masked catch-up position carries real
+    K/V, and among several writers of one element the winner is
+    unspecified on the card; read by an inactive slot, it made the slot's
+    hidden state, and through the MoE capacity its slot takes, Mixtral's
+    speculating tokens change from run to run.  Nobody reads the last
+    offset (``block_size`` >= 2)."""
+    li = positions.to(torch.int64) % ring_cap.to(torch.int64)[:, None]
+    off = li % block_size
+    pb = torch.gather(block_tables.to(torch.int64), 1, li // block_size)
+    if write_mask is not None:
+        sink = torch.full_like(off, block_size - 1)
+        if active is not None:
+            sink = torch.where(active[:, None], sink, torch.zeros_like(sink))
+        pb = torch.where(write_mask, pb, torch.zeros_like(pb))
+        off = torch.where(write_mask, off, sink)
     return pb, off
 
 

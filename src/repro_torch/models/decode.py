@@ -1,6 +1,7 @@
 """Paged serving steps for attention decoders (port of the attention branches
 of ``repro/models/decode.py``: ``_attn_qkv``, ``layer_decode_paged`` /
-``decode_step_paged`` and ``layer_prefill_chunk`` / ``prefill_chunk_paged``).
+``decode_step_paged``, ``layer_verify_paged`` / ``decode_verify_paged`` and
+``layer_prefill_chunk`` / ``prefill_chunk_paged``).
 
 K/V live in one (num_blocks, block_size, KV, hd) arena per layer, addressed
 through per-request block tables.  Every projection dispatches through
@@ -87,6 +88,61 @@ def decode_step_paged(cfg: ModelConfig, params: dict, caches: list,
     h = apply_norm(cfg.norm, h, params["final_norm"])
     logits = linear(params["lm_head"], h)
     return logits[:, 0], caches
+
+
+def layer_verify_paged(cfg: ModelConfig, lp: dict, h: torch.Tensor,
+                       cache: dict, pos0: torch.Tensor, active: torch.Tensor,
+                       block_tables: torch.Tensor, ring_cap: torch.Tensor,
+                       write_mask: torch.Tensor) -> torch.Tensor:
+    """One layer, W tokens per slot (speculative verify, draft catch-up).
+    h (S, W, d); pos0 (S,) int32 each slot's first position; active (S,)
+    bool; write_mask (S, W) bool selects the positions that commit K/V
+    (the others go to the null block: ``paged_multi_write_indices``).
+    The span's K/V is written first, then one paged attention read at
+    pos0 + W covers history and span: causality within the span follows
+    from the stored-position mask, so the logits at pos0 + i see the first
+    i + 1 fed tokens.  A masked position is an inactive slot's or a
+    catch-up position whose identical K/V is already in the arena;
+    ``PoolConfig.lookahead`` reserves the ring capacity the writes past
+    the frontier land in."""
+    b, w, _ = h.shape
+    hn = apply_norm(cfg.norm, h, lp["ln1"])
+    positions = pos0[:, None] + torch.arange(w, dtype=torch.int32,
+                                             device=h.device)[None, :]
+    p = lp["attn"]
+    q, k, v = _attn_qkv(cfg, p, hn, positions)
+    block_size = cache["k"].shape[1]
+    pb, off = attnmod.paged_multi_write_indices(positions, ring_cap,
+                                                block_tables, block_size,
+                                                write_mask, active)
+    cache["k"].index_put_((pb, off), k.to(cache["k"].dtype))
+    cache["v"].index_put_((pb, off), v.to(cache["v"].dtype))
+    out = attnmod.paged_decode_attention(q, cache["k"], cache["v"],
+                                         block_tables, pos0 + w, ring_cap,
+                                         window=cfg.window)
+    h = h + linear(p["wo"], out.reshape(b, w, -1)).to(h.dtype)
+    h2 = apply_norm(cfg.norm, h, lp["ln2"])
+    y, _ = _ffn_apply(cfg, lp, h2)          # MoE routes all S * W tokens
+    return h + y.to(h.dtype)
+
+
+def decode_verify_paged(cfg: ModelConfig, params: dict, caches: list,
+                        tokens: torch.Tensor, pos0: torch.Tensor,
+                        active: torch.Tensor, block_tables: torch.Tensor,
+                        ring_cap: torch.Tensor, write_mask: torch.Tensor):
+    """Score W tokens per slot in one step: tokens (S, W) from positions
+    ``pos0`` (S,) -> (logits (S, W, V), caches).  The target verifies a
+    draft's k proposals at W = k + 1, and the draft catches up at W = 2.
+    Inactive slots run inert (embeddings zeroed, writes on the null
+    block)."""
+    h = embed_tokens(cfg, params, tokens)
+    h = torch.where(active[:, None, None], h, torch.zeros_like(h))
+    wmask = write_mask & active[:, None]
+    for lp, cache in zip(params["layers"], caches):
+        h = layer_verify_paged(cfg, lp, h, cache, pos0, active,
+                               block_tables, ring_cap, wmask)
+    h = apply_norm(cfg.norm, h, params["final_norm"])
+    return linear(params["lm_head"], h), caches
 
 
 def layer_prefill_chunk(cfg: ModelConfig, lp: dict, h: torch.Tensor,

@@ -22,8 +22,16 @@ Where a loose port would diverge from the reference:
 
 The tensor-parallel column gather of the reference is an identity at TP = 1
 and comes with the TP slice (ROADMAP).
+
+``count_overflow(counter)`` is a measuring aid with no counterpart in the
+reference: every ``moe_ffn`` call run (or captured) inside it adds the
+token-expert assignments its capacity dropped to ``counter`` in place, so
+a captured step keeps adding on each replay.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +40,21 @@ from repro_torch.core.qlinear import QuantizedGrouped
 
 from .common import LinearCtx
 from .ffn import _gelu
+
+
+_OVERFLOW: contextvars.ContextVar[torch.Tensor | None] = (
+    contextvars.ContextVar("repro_torch_moe_overflow", default=None))
+
+
+@contextlib.contextmanager
+def count_overflow(counter: torch.Tensor):
+    """Scoped: ``moe_ffn`` adds its dropped assignments to ``counter`` (a
+    0-d int64 tensor on the device of the tokens)."""
+    token = _OVERFLOW.set(counter)
+    try:
+        yield
+    finally:
+        _OVERFLOW.reset(token)
 
 
 def _expert_matmul(w, xbuf: torch.Tensor, ctx: LinearCtx | None = None,
@@ -111,6 +134,9 @@ def moe_ffn(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     starts = torch.cumsum(counts, 0) - counts                        # (E,)
     rank = torch.arange(t * top_k, device=dev) - starts[e_sorted]
     keep = rank < capacity
+    sink = _OVERFLOW.get()
+    if sink is not None:
+        sink.add_(torch.sum(~keep))
     slot = torch.where(keep, rank, torch.full_like(rank, capacity))  # overflow row
     rows = torch.where(keep[:, None], xf[t_sorted], torch.zeros_like(xf[t_sorted]))
     xbuf = torch.zeros((n_experts, capacity + 1, d), dtype=xf.dtype,

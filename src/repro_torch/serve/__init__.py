@@ -5,12 +5,13 @@
              block ownership + the content-addressed prefix cache.
 ``engine`` — request queue, admission control (longest cached prefix,
              copy-on-write), chunked prefill interleaved with decode,
-             per-request completion, preemption and cancel, re-entrant
-             ``step()``.
+             self-speculative decoding, per-request completion,
+             preemption and cancel, re-entrant ``step()``.
 """
-from .engine import PagedServer, Request, RequestResult
+from .engine import PagedServer, Request, RequestResult, speculative_accept
 from .pool import (BlockAllocator, PoolConfig, PrefixCache, init_pool_caches,
                    request_blocks)
 
-__all__ = ["PagedServer", "Request", "RequestResult", "BlockAllocator",
-           "PoolConfig", "PrefixCache", "init_pool_caches", "request_blocks"]
+__all__ = ["PagedServer", "Request", "RequestResult", "speculative_accept",
+           "BlockAllocator", "PoolConfig", "PrefixCache", "init_pool_caches",
+           "request_blocks"]

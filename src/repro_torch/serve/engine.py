@@ -40,8 +40,24 @@ first, so its replay walks them as hits) and keeps its emitted tokens to
 re-feed as prompt when it is resubmitted; ``cancel`` aborts a request
 wherever it is.
 
-Not ported yet (ROADMAP Queue 1): speculative decoding (item 4), tensor
-parallelism (item 8) and what only the front door reads (item 9).
+Self-speculative decoding: with ``draft_params`` (a low-bit quantization of
+the same weights, ``core.pipeline.quantize_model_dual``) and
+``speculate=k``, each decode turn is one round: a W = 2 catch-up step of
+the draft (positions p - 1 and p; the write at p - 1 is masked unless the
+slot has a hole, so shared prefix-cache blocks stay untouched), k - 1
+single-token draft steps, then one W = k + 1 verify step of the target
+(``decode_verify_paged``), and the acceptance rule on the host
+(``speculative_accept``), emitting 1 to k + 1 tokens per slot.  The draft
+has its own KV arena under the same block tables (prefilled in the same
+chunks), and the pool reserves ``lookahead = k`` ring tokens per request.
+Greedy speculation gives the tokens of plain decoding.  On the card the
+catch-up, draft, verify and draft-chunk steps are captured like the
+others, keyed ``("catchup", fused, S)``, ``("draft", fused, S)``,
+``("verify", fused, S, k + 1)`` and ``("draft_chunk", fused, C)``, and the
+copy-on-write clone copies the block in both arenas.
+
+Not ported yet (ROADMAP Queue 1): tensor parallelism (item 8) and what
+only the front door reads (item 9).
 """
 from __future__ import annotations
 
@@ -130,6 +146,7 @@ class _InFlight:
     t_first: float = 0.0
     chain: object = None             # prefix-cache hash of last full block
     n_hashed: int = 0                # full blocks matched/registered so far
+    draft_pos: int = 0               # positions with valid draft K/V
 
     @property
     def n_done(self) -> int:
@@ -138,13 +155,63 @@ class _InFlight:
         return len(self.prior) + len(self.out)
 
 
+def speculative_accept(target_logits: np.ndarray, draft_logits: np.ndarray,
+                       draft_tokens: np.ndarray, temperature: float,
+                       rng: np.random.Generator | None):
+    """The speculative-sampling acceptance rule for one slot's round.
+
+    ``target_logits`` (k+1, V) are the target's logits at the k + 1
+    verified positions, ``draft_logits`` (k, V) those each
+    ``draft_tokens[i]`` was sampled from.  Greedy (``temperature <= 0``):
+    accept d_i while it equals the target's argmax, emit the argmax at the
+    first mismatch, or the bonus argmax after k accepts, so every emitted
+    token is a target argmax.  Sampling: accept d_i with probability
+    min(1, p_t(d_i) / p_d(d_i)), on rejection sample the residual
+    normalize(max(p_t - p_d, 0)), after k accepts sample the bonus from the
+    target's last distribution; the emitted tokens are distributed as
+    target-only sampling (Leviathan et al., 2023).  Returns ``(tokens,
+    n_accepted)`` with ``len(tokens) == n_accepted + 1``."""
+    k = len(draft_tokens)
+    out: list[int] = []
+    if temperature <= 0.0:
+        for i in range(k):
+            t_star = int(np.argmax(target_logits[i]))
+            out.append(t_star)
+            if int(draft_tokens[i]) != t_star:
+                return out, i
+        out.append(int(np.argmax(target_logits[k])))
+        return out, k
+
+    def dist(logits):
+        z = logits.astype(np.float64) / temperature
+        e = np.exp(z - z.max())
+        return e / e.sum()
+
+    for i in range(k):
+        p_t, p_d = dist(target_logits[i]), dist(draft_logits[i])
+        d = int(draft_tokens[i])
+        if rng.random() < min(1.0, p_t[d] / max(p_d[d], 1e-300)):
+            out.append(d)
+            continue
+        resid = np.maximum(p_t - p_d, 0.0)
+        s = resid.sum()
+        p = resid / s if s > 0.0 else p_t
+        out.append(int(rng.choice(p.size, p=p)))
+        return out, i
+    p_t = dist(target_logits[k])
+    out.append(int(rng.choice(p_t.size, p=p_t)))
+    return out, k
+
+
 class PagedServer:
     """Continuous-batching engine over the paged KV pool; greedy or
     temperature sampling.  Runs on ``device`` (CUDA unless ``"cpu"``);
     ``params`` must already live there (see ``bridge.py`` or
     ``models.transformer.init_params``).  ``fused`` selects the RHT + GEMM
     fusion for every step of this engine (``qops.fusion``; False runs the
-    unfused A/B pair).  Construct once per (model, PoolConfig); ``run``
+    unfused A/B pair).  ``draft_params`` + ``speculate=k`` turn on
+    self-speculative decoding (the module docstring); ``draft_params`` lives
+    on ``device`` too.  Construct once per (model, PoolConfig); ``run``
     drains a workload to completion.  Each step is captured once per key
     and replayed (see the module docstring).  ``prefix_cache`` is the
     engine's ``PrefixCache``, or None where the pool turns it off or the
@@ -152,19 +219,39 @@ class PagedServer:
 
     def __init__(self, cfg: ModelConfig, params: dict,
                  pool: PoolConfig | None = None, *, fused: bool = True,
-                 temperature: float = 0.0, seed: int = 0, device=None):
+                 temperature: float = 0.0, seed: int = 0,
+                 draft_params: dict | None = None, speculate: int = 0,
+                 device=None):
         self.device = resolve_device(device)
         self.fused = fused
         check_supported(cfg)
-        if params["embed"].device != self.device:
-            raise ValueError(f"params live on {params['embed'].device}, the "
-                             f"engine runs on {self.device}")
+        if speculate < 0:
+            raise ValueError(f"speculate must be >= 0 (got {speculate})")
+        if speculate and draft_params is None:
+            raise ValueError("speculate > 0 requires draft_params "
+                             "(see core.pipeline.quantize_model_dual)")
+        for what, p in (("params", params), ("draft_params", draft_params)):
+            if p is not None and p["embed"].device != self.device:
+                raise ValueError(f"{what} live on {p['embed'].device}, the "
+                                 f"engine runs on {self.device}")
         self.cfg = cfg
         self.params = params
         self.pool = pool or PoolConfig()
         self.temperature = temperature
         self.seed = seed
+        # rejected tokens are overwritten by position, which attention K/V
+        # allows; the reference's bypass for sequential per-slot state has
+        # nothing to bypass here (check_supported admits attention only)
+        self.speculating = bool(speculate)
+        self.speculate = speculate
+        self.draft_params = draft_params if self.speculating else None
+        if self.speculating and self.pool.lookahead < speculate:
+            # verify writes reach k positions past the accepted frontier
+            self.pool = dataclasses.replace(self.pool, lookahead=speculate)
         self.caches = init_pool_caches(cfg, self.pool, self.device)
+        # the draft's own arenas, under the same block tables
+        self.draft_caches = (init_pool_caches(cfg, self.pool, self.device)
+                             if self.speculating else None)
         # the cache needs blocks that are immutable once written: a window's
         # ring reuses its blocks in place, so windowed archs bypass it
         self.cacheable = (self.pool.prefix_cache and cfg.window is None
@@ -213,6 +300,26 @@ class PagedServer:
         """Copy-on-write clone captures: at most one per engine."""
         return self.graphs.captures["cow"]
 
+    @property
+    def catchup_trace_count(self) -> int:
+        """Draft catch-up (W = 2) captures."""
+        return self.graphs.captures["catchup"]
+
+    @property
+    def draft_trace_count(self) -> int:
+        """Single-token draft step captures."""
+        return self.graphs.captures["draft"]
+
+    @property
+    def verify_trace_count(self) -> int:
+        """Target verify (W = k + 1) captures."""
+        return self.graphs.captures["verify"]
+
+    @property
+    def draft_chunk_trace_count(self) -> int:
+        """Draft prompt-chunk captures: one per chunk length."""
+        return self.graphs.captures["draft_chunk"]
+
     def _compiled(self, key: tuple, fn, inert):
         """``inputs -> fn(**inputs)``: the step captured for ``key`` (made
         on ``inert()``'s inputs at first use), or under ``graphs.eager()``
@@ -226,19 +333,22 @@ class PagedServer:
                                         for k, a in inputs.items()})
         return self.graphs.get(key, fn, inert)
 
-    def _step_fn(self, step_fn):
-        """``step_fn`` (``decmod.decode_step_paged`` or
-        ``prefill_chunk_paged``) on this engine's model and arenas,
-        returning the logits."""
+    def _step_fn(self, step_fn, draft: bool = False):
+        """``step_fn`` (a ``decmod`` step) on this engine's target model and
+        arenas, or with ``draft`` on the draft's, returning the logits."""
+        if draft:
+            return functools.partial(_logits, step_fn, self.cfg,
+                                     self.draft_params, self.draft_caches)
         return functools.partial(_logits, step_fn, self.cfg, self.params,
                                  self.caches)
 
     def _cow(self, src: int, dst: int) -> None:
-        """Clone physical block ``src`` into ``dst`` in every layer's arena
-        (the reference's jitted ``_cow``): one captured clone, its blocks
-        through static one-element buffers."""
+        """Clone physical block ``src`` into ``dst`` in every layer's arena,
+        the draft's too (the reference's jitted ``_cow``): one captured
+        clone, its blocks through static one-element buffers."""
+        arenas = self.caches + (self.draft_caches or [])
         clone = self._compiled(
-            ("cow",), functools.partial(graphs.clone_block, self.caches),
+            ("cow",), functools.partial(graphs.clone_block, arenas),
             lambda: {"src": np.zeros(1, np.int64),
                      "dst": np.zeros(1, np.int64)})
         clone({"src": np.array([src], np.int64),
@@ -382,7 +492,7 @@ class PagedServer:
                 preemptions=rp.preemptions if rp else 0,
                 t_admit=rp.t_admit if rp else now,
                 t_first=rp.t_first if rp else 0.0,
-                chain=parent, n_hashed=len(hits)))
+                chain=parent, n_hashed=len(hits), draft_pos=cached))
 
     def _register_blocks(self, st: _InFlight, seq, upto: int) -> None:
         """Register st's fully written blocks covering positions < upto
@@ -442,9 +552,19 @@ class PagedServer:
         inputs = self._chunk_inputs(st.served[st.filled:st.filled + c],
                                     st.filled, st.bt_row, st.ring_cap)
         t_start = time.monotonic()
-        logits = step(inputs).to(torch.float32).cpu().numpy()  # waits for it
+        logits = step(inputs)
+        if self.speculating:
+            # the draft's arena holds the prompt too; its logits are unused
+            self._compiled(
+                ("draft_chunk", qops.fused_enabled(), c),
+                self._step_fn(decmod.prefill_chunk_paged, draft=True),
+                lambda: self._chunk_inputs(
+                    np.zeros(c, np.int32), 0,
+                    np.zeros(self.table_width, np.int32), 1))(inputs)
+        logits = logits.to(torch.float32).cpu().numpy()  # waits for both
         self._add_stat("prefill_s", time.monotonic() - t_start)
         st.filled += c
+        st.draft_pos = st.filled
         self._add_stat("prefill_chunks", 1)
         self._add_stat("prefill_tokens", c)
         if self.prefix_cache is not None:
@@ -479,6 +599,119 @@ class PagedServer:
             tok = self._sample(logits[slot], st.req.rid, st.n_done)
             self._emit(st, tok, now)
             if self._done(st, tok):
+                self._finish(st, now, results)
+
+    # ---------------------------------------------------------- speculation
+
+    def _draft_sample(self, logits: np.ndarray, rid: int, step: int,
+                      i: int) -> int:
+        """Draft proposal i of a round: the argmax, or a sample from
+        softmax(logits / T), the distribution the acceptance rule divides
+        by."""
+        if self.temperature <= 0.0:
+            return int(np.argmax(logits))
+        rng = np.random.default_rng((self.seed, rid, step, i, 1))
+        z = logits.astype(np.float64) / self.temperature
+        e = np.exp(z - z.max())
+        return int(rng.choice(e.size, p=e / e.sum()))
+
+    def _span_inputs(self, tokens: np.ndarray, pos0: np.ndarray,
+                     active: np.ndarray, bts: np.ndarray, ring: np.ndarray,
+                     wmask: np.ndarray) -> dict:
+        return {"tokens": tokens, "pos0": pos0, "active": active,
+                "block_tables": bts, "ring_cap": ring, "write_mask": wmask}
+
+    def _span_inert(self, w: int) -> dict:
+        """A W-token span step's inert inputs (every slot inactive)."""
+        s = self.pool.max_slots
+        return self._span_inputs(
+            np.zeros((s, w), np.int32), np.zeros(s, np.int32),
+            np.zeros(s, bool), np.zeros((s, self.table_width), np.int32),
+            np.ones(s, np.int32), np.zeros((s, w), bool))
+
+    def _spec_decode_once(self, t0: float,
+                          results: dict[int, RequestResult]) -> None:
+        """One draft-propose / target-verify round over the slot set (the
+        reference's ``_spec_decode_once``): the draft's W = 2 catch-up at
+        p - 1, p (the write at p - 1 only where a hole is), k - 1 draft
+        steps, the target's W = k + 1 verify from p, and acceptance on the
+        host per slot."""
+        s, k = self.pool.max_slots, self.speculate
+        fused = qops.fused_enabled()
+        catch = np.zeros((s, 2), np.int32)    # tokens at p - 1, p
+        base = self._decode_inputs(self._active)
+        pos, active = base["pos"], base["active"]
+        bts, ring = base["block_tables"], base["ring_cap"]
+        hole = np.zeros(s, bool)
+        for slot, st in self._active.items():
+            p = int(pos[slot])
+            catch[slot, 0] = (st.out[-2] if len(st.out) >= 2
+                              else st.served[-1])
+            catch[slot, 1] = st.out[-1]
+            # after an all-accept round the bonus token's predecessor d_k
+            # was never fed to the draft: p - 1 is a hole to fill; else the
+            # rewrite is masked, so shared prefix-cache blocks stay as they
+            # are
+            hole[slot] = st.draft_pos == p - 1
+        wmask = np.ones((s, 2), bool)
+        wmask[:, 0] = hole
+        t_start = time.monotonic()
+        catchup = self._compiled(
+            ("catchup", fused, s),
+            self._step_fn(decmod.decode_verify_paged, draft=True),
+            lambda: self._span_inert(2))
+        dl = catchup(self._span_inputs(catch, pos - 1, active, bts, ring,
+                                       wmask))
+        dl = dl[:, 1].to(torch.float32).cpu().numpy()    # logits at p
+        draft_logits = np.zeros((s, k) + dl.shape[1:], np.float32)
+        draft_tokens = np.zeros((s, k), np.int32)
+        toks = np.zeros((s, 1), np.int32)
+        for i in range(k):
+            draft_logits[:, i] = dl
+            for slot, st in self._active.items():
+                d = self._draft_sample(dl[slot], st.req.rid, st.n_done, i)
+                draft_tokens[slot, i] = d
+                toks[slot, 0] = d
+            if i < k - 1:
+                draft = self._compiled(
+                    ("draft", fused, s),
+                    self._step_fn(decmod.decode_step_paged, draft=True),
+                    lambda: self._decode_inputs({}))
+                dl = draft(dict(base, tokens=toks, pos=pos + 1 + i))
+                dl = dl.to(torch.float32).cpu().numpy()
+        verify = self._compiled(
+            ("verify", fused, s, k + 1),
+            self._step_fn(decmod.decode_verify_paged),
+            lambda: self._span_inert(k + 1))
+        tokens = np.concatenate([catch[:, 1:2], draft_tokens], axis=1)
+        tlog = verify(self._span_inputs(tokens, pos, active, bts, ring,
+                                        np.ones((s, k + 1), bool)))
+        tlog = tlog.to(torch.float32).cpu().numpy()      # waits for it
+        self._add_stat("spec_s", time.monotonic() - t_start)
+        now = time.monotonic() - t0
+        self._add_stat("spec_rounds", 1)
+        self.stats.setdefault("occupancy", []).append(
+            len(self._active) / self.pool.max_slots)
+        for slot in list(self._active):
+            st = self._active[slot]
+            # greedy needs no RNG
+            rng = (np.random.default_rng(
+                       (self.seed, st.req.rid, st.n_done, 7))
+                   if self.temperature > 0.0 else None)
+            emitted, n_acc = speculative_accept(
+                tlog[slot], draft_logits[slot], draft_tokens[slot],
+                self.temperature, rng)
+            self._add_stat("spec_proposed", k)
+            self._add_stat("spec_accepted", n_acc)
+            p = int(pos[slot])
+            # the draft's K/V is valid through the last accepted draft
+            # position (the replacement or bonus token is never fed to it)
+            st.draft_pos = min(p + n_acc + 1, p + k)
+            for tok in emitted:
+                self._emit(st, tok, now)
+                if self._done(st, tok):
+                    break
+            if self._done(st, st.out[-1]):
                 self._finish(st, now, results)
 
     # ----------------------------------------------------------- preemption
@@ -575,7 +808,9 @@ class PagedServer:
         with qops.fusion(self.fused):
             if self._prefilling:
                 self._prefill_one(self._t0, results)
-            if self._active:
+            if self._active and self.speculate:
+                self._spec_decode_once(self._t0, results)
+            elif self._active:
                 self._decode_once(self._t0, results)
         return results
 
@@ -583,6 +818,10 @@ class PagedServer:
         """Fold per-step counters into summary numbers; returns ``stats``."""
         occ = self.stats.get("occupancy", [])
         self.stats["mean_occupancy"] = float(np.mean(occ)) if occ else 0.0
+        if self.speculate:
+            prop = self.stats.get("spec_proposed", 0)
+            self.stats["acceptance_rate"] = (
+                self.stats.get("spec_accepted", 0) / prop if prop else 0.0)
         self.stats["captures"] = sum(self.graphs.captures.values())
         self.stats["capture_s"] = self.graphs.capture_s
         self.stats["graph_pool_bytes"] = self.graphs.pool_bytes

@@ -1,5 +1,6 @@
 """Compile-once serving steps: the port's counterpart of the reference's
-``jax.jit`` of ``_step``, ``_chunk`` and ``_cow``
+``jax.jit`` of ``_step``, ``_chunk``, ``_cow`` and the speculative
+``_draft_step``, ``_catchup`` and ``_verify``
 (``repro/serve/engine.py:338-371``).
 
 ``StepGraphs`` keeps one ``Step`` per key: a step function over static
@@ -13,14 +14,16 @@ the CPU tests hold the keying and the warm-up.
 What a capture needs, and what this module does about it:
 
   * Static shapes and no host reads.  The engine keys each step by what
-    fixes its shapes and code path (decode: the fusion setting and the
-    slot count; a prompt chunk: the fusion setting and its length; the
-    copy-on-write clone: nothing), and ``models/decode.py`` takes only
-    tensors, reads nothing back to the host, and updates the arenas in
-    place.
+    fixes its shapes and code path (decode and the draft's decode: the
+    fusion setting and the slot count; the draft's catch-up: the same; the
+    verify step: the same and its span k + 1; a prompt chunk, the target's
+    or the draft's: the fusion setting and its length; the copy-on-write
+    clone: nothing), and ``models/decode.py`` takes only tensors, reads
+    nothing back to the host, and updates the arenas in place.
   * Arenas written in place, never rebound.  Every graph reads and writes
     the arena tensors it was captured on, so the copy-on-write clone
-    (``clone_block``) copies into them with ``index_copy_``.  The
+    (``clone_block``) copies into them with ``index_copy_``, over the
+    target's and the draft's arenas in one capture when speculating.  The
     reference's functional ``.at[].set`` rebinds its caches; a port that
     rebound ``engine.caches`` (or wrote ``arena[dst]`` through a tensor
     index, which copies into a temporary) would leave every captured graph
@@ -168,7 +171,8 @@ class Step:
 
 class StepGraphs:
     """An engine's steps by key (``key[0]`` names the kind: "decode",
-    "chunk" or "cow"), made at first use; ``captures`` counts them by kind and
+    "chunk", "cow", "catchup", "draft", "verify" or "draft_chunk"), made
+    at first use; ``captures`` counts them by kind and
     ``capture_s`` the host seconds spent warming up and capturing."""
 
     def __init__(self, device: torch.device):

@@ -33,7 +33,11 @@ from repro_torch.models.config import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class PoolConfig:
     """Static sizing of the paged KV pool.  ``num_blocks=None`` sizes the
-    arena so every slot can hold a ``max_context`` request at once."""
+    arena so every slot can hold a ``max_context`` request at once.
+    ``kv_dtype`` is the arenas' dtype (f32 or bf16).  ``lookahead`` is
+    extra ring capacity per request in tokens, which a speculating engine
+    sets to its depth k: its verify writes reach k positions past the
+    accepted frontier and must not wrap onto history still in use."""
     max_slots: int = 8          # concurrent in-flight requests
     block_size: int = 16        # tokens per KV block
     max_context: int = 512      # per-request cap (prompt + generation)
@@ -41,6 +45,13 @@ class PoolConfig:
     prefill_chunk: int = 32     # prompt tokens per engine iteration
     prefix_cache: bool = True   # content-addressed KV block reuse (engines
     #   enable it only for archs whose blocks are immutable once written)
+    kv_dtype: torch.dtype = torch.float32    # arena dtype (f32 | bf16)
+    lookahead: int = 0          # extra ring tokens for speculative writes
+
+    def __post_init__(self):
+        if self.kv_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"kv_dtype must be torch.float32 or "
+                             f"torch.bfloat16, got {self.kv_dtype}")
 
     def resolved_num_blocks(self, cfg: ModelConfig) -> int:
         """Arena size in physical blocks (the +1 is the null block)."""
@@ -52,8 +63,9 @@ class PoolConfig:
 
 def request_blocks(cfg: ModelConfig, pool: PoolConfig, total_len: int) -> int:
     """Blocks a request of ``total_len`` tokens needs.  Sliding-window archs
-    are capped at the window: their blocks are ring-reused in place."""
-    cap = decmod.attn_capacity(cfg, total_len)
+    are capped at the window: their blocks are ring-reused in place.
+    ``pool.lookahead`` tokens come on top of the capped capacity."""
+    cap = decmod.attn_capacity(cfg, total_len) + pool.lookahead
     return -(-cap // pool.block_size)
 
 
@@ -235,9 +247,8 @@ class BlockAllocator:
 
 def init_pool_caches(cfg: ModelConfig, pool: PoolConfig, device) -> list:
     """One {"k", "v"} arena pair per layer, each (num_blocks, block_size,
-    KV, hd) f32 zeros on ``device``.  (bf16 arenas wait for a workload that
-    needs them; the attention kernel already reads both.)"""
+    KV, hd) zeros of ``pool.kv_dtype`` on ``device``."""
     shape = (pool.resolved_num_blocks(cfg), pool.block_size, cfg.n_kv, cfg.hd)
-    return [{"k": torch.zeros(shape, dtype=torch.float32, device=device),
-             "v": torch.zeros(shape, dtype=torch.float32, device=device)}
+    return [{"k": torch.zeros(shape, dtype=pool.kv_dtype, device=device),
+             "v": torch.zeros(shape, dtype=pool.kv_dtype, device=device)}
             for _ in range(cfg.n_layers)]

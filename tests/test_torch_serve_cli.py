@@ -1,11 +1,14 @@
 """The port's quantize-then-serve CLI (``python -m repro_torch.launch.serve``)
 on the host: calibrate + AllocateBits + RaBitQ-H on tiny llama2 and on tiny
 mixtral (grouped MoE experts, window 16, so the 40-token requests wrap the
-ring), then the paged engine, fused and unfused, and with the prefix cache
-on and off.  Greedy decode is deterministic and the paths compute the same
-function, so the ``sample:`` lines must be byte-identical.  Without
+ring), then the paged engine, fused and unfused, with the prefix cache on
+and off, and speculating from a 2.2-bit draft.  Greedy decode is
+deterministic and the paths compute the same function (greedy speculation
+emits only the target's argmax tokens), so the ``sample:`` lines must be
+byte-identical.  ``--kv-dtype bf16`` serves from bf16 arenas.  Without
 ``--device cpu`` the CLI runs on the card, so on a host with no card it
 must refuse with ``resolve_device``'s message."""
+import functools
 import os
 import subprocess
 import sys
@@ -29,6 +32,13 @@ def _run(*extra, env_extra=None):
                           capture_output=True, timeout=600)
 
 
+@functools.lru_cache(maxsize=None)
+def _run_once(*extra):
+    """``_run(*extra)``, run once per module: two tests share the plain
+    host run."""
+    return _run(*extra)
+
+
 def _sample(res) -> bytes:
     assert res.returncode == 0, res.stderr.decode(errors="replace")
     lines = [ln for ln in res.stdout.splitlines() if ln.startswith(b"sample:")]
@@ -37,7 +47,7 @@ def _sample(res) -> bytes:
 
 
 def test_fused_and_unfused_samples_identical():
-    fused = _run("--device", "cpu")
+    fused = _run_once("--device", "cpu")
     unfused = _run("--device", "cpu", "--unfused")
     assert _sample(fused) == _sample(unfused)
     out = fused.stdout.decode(errors="replace")
@@ -70,6 +80,22 @@ def test_mixtral_fused_and_unfused_samples_identical():
     # 2 layers x (wq, wk, wv, wo + the grouped experts' wi, wo)
     assert "quantized 12 layers, achieved" in out
     assert "served 2 requests x 8 tokens" in out
+
+
+def test_speculation_sample_identical_to_spec_off():
+    off = _run_once("--device", "cpu")
+    spec = _run("--device", "cpu", "--speculate", "2", "--draft-bits", "2.2")
+    assert _sample(spec) == _sample(off)
+    out = spec.stdout.decode(errors="replace")
+    assert "calibrating + quantizing (3.3 avg bits, 2.2-bit draft)" in out
+    assert " target / " in out and " draft bits in " in out
+    assert "speculate=2, acceptance_rate=" in out and "spec_rounds=" in out
+
+
+def test_bf16_kv_arenas_serve():
+    res = _run("--device", "cpu", "--kv-dtype", "bf16")
+    _sample(res)
+    assert "kv=bf16" in res.stdout.decode(errors="replace")
 
 
 def test_refuses_to_run_on_the_host_without_a_card():
