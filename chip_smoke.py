@@ -25,7 +25,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      wrapped ring; timed at llama2's, Mixtral's and a serving mix's
      shapes, f32 and bf16, and at the verify and catch-up spans), the
      grouped (MoE expert) GEMM fused and unfused at Mixtral's decode and
-     prefill shapes and speculation's capacities (C = 5, 10), and the
+     prefill shapes and speculation's capacities (C = 5, 10), the GEMMs,
+     the RHT and the grouped GEMM also at the lockstep prefill's shapes
+     (2048 rows; 5120 rotated rows; C = 640), and the
      flash-attention forward at Mixtral's and llama2's shapes (also
      against its host tile walk);
   4. quantize: llama2-7b at its published width (32 layers, d_model 4096,
@@ -82,12 +84,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      capacity overflows counted per step, on = off except at a step that
      dropped tokens, graph = eager.  Catch-up, draft and verify steps
      each captured once per engine, no decode step;
-  9. dense configs (``dense_phase``): internlm2-1.8b, llama3.2-3b,
+  9. the gather (``gather_phase``, llama2): ``PagedServer(paged_kernel=
+     False)``, the CLI's ``--no-paged-kernel``, over phase 5's requests by
+     graph and eagerly (graph = eager, no paged-attention launch, tokens =
+     phase 5's but at near-ties), a decode profile beside the kernel's,
+     and one speculating run (k = 3, the 2.2-bit draft) whose verify steps
+     take the gather branch, tokens = the spec-off gather run;
+ 10. the front door (``frontdoor_phase``, llama2, 8 slots): a
+     ``FrontDoor`` on port 0 on a thread of this process, two passes of 16
+     concurrent streaming clients (two tenants, weights 2:1, priorities 0
+     and 1, 32 new tokens) and a priority-2 request once every slot is
+     busy, which preempts; pass 2 with the SLO target at half pass 1's
+     median decode gap, which throttles prefill.  Streams hold
+     ``PagedServer.run``'s tokens; client TTFT and inter-token gaps,
+     engine decode ms/step and idle share beside ``run``'s; every capture
+     made in the driver thread; /healthz, /v1/stats, a clean stop;
+ 11. lockstep (``lockstep_phase``): ``BatchedServer`` over 8 prompts of
+     256 tokens, 32 new: llama2 fused by graph and eagerly and unfused by
+     graph, against the paged engine on the same prompts (tokens equal
+     but at near-ties; prefill s, decode ms/step); Mixtral by graph and
+     eagerly (graph = eager exactly), after phase 8;
+ 12. dense configs (``dense_phase``): internlm2-1.8b, llama3.2-3b,
      qwen3-0.6b and yi-34b at their published widths, each cut to 4
-     layers, quantized at 4.0 bits and served by graph, unfused and plain;
- 10. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
-     path's runs counted from zero), the nvidia-smi line, and as the last
-     line ``{"ok": true, "device": {...}}``.
+     layers (``DENSE_LAYERS`` says why), quantized at 4.0 bits and served
+     by graph, unfused and plain;
+ 13. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
+     path's runs counted from zero), the phases' seconds, the nvidia-smi
+     line, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profiles`` runs only the quantization and the
 decode-step and prefill-chunk profiles of both models, by graph and eager
@@ -99,7 +122,9 @@ division on all 2^46 mantissa pairs) the same for the rotation and the
 code search (see ``redesign_main``); ``--prefix-cache`` builds every
 kernel and runs only phase 7 (see ``prefix_main``); ``--speculation``
 builds every kernel and runs only phase 8, with the spec-off runs it is
-held to (see ``spec_main``).
+held to (see ``spec_main``); ``--frontdoor`` builds every kernel and runs
+only phases 9-11, after the quantizations they need (see
+``frontdoor_main``).
 
 Imports nothing of JAX or of the reference package.  Exits non-zero with no
 result when no CUDA device is present.  Details too long for the end of the
@@ -110,10 +135,12 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import http.client
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -151,7 +178,10 @@ from repro_torch.models import attention as attnmod  # noqa: E402
 from repro_torch.models import decode as decmod  # noqa: E402
 from repro_torch.models import moe as moemod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.serve import PagedServer, PoolConfig, Request, graphs  # noqa: E402
+from repro_torch.serve.frontdoor import FrontDoor, SchedConfig  # noqa: E402
+from repro_torch.serve.frontdoor.client import stream_generate  # noqa: E402
 from repro_torch.serve.pool import request_blocks  # noqa: E402
 
 # H100 SXM published dense peaks at 700 W (NVIDIA data sheet): the HBM rate
@@ -238,6 +268,10 @@ DENSE_GEMM_SHAPES = [
     (1020, 2048), (1020, 1024), (1020, 6144), (3062, 1024),
     (7146, 7168), (7146, 1024), (7146, 40960), (20418, 7168)]
 DENSE_GEMM_NS = [1, 3, 4, 8, 32, 48, 56, 64]
+# the lockstep prefill's rows: 8 prompts of 256 tokens at once, through
+# llama2's projections and Mixtral's attention (wq/wo, wk/wv)
+LOCKSTEP_ROWS = 8 * 256
+LOCKSTEP_GEMM_SHAPES = GEMM_SHAPES + [(4083, 1024)]
 # rows: decode (llama2 8 slots, the dense configs 4, Mixtral's E*C = 16),
 # prefill chunks (llama2 64 and the prefix path's 3, 48 and 56 after a
 # hit, Mixtral 160); widths: llama2's kept 4083 / 10974, Mixtral's expert
@@ -247,11 +281,14 @@ DENSE_GEMM_NS = [1, 3, 4, 8, 32, 48, 56, 64]
 RHT_NS = [1, 3, 4, 8, 16, 48, 56, 64, 160]
 RHT_DIMS = [2048, 4096, 8192, 16384, 4083, 8191, 10974, 14336, 20480,
             1020, 2041, 3062, 7146, 8167, 20418]
+# and the lockstep prefill's: 2048 rows at llama2's and Mixtral's kept
+# widths, Mixtral's experts' E*C = 8 * 640 rows at 4096 and 14336
+LOCKSTEP_RHT = [(2048, 4083), (2048, 10974), (5120, 4096), (5120, 14336)]
 RHT_TIMED = [(8, 4083), (8, 10974), (64, 4083), (8, 4096), (8, 16384),
              (16, 4096), (16, 14336), (160, 4096), (160, 14336)]
 TIME_SHAPES = [(1, 4083, 4096), (8, 4083, 4096), (8, 4083, 22016),
                (8, 10974, 4096), (64, 4083, 4096), (16, 4083, 4096),
-               (32, 4083, 4096)]
+               (32, 4083, 4096), (LOCKSTEP_ROWS, 4083, 4096)]
 # Mixtral's expert GEMMs (E, C, d, c): wi and wo at decode (8 slots, top-2:
 # C = 2) and at a 64-token prefill chunk (C = 20)
 GROUPED_SHAPES = [(8, 2, 4096, 28672), (8, 2, 14336, 4096),
@@ -259,10 +296,15 @@ GROUPED_SHAPES = [(8, 2, 4096, 28672), (8, 2, 14336, 4096),
 # checked, not timed: more rows per expert than one 64-row block holds
 # + the capacities speculation gives Mixtral's 8 slots: C = 5 for the
 # draft's catch-up (16 tokens), C = 10 for the verify (32 tokens)
+# + the lockstep prefill's capacity: 2048 tokens top-2 over 8 experts at
+# capacity factor 1.25, C = 640
+LOCKSTEP_CAP = 640
 GROUPED_CHECK_SHAPES = GROUPED_SHAPES + [(3, 100, 4083, 1024),
                                          (8, 5, 4096, 28672),
                                          (8, 10, 4096, 28672),
-                                         (8, 10, 14336, 4096)]
+                                         (8, 10, 14336, 4096),
+                                         (8, LOCKSTEP_CAP, 4096, 28672),
+                                         (8, LOCKSTEP_CAP, 14336, 4096)]
 FLASH_CASES = [  # name, b, s, h, kv, hd, causal, window, dtype
     ("mixtral S=4608 G=4 window 4096", 1, 4608, 32, 8, 128, True, 4096,
      torch.float32),
@@ -401,13 +443,42 @@ def gemm_bound(n, d, c, bits, fused=True):
                  (passes * n * dh * (dh.bit_length() - 1), CODES))
 
 
+def exact_gemm(x, packed, rescale, s1, s2, bits, d) -> torch.Tensor:
+    """The fused GEMM's function in f64 after the f32 rotation both entries
+    share: rht(x) @ (r * (codes - c_b)), x (n, d) or (E, C, d) (packed and
+    rescale with an expert axis then).  The yardstick the plain version and
+    the kernel are each measured against at the lockstep shapes."""
+    if x.dim() == 3:
+        return torch.stack([exact_gemm(x[i], packed[i], rescale[i], s1, s2,
+                                       bits, d) for i in range(x.shape[0])])
+    xr = hadamard.practical_rht(x.to(torch.float32), s1, s2, axis=-1)
+    c_b = ((1 << bits) - 1) / 2.0
+    codes = packing.unpack_codes(packed, bits, d).to(torch.float64) - c_b
+    return (xr.to(torch.float64) @ codes) * rescale.to(torch.float64)
+
+
+def exact_rel(worst: dict, x, packed, rescale, s1, s2, bits, d, got,
+              plain) -> None:
+    """The kernel's and the plain version's largest error against
+    ``exact_gemm``, relative to max|plain|, into ``worst``."""
+    exact = exact_gemm(x, packed, rescale, s1, s2, bits, d)
+    scale = float(plain.abs().max())
+    for key, t in (("kernel_vs_f64", got), ("plain_vs_f64", plain)):
+        rel = float((t.to(torch.float64) - exact).abs().max()) / scale
+        worst[key] = max(worst.get(key, 0.0), rel)
+
+
 def check_gemms(gen, dev) -> dict:
     """Both GEMM entries against their plain versions: bits 1-8 at every
     shape and its row counts (GEMM_SHAPES x GEMM_NS, DENSE_GEMM_SHAPES x
-    DENSE_GEMM_NS).  The unfused GEMM gets an already-rotated x."""
+    DENSE_GEMM_NS, LOCKSTEP_GEMM_SHAPES at LOCKSTEP_ROWS, where the fused
+    kernel and its plain version are also measured against ``exact_gemm``).
+    The unfused GEMM gets an already-rotated x."""
     worst = dict.fromkeys(("fused", "unfused", "rel"), 0.0)
     shapes = [(d, c, n) for group, ns in ((GEMM_SHAPES, GEMM_NS),
-                                          (DENSE_GEMM_SHAPES, DENSE_GEMM_NS))
+                                          (DENSE_GEMM_SHAPES, DENSE_GEMM_NS),
+                                          (LOCKSTEP_GEMM_SHAPES,
+                                           [LOCKSTEP_ROWS]))
               for d, c in group for n in ns]
     for d, c, n in shapes:
         for bits in GEMM_BITS:
@@ -429,9 +500,17 @@ def check_gemms(gen, dev) -> dict:
                       f"max|err| {err} > {RTOL} * {scale}")
                 worst[name] = max(worst[name], err)
                 worst["rel"] = max(worst["rel"], err / scale)
+            if n == LOCKSTEP_ROWS:
+                exact_rel(worst, x, packed, rescale, s1, s2, bits, d,
+                          *(cases["fused"]))
+    log(f"rht_qmatmul at n {LOCKSTEP_ROWS}, against f64: kernel "
+        f"{worst['kernel_vs_f64']:.2e}, plain {worst['plain_vs_f64']:.2e} "
+        f"of max|plain| (the split plan's MAX_CHUNKS_PER_SPLIT "
+        f"{qops.MAX_CHUNKS_PER_SPLIT})")
     log(f"rht_qmatmul and qmatmul: {len(shapes) * len(GEMM_BITS)} cases each "
         f"(bits 1-8; n {GEMM_NS} at {GEMM_SHAPES}, n {DENSE_GEMM_NS} at "
-        f"{DENSE_GEMM_SHAPES}) within {RTOL} * max|plain|; max|err| fused "
+        f"{DENSE_GEMM_SHAPES}, n {LOCKSTEP_ROWS} at {LOCKSTEP_GEMM_SHAPES}) "
+        f"within {RTOL} * max|plain|; max|err| fused "
         f"{worst['fused']:.3e}, unfused {worst['unfused']:.3e}; largest "
         f"|err|/max|plain| {worst['rel']:.2e}")
     return worst
@@ -494,48 +573,49 @@ def check_rht(gen, dev) -> dict:
     against its host walk of the same stages (ref.rotate_walk, on the card)."""
     worst = dict.fromkeys(("err", "rowsum_err", "walk_err"), 0.0)
     walk_equal = 0
-    for n in RHT_NS:
-        for d in RHT_DIMS:
-            x = torch.randn((n, d), generator=gen, device=dev)
-            s1, s2 = draw_signs(d, gen)
-            out_ld = -(-d // qops.K_CHUNK) * qops.K_CHUNK
-            got = hops.rht_cuda(x, s1, s2)
-            padded, rowsum = hops.rht_padded_cuda(x, s1, s2, out_ld)
-            again, again_sum = hops.rht_padded_cuda(x, s1, s2, out_ld)
-            want = hadamard.practical_rht(x, s1, s2)
-            walk, walk_sum = href.rotate_walk(x, s1, s2, *hops.rotate_plan(d),
-                                              out_ld=out_ld)
-            torch.cuda.synchronize()
-            err = max(float((got - want).abs().max()),
-                      float((padded[:, :d] - want).abs().max()))
-            sum_err = float((rowsum.double()
-                             - padded[:, :d].double().sum(1)).abs().max())
-            walk_err = max(float((padded - walk).abs().max()),
-                           float((rowsum - walk_sum).abs().max()))
-            what = f"rht n={n} d={d}"
-            check(bool(torch.isfinite(got).all()) and err <= RHT_ATOL,
-                  f"{what}: max|err| {err} > {RHT_ATOL}")
-            check(bool((padded[:, d:] == 0).all()),
-                  f"{what}: padding past d is not zero")
-            check(sum_err <= RHT_ATOL,
-                  f"{what}: row sum off by {sum_err} > {RHT_ATOL}")
-            check(torch.equal(padded, again) and torch.equal(rowsum, again_sum)
-                  and torch.equal(got, padded[:, :d]),
-                  f"{what}: two calls (or the two entries) differ")
-            check(walk_err <= RHT_ATOL,
-                  f"{what}: kernel vs its host walk {walk_err} > {RHT_ATOL}")
-            walk_equal += bool(walk_err == 0.0)
-            for k, v in (("err", err), ("rowsum_err", sum_err),
-                         ("walk_err", walk_err)):
-                worst[k] = max(worst[k], v)
-    cases = len(RHT_NS) * len(RHT_DIMS)
-    log(f"rht: {cases} cases (n {RHT_NS} x d {RHT_DIMS}), both entries "
+    cases = [(n, d) for n in RHT_NS for d in RHT_DIMS] + LOCKSTEP_RHT
+    for n, d in cases:
+        x = torch.randn((n, d), generator=gen, device=dev)
+        s1, s2 = draw_signs(d, gen)
+        out_ld = -(-d // qops.K_CHUNK) * qops.K_CHUNK
+        got = hops.rht_cuda(x, s1, s2)
+        padded, rowsum = hops.rht_padded_cuda(x, s1, s2, out_ld)
+        again, again_sum = hops.rht_padded_cuda(x, s1, s2, out_ld)
+        want = hadamard.practical_rht(x, s1, s2)
+        walk, walk_sum = href.rotate_walk(x, s1, s2, *hops.rotate_plan(d),
+                                          out_ld=out_ld)
+        torch.cuda.synchronize()
+        err = max(float((got - want).abs().max()),
+                  float((padded[:, :d] - want).abs().max()))
+        sum_err = float((rowsum.double()
+                         - padded[:, :d].double().sum(1)).abs().max())
+        walk_err = max(float((padded - walk).abs().max()),
+                       float((rowsum - walk_sum).abs().max()))
+        what = f"rht n={n} d={d}"
+        check(bool(torch.isfinite(got).all()) and err <= RHT_ATOL,
+              f"{what}: max|err| {err} > {RHT_ATOL}")
+        check(bool((padded[:, d:] == 0).all()),
+              f"{what}: padding past d is not zero")
+        check(sum_err <= RHT_ATOL,
+              f"{what}: row sum off by {sum_err} > {RHT_ATOL}")
+        check(torch.equal(padded, again) and torch.equal(rowsum, again_sum)
+              and torch.equal(got, padded[:, :d]),
+              f"{what}: two calls (or the two entries) differ")
+        check(walk_err <= RHT_ATOL,
+              f"{what}: kernel vs its host walk {walk_err} > {RHT_ATOL}")
+        walk_equal += bool(walk_err == 0.0)
+        for k, v in (("err", err), ("rowsum_err", sum_err),
+                     ("walk_err", walk_err)):
+            worst[k] = max(worst[k], v)
+    log(f"rht: {len(cases)} cases (n {RHT_NS} x d {RHT_DIMS}, and "
+        f"{LOCKSTEP_RHT}"
+        f"), both entries "
         f"within atol {RHT_ATOL} (max|err| {worst['err']:.3e}); padding "
         f"zero; row sums within {RHT_ATOL} of the rows' f64 sums (max "
         f"{worst['rowsum_err']:.3e}); two calls bitwise equal; the host walk "
-        f"bitwise equal in {walk_equal} of {cases} cases (max|diff| "
+        f"bitwise equal in {walk_equal} of {len(cases)} cases (max|diff| "
         f"{worst['walk_err']:.3e})")
-    return {**worst, "cases": cases, "walk_bitwise_equal": walk_equal}
+    return {**worst, "cases": len(cases), "walk_bitwise_equal": walk_equal}
 
 
 def time_rht(gen, dev, n, d, full=True) -> dict:
@@ -962,7 +1042,7 @@ def grouped_bound(e, cap, d, c, bits, fused=True):
                  (passes * e * cap * dh * (dh.bit_length() - 1), CODES))
 
 
-def check_grouped(gen, dev) -> tuple[float, float]:
+def check_grouped(gen, dev) -> dict:
     """The grouped GEMM kernels against their plain versions (the
     reference's vmap over experts written out), bits 1-8 at Mixtral's
     shapes: the fused entry, the unfused entry on an already-rotated x, and
@@ -987,6 +1067,9 @@ def check_grouped(gen, dev) -> tuple[float, float]:
                                                  bits=bits, d=d)),
                 "unfused dispatch": (dispatched, want)}
             torch.cuda.synchronize()
+            if cap == LOCKSTEP_CAP:
+                exact_rel(worst, x, packed, rescale, s1, s2, bits, d,
+                          *(cases["fused"]))
             for name, (got, ref) in cases.items():
                 err, scale = err_and_scale(got, ref)
                 check(bool(torch.isfinite(got).all()) and err <= RTOL * scale
@@ -998,11 +1081,14 @@ def check_grouped(gen, dev) -> tuple[float, float]:
                 worst[key] = max(worst[key], err)
             del x, packed, want, cases, dispatched
     n_cases = len(GROUPED_CHECK_SHAPES) * len(GEMM_BITS)
+    log(f"grouped rht_qmatmul at C {LOCKSTEP_CAP}, against f64: kernel "
+        f"{worst['kernel_vs_f64']:.2e}, plain {worst['plain_vs_f64']:.2e} "
+        f"of max|plain|")
     log(f"grouped rht_qmatmul and qmatmul: {n_cases} cases each (bits 1-8 x "
         f"(E, C, d, c) {GROUPED_CHECK_SHAPES}) plus the unfused dispatch, "
         f"within {RTOL} * max|plain|, zero rows exact; max|err| fused "
         f"{worst['fused']:.3e}, unfused {worst['unfused']:.3e}")
-    return worst["fused"], worst["unfused"]
+    return worst
 
 
 def time_grouped(gen, dev, e, cap, d, c, bits=4, fused=True) -> dict:
@@ -1459,8 +1545,9 @@ def requests(cfg, prompt_lens=PROMPT_LENS) -> list:
 
 
 def serve(cfg, params, dev, pool, fused=True,
-          prompt_lens=PROMPT_LENS) -> tuple:
-    engine = GapRecordingServer(cfg, params, pool, fused=fused, device=dev)
+          prompt_lens=PROMPT_LENS, paged_kernel=None) -> tuple:
+    engine = GapRecordingServer(cfg, params, pool, fused=fused,
+                                paged_kernel=paged_kernel, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -1575,6 +1662,12 @@ def mode_row(out) -> dict:
     return row
 
 
+def chunk_captures(pool, prompt_lens) -> int:
+    """Prompt-chunk lengths a graph run of ``prompt_lens`` captures."""
+    return len({min(pool.prefill_chunk, n - s) for n in prompt_lens
+                for s in range(0, n, pool.prefill_chunk)})
+
+
 def serve_four_ways(name, cfg, params, dev, pool, prompt_lens, labels=()
                     ) -> dict:
     """The same requests served four ways: by graph (the default), by eager
@@ -1607,10 +1700,9 @@ def serve_four_ways(name, cfg, params, dev, pool, prompt_lens, labels=()
     check(out["launches"] == eager["launches"],
           f"{name}: graph launches {out['launches']} != eager "
           f"{eager['launches']}")
-    check(out["captures"] == {"decode": 1, "chunk": len(
-        {min(pool.prefill_chunk, n - s) for n in prompt_lens
-         for s in range(0, n, pool.prefill_chunk)})}
-          and eager["captures"] == {"decode": 0, "chunk": 0},
+    check(out["captures"] == {"decode": 1, "chunk": chunk_captures(
+        pool, prompt_lens)} and eager["captures"] == {"decode": 0,
+                                                      "chunk": 0},
           f"{name}: captures graph {out['captures']}, eager "
           f"{eager['captures']}")
 
@@ -1682,17 +1774,27 @@ def serve_four_ways(name, cfg, params, dev, pool, prompt_lens, labels=()
 def divergences(base, other_results, other_engine) -> list:
     """Requests whose greedy tokens differ from ``base``'s; each must sit on
     a near-tie of the other run's logits."""
+    return tie_divergences("greedy tokens", token_lists(base),
+                           token_lists(other_results), other_engine.gaps)
+
+
+def tie_divergences(what: str, want: dict, got: dict, gaps: dict) -> list:
+    """Requests (rid -> token list in both ``want`` and ``got``) whose
+    tokens differ; each must first differ at a near-tie of the run that gave
+    ``got`` (``gaps``: (rid, step) -> (top-2 gap, max |logit|))."""
     out = []
-    for rid, r in base.items():
-        a, b = r.tokens, other_results[rid].tokens
-        if np.array_equal(a, b):
+    for rid, a in want.items():
+        b = got[rid]
+        check(len(a) == len(b), f"{what}: rid {rid} has {len(b)} tokens, "
+              f"not {len(a)}")
+        if a == b:
             continue
-        step = int(np.argmax(a != b))
-        gap, scale = other_engine.gaps[(rid, step)]
+        step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap, scale = gaps[(rid, step)]
         out.append({"rid": rid, "step": step, "gap": gap, "scale": scale})
         check(gap < GAP_TOL * scale,
-              f"rid {rid}: tokens diverge at step {step} where the top-2 gap "
-              f"{gap} >= {GAP_TOL} * {scale}")
+              f"{what}: rid {rid} diverges at step {step} where the top-2 "
+              f"gap {gap} >= {GAP_TOL} * {scale}")
     return out
 
 
@@ -1718,12 +1820,13 @@ def labelled(patches):
 
 
 def profile_decode(cfg, params, dev, pool, steps: int = 8,
-                   labels=()) -> dict:
+                   labels=(), paged_kernel=None) -> dict:
     """Where a decode step's time goes: 8 requests (prompt 128, 64 new
     tokens) are admitted and prefilled, then ``steps`` pure decode steps
     run on the host clock and ``steps`` more under torch.profiler
     (``profile_steps``)."""
-    engine = PagedServer(cfg, params, pool, device=dev)
+    engine = PagedServer(cfg, params, pool, paged_kernel=paged_kernel,
+                         device=dev)
     rng = np.random.default_rng(SEED + 1)
     for i in range(pool.max_slots):
         engine.submit(Request(rid=100 + i, max_new=64, prompt=rng.integers(
@@ -2205,13 +2308,13 @@ def arena_gib(engine) -> float:
 
 
 def spec_serve(cfg, params, dev, pool, draft=None, reqs=None,
-               overflow=None) -> tuple:
+               overflow=None, paged_kernel=None) -> tuple:
     """One run of ``reqs`` (default: the churn workload) on a fresh
     ``SpecServer``, speculating SPEC_K deep when ``draft`` is given; the
     peak memory is reset just before it."""
     kw = {"draft_params": draft, "speculate": SPEC_K} if draft else {}
     engine = SpecServer(cfg, params, pool, device=dev, overflow=overflow,
-                        **kw)
+                        paged_kernel=paged_kernel, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -2714,10 +2817,14 @@ def moe_serve_phase(dev, params) -> dict:
 # ------------------------------------------------------------ dense configs
 
 DENSE_ARCHS = ("internlm2-1.8b", "llama3.2-3b", "qwen3-0.6b", "yi-34b")
-# every dense config's depth is cut to 4 layers (widths as published): the
-# script's 1200 s limit holds the speculation phase beside them (at full
-# depth the three small configs took 164 s of a 588 s run); yi-34b's fp32
-# weights (2.2 GB a layer over 60 layers) would exceed the card's 80 GB
+# every dense config's depth is cut to 4 layers (widths as published).
+# yi-34b's fp32 weights (2.2 GB a layer over 60 layers) would exceed the
+# card's 80 GB.  The three small ones fit but the time does not: with them
+# at full depth the whole script ran 1059.8 s on an H100 (80GB HBM3, 700
+# W), past the 1050 s it keeps to, in phases of (s): kernels 49.6,
+# quantize 179.8, serve 157.6, prefix 71.8, speculation 218.8, gather
+# 41.0, front door 28.6, lockstep 16.0 + 1.9, Mixtral 24.1 + 75.8 + 22.8
+# and dense 172.0
 DENSE_LAYERS = 4
 DENSE_PROMPT_LENS = [64, 200, 128, 96]
 
@@ -2833,6 +2940,437 @@ def dense_phase(dev) -> dict:
         out[arch] = row
         del qparams
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------- the gather, the front door, lockstep
+
+
+def gather_phase(dev, params, draft, serve_out) -> dict:
+    """The dense gather behind ``PagedServer(paged_kernel=False)`` (the
+    CLI's ``--no-paged-kernel``) on llama2-7b over phase 5's requests: by
+    graph and eagerly (graph = eager exactly, the same launches, no
+    paged-attention launch), tokens equal phase 5's kernel run by graph but
+    at near-ties, a decode profile beside the kernel's; then one run
+    speculating SPEC_K deep from the DRAFT_BITS draft, whose verify steps
+    take the gather branch, tokens equal to the spec-off gather run."""
+    cfg = get_config("llama2-7b")
+    pool = llama2_pool()
+    runs = {}
+    for mode in ("graph", "eager"):
+        zero_counts()
+        with graphs.eager(mode == "eager"):
+            eng, res, wall = serve(cfg, params, dev, pool, paged_kernel=False)
+        summ = serve_summary(eng, res, wall, cfg, params)
+        summ.update(launches=counts(), request_tokens=token_lists(res))
+        runs[mode] = (eng, summ)
+    (graph_eng, out), (_, eager) = runs["graph"], runs["eager"]
+    same_as("gather eager against gather by graph", out["request_tokens"],
+            eager["request_tokens"])
+    check(out["launches"] == eager["launches"]
+          and out["launches"]["paged_attention"] == 0
+          and out["launches"]["rht_qmatmul"] > 0,
+          f"gather launches: graph {out['launches']}, eager "
+          f"{eager['launches']}")
+    check(out["captures"] == {"decode": 1, "chunk": chunk_captures(
+        pool, PROMPT_LENS)} and eager["captures"] == {"decode": 0,
+                                                      "chunk": 0},
+          f"gather captures: graph {out['captures']}, eager "
+          f"{eager['captures']}")
+    out["divergences"] = tie_divergences(
+        "gather against the kernel", serve_out["request_tokens"],
+        out["request_tokens"], graph_eng.gaps)
+    del graph_eng, runs
+    out["eager"] = {k: eager[k] for k in ("decode_step_ms", "prefill_s",
+                                          "wall_s", "launches")}
+    out["decode_profile"] = profile_decode(cfg, params, dev, pool,
+                                           paged_kernel=False)
+    kernel_ms = float(np.median(serve_out["repeats"]["decode_step_ms"]))
+    out["kernel"] = {
+        "decode_step_ms": kernel_ms,
+        "device_ms_per_step": serve_out["decode_profile"][
+            "device_ms_per_step"],
+        "eager_decode_step_ms": float(np.median(
+            serve_out["eager"]["repeats"]["decode_step_ms"]))}
+
+    zero_counts()
+    eng, res, wall = spec_serve(cfg, params, dev, pool, draft,
+                                paged_kernel=False)
+    spec = spec_summary(eng, res, wall, len(PROMPT_LENS))
+    del eng
+    same_as("gather spec against gather spec off", out["request_tokens"],
+            token_lists(res))
+    check(spec["launches"]["paged_attention"] == 0
+          and spec["captures"].get("verify") == 1,
+          f"gather spec: launches {spec['launches']}, captures "
+          f"{spec['captures']}")
+    out["spec"] = {k: spec[k] for k in (
+        "acceptance_rate", "spec_rounds", "ms_per_round",
+        "ms_per_emitted_token", "tokens_per_round", "captures", "launches")}
+    prof = out["decode_profile"]
+    log(f"llama2 gather (paged_kernel=False): decode ms/step "
+        f"{out['decode_step_ms']:.3f} by graph, {eager['decode_step_ms']:.3f} "
+        f"eager (kernel: {kernel_ms:.3f}, eager "
+        f"{out['kernel']['eager_decode_step_ms']:.3f}); device ms/step "
+        f"{prof['device_ms_per_step']} (kernel "
+        f"{out['kernel']['device_ms_per_step']}); prefill_s "
+        f"{out['prefill_s']:.4f}; tokens identical to the kernel run for "
+        f"{len(PROMPT_LENS) - len(out['divergences'])}/{len(PROMPT_LENS)} "
+        f"(near-tie divergences {out['divergences']}); graph = eager; "
+        f"launches {out['launches']}; speculating (k {SPEC_K}): "
+        f"acceptance_rate {spec['acceptance_rate']:.4f}, "
+        f"{spec['ms_per_round']:.3f} ms/round, tokens = spec off; "
+        f"{gpu_line()}")
+    return out
+
+
+# the front door's traffic: tenant, weight, priority by client parity, and
+# the one urgent request that arrives once every slot is busy
+FD_TENANTS = (("a", 2.0, 0), ("b", 1.0, 1))
+FD_URGENT = ("a", 2.0, 2)
+FD_DRIVER = "frontdoor-driver"
+
+
+class DriverServer(GapRecordingServer):
+    """A ``GapRecordingServer`` that records the thread making each capture
+    and, with CUDA events around each step's replay, the device time of the
+    engine's steps (``device_s``; the idle share of a window is the rest of
+    it; a replay is one launch, so the events bracket device work)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.capture_threads: dict = {}
+        self.step_events: list = []
+
+    def _compiled(self, key, fn, inert):
+        if key not in self.graphs.steps and not graphs.eager_enabled():
+            self.capture_threads[key] = threading.current_thread().name
+        step = super()._compiled(key, fn, inert)
+        events = self.step_events
+
+        def timed(inputs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(inputs)
+            end.record()
+            events.append((start, end))
+            return out
+        return timed
+
+    def device_s(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.step_events) / 1e3
+
+
+def fd_prompts(cfg, k: int) -> list:
+    """Pass ``k``'s 17 prompts: PROMPT_LENS twice and the urgent request's
+    128 tokens (last), fresh for each pass, so no pass hits another's
+    blocks in the prefix cache."""
+    rng = np.random.default_rng(SEED + 9 + k)
+    return [rng.integers(0, cfg.vocab, n).astype(np.int32)
+            for n in PROMPT_LENS * 2 + [128]]
+
+
+def fd_client(port: int, i: int, prompt, tenant: str, weight: float,
+              priority: int, record: dict) -> None:
+    """One streaming client: the events of its request with their seconds
+    since it sent it (or the exception it met) go to ``record[i]``."""
+    t0 = time.monotonic()
+    try:
+        record[i] = [(time.monotonic() - t0, event, data)
+                     for event, data in stream_generate(
+                         "127.0.0.1", port, tokens=prompt.tolist(),
+                         max_new=GEN_LEN, tenant=tenant, priority=priority,
+                         weight=weight, timeout=600.0)]
+    except Exception as exc:                              # noqa: BLE001
+        record[i] = exc
+
+
+def http_get(port: int, path: str) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def percentiles(values) -> dict:
+    v = np.asarray(values, np.float64)
+    return {"p50": float(np.percentile(v, 50)),
+            "p95": float(np.percentile(v, 95)), "n": int(v.size)}
+
+
+def frontdoor_pass(engine, sched: SchedConfig, prompts) -> dict:
+    """One pass of the front door's traffic over ``engine`` (a
+    ``DriverServer``): a ``FrontDoor`` on port 0 served on a thread of this
+    process, a streaming client (a thread) for each prompt but the last,
+    the last (urgent) one once every slot is busy, /healthz and /v1/stats,
+    then a clean stop."""
+    engine.stats, engine.gaps, engine.step_events = {}, {}, []
+    engine.decode_gaps.clear()
+    engine.start_clock(reset=True)
+    door = FrontDoor(engine, sched, port=0)
+    failures = []
+
+    def serve_():
+        try:
+            door.serve_forever()
+        except BaseException as exc:                      # noqa: BLE001
+            failures.append(repr(exc))
+    server = threading.Thread(target=serve_, name="frontdoor-server")
+    server.start()
+    check(door.ready.wait(60), "the front door did not start listening")
+    record: dict = {}
+    *streams, urgent = prompts
+    clients = [threading.Thread(target=fd_client, args=(
+        door.port, i, p, *FD_TENANTS[i % 2], record))
+        for i, p in enumerate(streams)]
+    t0 = time.monotonic()
+    for c in clients:
+        c.start()
+    deadline = time.monotonic() + 120
+    while engine.free_slots and time.monotonic() < deadline:
+        time.sleep(0.001)
+    slots_busy = not engine.free_slots
+    late = threading.Thread(target=fd_client, args=(
+        door.port, len(streams), urgent, *FD_URGENT, record))
+    late.start()
+    for c in clients + [late]:
+        c.join(600)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    health, stats_body = http_get(door.port, "/healthz"), http_get(
+        door.port, "/v1/stats")
+    sched_stats = dict(door.scheduler.stats)
+    door.stop()
+    server.join(120)
+    check(not server.is_alive() and not failures and door.failure is None,
+          f"the front door did not stop cleanly: {failures}")
+    check(slots_busy, "the slots never filled before the urgent request")
+    check(health[0] == 200 and stats_body[0] == 200,
+          f"/healthz {health[0]}, /v1/stats {stats_body[0]}")
+    stats = json.loads(stats_body[1])
+    check({"engine", "scheduler", "queued"} <= set(stats),
+          f"/v1/stats: {sorted(stats)}")
+    bad = {i: r for i, r in record.items() if not isinstance(r, list)}
+    check(len(record) == len(prompts) and not bad, f"clients failed: {bad}")
+    return {"record": record, "wall_s": wall, "sched": sched_stats,
+            "device_s": engine.device_s(), "stats": stats,
+            "engine_stats": dict(engine.stats), "gaps": dict(engine.gaps)}
+
+
+def fd_streams(what: str, out: dict, want: list) -> dict:
+    """Check one pass's streams against ``want`` (the tokens of each
+    prompt, the urgent one last): each stream's token events are its done
+    event's tokens, no error event, tokens equal ``want`` but at a near-tie
+    of the front door's engine, a replayed request exactly equal; returns
+    its client-side latencies and counts."""
+    ttft, itl, preempted = [], [], []
+    got_by_rid, want_by_rid = {}, {}
+    for i, events in out["record"].items():
+        kinds = [e for _, e, _ in events]
+        check("error" not in kinds and kinds.count("done") == 1
+              and kinds[-1] == "done", f"{what}: client {i} events {kinds}")
+        done = events[-1][2]
+        toks = [d["token"] for _, e, d in events if e == "token"]
+        times = [t for t, e, _ in events if e == "token"]
+        check(done["n_tokens"] == len(toks) == GEN_LEN
+              and done["tokens"] == toks,
+              f"{what}: client {i} streamed {len(toks)} tokens, done says "
+              f"{done['n_tokens']}")
+        ttft.append(times[0])
+        itl.extend(np.diff(times).tolist())
+        got_by_rid[done["rid"]], want_by_rid[done["rid"]] = toks, want[i]
+        if done["preemptions"]:
+            preempted.append(i)
+            check(toks == want[i], f"{what}: the replayed client {i}'s "
+                  f"tokens differ from the uninterrupted run's")
+    divs = tie_divergences(f"{what} against PagedServer.run", want_by_rid,
+                           got_by_rid, out["gaps"])
+    st = out["engine_stats"]
+    gaps = st.get("decode_gap_s", [])
+    res = {"ttft_s": percentiles(ttft), "inter_token_s": percentiles(itl),
+           "engine_decode_gap_s": percentiles(gaps) if gaps else None,
+           "decode_step_ms": 1e3 * st["decode_s"] / st["decode_steps"],
+           "decode_steps": st["decode_steps"],
+           "prefill_chunks": st["prefill_chunks"], "wall_s": out["wall_s"],
+           "preempted_clients": preempted, "divergences": divs,
+           "scheduler": out["sched"],
+           "idle_share": (1 - out["device_s"] / out["wall_s"]
+                          if out["device_s"] else None)}
+    check(out["sched"].get("preempted", 0) >= 1 and preempted,
+          f"{what}: no request was preempted ({out['sched']})")
+    return res
+
+
+def run_summary(engine, wall: float) -> dict:
+    """A ``DriverServer`` window's decode ms/step and device idle share."""
+    st = engine.stats
+    return {"decode_step_ms": 1e3 * st["decode_s"] / st["decode_steps"],
+            "decode_steps": st["decode_steps"],
+            "prefill_chunks": st["prefill_chunks"], "wall_s": wall,
+            "idle_share": 1 - engine.device_s() / wall}
+
+
+def frontdoor_phase(dev, params) -> dict:
+    """The streaming front door over llama2-7b's engine (8 slots, block 16,
+    chunk 64, f32 KV), two passes of the same traffic on fresh prompts: 16
+    concurrent streaming clients, two tenants of weights 2:1 at priorities
+    0 and 1, 32 new tokens each, and a priority-2 request once every slot
+    is busy, which must preempt one.  Pass 2 sets the SLO controller's
+    target at half pass 1's median decode gap, and must throttle prefill.
+    Both passes run on one engine, whose captures are all made in the
+    driver thread.  Each stream's tokens are held to ``PagedServer.run``'s
+    of the same pass's prompts on an identically configured engine, whose
+    decode ms/step and idle share stand beside the front door's (device
+    time from CUDA events around each step's replay)."""
+    cfg = get_config("llama2-7b")
+    pool = llama2_pool()
+    prompts = {k: fd_prompts(cfg, k) for k in (1, 2)}
+    ref = DriverServer(cfg, params, pool, device=dev)
+    want, out = {}, {}
+    for k in (1, 2):
+        ref.stats, ref.step_events = {}, []
+        t0 = time.monotonic()
+        res = ref.run([Request(rid=i, prompt=p, max_new=GEN_LEN)
+                       for i, p in enumerate(prompts[k])])
+        torch.cuda.synchronize()
+        out[f"run{k}"] = run_summary(ref, time.monotonic() - t0)
+        want[k] = [[int(t) for t in res[i].tokens]
+                   for i in range(len(prompts[k]))]
+    del ref, res
+
+    engine = DriverServer(cfg, params, pool, device=dev)
+    zero_counts()
+    first = frontdoor_pass(engine, SchedConfig(), prompts[1])
+    out["launches"] = counts()
+    out["pass1"] = fd_streams("front door pass 1", first, want[1])
+    target = 0.5e3 * out["pass1"]["engine_decode_gap_s"]["p50"]
+    second = frontdoor_pass(engine, SchedConfig(slo_p95_ms=target),
+                            prompts[2])
+    out["pass2"] = fd_streams("front door pass 2", second, want[2])
+    out["pass2"]["slo_p95_ms"] = target
+    check(out["pass2"]["scheduler"].get("slo_throttled_ticks", 0) >= 1,
+          f"pass 2 never throttled prefill: {out['pass2']['scheduler']}")
+    out["captures"] = dict(engine.graphs.captures)
+    out["capture_threads"] = sorted(set(engine.capture_threads.values()))
+    check(engine.decode_trace_count == 1
+          and out["capture_threads"] == [FD_DRIVER],
+          f"front door captures {out['captures']} made in "
+          f"{out['capture_threads']}")
+    check(out["launches"]["paged_attention"] > 0
+          and out["launches"]["rht_qmatmul"] > 0,
+          f"front door launches {out['launches']}")
+
+    def lat(k):
+        p, r = out[f"pass{k}"], out[f"run{k}"]
+        return (f"TTFT p50/p95 {p['ttft_s']['p50']:.4f}/"
+                f"{p['ttft_s']['p95']:.4f} s, inter-token p50/p95 "
+                f"{p['inter_token_s']['p50'] * 1e3:.3f}/"
+                f"{p['inter_token_s']['p95'] * 1e3:.3f} ms, engine decode "
+                f"{p['decode_step_ms']:.3f} ms/step over {p['decode_steps']}"
+                f" steps, idle share {p['idle_share']:.4f}, preempted "
+                f"clients {p['preempted_clients']} (run's: "
+                f"{r['decode_step_ms']:.3f} ms/step over {r['decode_steps']}"
+                f" steps, idle share {r['idle_share']:.4f})")
+    log(f"front door (llama2, 17 streams over 8 slots, 2 tenants 2:1, one "
+        f"urgent): pass 1 {lat(1)}; pass 2 (SLO {target:.3f} ms, "
+        f"{out['pass2']['scheduler'].get('slo_throttled_ticks')} throttled "
+        f"ticks) {lat(2)}; near-tie divergences "
+        f"{[out[f'pass{k}']['divergences'] for k in (1, 2)]}; captures "
+        f"{out['captures']} in {out['capture_threads']}; launches (pass 1) "
+        f"{out['launches']}; {gpu_line()}")
+    return out
+
+
+LOCKSTEP_PROMPT = 256
+LOCKSTEP_REQUESTS = 8
+LOCKSTEP_MODES = {  # mode -> (fused, eager)
+    "llama2": {"graph": (True, False), "eager": (True, True),
+               "unfused": (False, False)},
+    "mixtral": {"graph": (True, False), "eager": (True, True)}}
+
+
+def lockstep_phase(name, cfg, params, dev, paged: bool) -> dict:
+    """``BatchedServer`` (aligned prefill, lockstep decode) over
+    LOCKSTEP_REQUESTS random prompts of LOCKSTEP_PROMPT tokens, GEN_LEN new
+    each, in each of LOCKSTEP_MODES[name]: two calls per mode (the first
+    counted from zero, capturing; the second timed, tokens equal).  Graph =
+    eager exactly, no paged-attention launch; with ``paged``, the paged
+    engine serves the same prompts and the lockstep tokens equal its tokens
+    but at near-ties (of the paged run's logits)."""
+    prompts = np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab, (LOCKSTEP_REQUESTS, LOCKSTEP_PROMPT)).astype(np.int32)
+    out = {}
+    for mode, (fused, eager) in LOCKSTEP_MODES[name].items():
+        zero_counts()
+        with graphs.eager(eager):
+            server = BatchedServer(cfg, params,
+                                   max_context=LOCKSTEP_PROMPT + GEN_LEN,
+                                   fused=fused, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            first = server.generate(prompts, GEN_LEN)
+            launches = counts()
+            again = server.generate(prompts, GEN_LEN)
+        st = server.stats
+        check(first.shape == (LOCKSTEP_REQUESTS, GEN_LEN)
+              and bool(((first >= 0) & (first < cfg.vocab)).all())
+              and np.array_equal(first, again),
+              f"lockstep {name} {mode}: malformed or unrepeatable tokens")
+        check(launches["paged_attention"] == 0,
+              f"lockstep {name} {mode} launched paged attention: {launches}")
+        out[mode] = {"request_tokens": first.tolist(), "launches": launches,
+                     "prefill_s": st["prefill_s"],
+                     "decode_step_ms": 1e3 * st["decode_s"]
+                     / st["decode_steps"],
+                     "captures": server.decode_trace_count,
+                     "capture_s": server.graphs.capture_s,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated()
+                     / 2**30}
+        del server
+    graph, eager = out["graph"], out["eager"]
+    check(graph["request_tokens"] == eager["request_tokens"]
+          and graph["launches"] == eager["launches"],
+          f"lockstep {name}: graph and eager differ in tokens or launches")
+    check(graph["captures"] == 1 and eager["captures"] == 0,
+          f"lockstep {name}: captures graph {graph['captures']}, eager "
+          f"{eager['captures']}")
+    if "unfused" in out:
+        unf = out["unfused"]["launches"]
+        check(unf["rht"] > 0 and unf["qmatmul"] > 0
+              and unf["rht_qmatmul"] == 0,
+              f"lockstep {name} unfused launches {unf}")
+        out["unfused"]["identical_to_fused"] = (
+            out["unfused"]["request_tokens"] == graph["request_tokens"])
+    if paged:
+        zero_counts()
+        eng = GapRecordingServer(cfg, params, llama2_pool(), device=dev)
+        t0 = time.monotonic()
+        res = eng.run([Request(rid=i, prompt=p, max_new=GEN_LEN)
+                       for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        st = eng.stats
+        out["paged"] = {"prefill_s": st["prefill_s"],
+                        "decode_step_ms": 1e3 * st["decode_s"]
+                        / st["decode_steps"],
+                        "decode_steps": st["decode_steps"],
+                        "wall_s": time.monotonic() - t0}
+        out["paged"]["divergences"] = tie_divergences(
+            f"lockstep {name} against the paged engine",
+            dict(enumerate(graph["request_tokens"])), token_lists(res),
+            eng.gaps)
+        del eng
+    log(f"lockstep {name} ({LOCKSTEP_REQUESTS} x {LOCKSTEP_PROMPT} prompt "
+        f"tokens, {GEN_LEN} new): " + "; ".join(
+            f"{mode} prefill_s {r['prefill_s']:.4f}, decode "
+            f"{r['decode_step_ms']:.3f} ms/step"
+            for mode, r in out.items())
+        + f"; graph = eager; launches {graph['launches']}"
+        + (f"; paged near-tie divergences {out['paged']['divergences']}"
+           if paged else "") + f"; {gpu_line()}")
     return out
 
 
@@ -2995,6 +3533,55 @@ def spec_main(dev, smi) -> int:
     return 0
 
 
+def frontdoor_main(dev, smi) -> int:
+    """``--frontdoor``: build every kernel, quantize llama2-7b with its
+    DRAFT_BITS draft as the full run does (without the plain code-search
+    comparison), serve phase 5's requests once by graph on the kernel (the
+    tokens and numbers the gather is held to, a decode profile), then
+    ``gather_phase``, ``frontdoor_phase`` and ``lockstep_phase`` for llama2;
+    then Mixtral's quantization and its ``lockstep_phase``.  Prints one
+    JSON line (also ``chiprun_out/chip_smoke_frontdoor.json``)."""
+    _build.build()
+    cfg = get_config("llama2-7b")
+    pool = llama2_pool()
+    quant, qparams, draft = quantize_phase(dev, compare=False,
+                                           draft_bits=DRAFT_BITS)
+    zero_counts()
+    eng, res, wall = serve(cfg, qparams, dev, pool)
+    kernel = serve_summary(eng, res, wall, cfg, qparams)
+    del eng
+    with graphs.eager():
+        eng, _, _ = serve(cfg, qparams, dev, pool)
+    kernel.update(request_tokens=token_lists(res),
+                  repeats={"decode_step_ms": [kernel["decode_step_ms"]]},
+                  eager={"repeats": {"decode_step_ms": [
+                      1e3 * eng.stats["decode_s"]
+                      / eng.stats["decode_steps"]]}},
+                  decode_profile=profile_decode(cfg, qparams, dev, pool))
+    del eng
+    out = {"gpu": smi, "quantize": quant, "phase_s": {}}
+    for name, fn, args in (
+            ("gather", gather_phase, (dev, qparams, draft, kernel)),
+            ("frontdoor", frontdoor_phase, (dev, qparams)),
+            ("lockstep_llama2", lockstep_phase,
+             ("llama2", cfg, qparams, dev, True))):
+        t0 = time.monotonic()
+        out[name] = fn(*args)
+        out["phase_s"][name] = time.monotonic() - t0
+    del qparams, draft
+    torch.cuda.empty_cache()
+    _, moe_params, _ = moe_quantize_phase(dev, compare=False)
+    t0 = time.monotonic()
+    out["lockstep_mixtral"] = lockstep_phase("mixtral", moe_config(),
+                                             moe_params, dev, False)
+    out["phase_s"]["lockstep_mixtral"] = time.monotonic() - t0
+    out["seconds"] = time.monotonic() - T_START
+    (OUT_DIR / "chip_smoke_frontdoor.json").write_text(
+        json.dumps(out, indent=1))
+    log(json.dumps(compact(out)))
+    return 0
+
+
 def compact(node):
     """``node`` without its token lists, per-step lists and profiles (for
     a line short enough for the end of the output)."""
@@ -3026,6 +3613,8 @@ def main() -> int:
         return prefix_main(dev, smi)
     if sys.argv[1:] == ["--speculation"]:
         return spec_main(dev, smi)
+    if sys.argv[1:] == ["--frontdoor"]:
+        return frontdoor_main(dev, smi)
     if modes:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3068,7 +3657,9 @@ def main() -> int:
             log(f"{name} time {json.dumps(t)}")
     attn_times = time_attentions(gen, dev)
     attn_time = attn_times[0]            # llama2's shape, f32
-    grouped_err, grouped_unfused_err = check_grouped(gen, dev)
+    grouped_check = check_grouped(gen, dev)
+    grouped_err, grouped_unfused_err = (grouped_check["fused"],
+                                        grouped_check["unfused"])
     flash_err = check_flash(gen, dev)
     grouped_times = [time_grouped(gen, dev, *shape)
                      for shape in GROUPED_SHAPES]
@@ -3083,23 +3674,41 @@ def main() -> int:
             log(f"{name} time {json.dumps(t)}")
     torch.cuda.empty_cache()
 
-    quant_out, qparams, draft = quantize_phase(dev, draft_bits=DRAFT_BITS)
-    serve_out = serve_phase(dev, qparams)
-    prefix_out = prefix_phase(dev, qparams)
-    spec_out = spec_phase(dev, qparams, draft, serve_out["request_tokens"],
-                          prefix_out["on"]["request_tokens"],
-                          float(np.median(serve_out["repeats"][
-                              "decode_step_ms"])), serve_out["peak_mem_gib"])
+    phase_s = {"kernels": time.monotonic() - T_START}
+
+    def timed(name, fn, *a):
+        t0 = time.monotonic()
+        out = fn(*a)
+        phase_s[name] = time.monotonic() - t0
+        return out
+
+    quant_out, qparams, draft = timed("quantize", quantize_phase, dev, True,
+                                      DRAFT_BITS)
+    serve_out = timed("serve", serve_phase, dev, qparams)
+    prefix_out = timed("prefix", prefix_phase, dev, qparams)
+    spec_out = timed("speculation", spec_phase, dev, qparams, draft,
+                     serve_out["request_tokens"],
+                     prefix_out["on"]["request_tokens"],
+                     float(np.median(serve_out["repeats"]["decode_step_ms"])),
+                     serve_out["peak_mem_gib"])
+    gather_out = timed("gather", gather_phase, dev, qparams, draft,
+                       serve_out)
+    frontdoor_out = timed("frontdoor", frontdoor_phase, dev, qparams)
+    lockstep_out = timed("lockstep_llama2", lockstep_phase, "llama2",
+                         get_config("llama2-7b"), qparams, dev, True)
     del qparams, draft
     torch.cuda.empty_cache()
-    moe_quant, moe_params, moe_draft = moe_quantize_phase(
-        dev, draft_bits=DRAFT_BITS)
-    moe_serve = moe_serve_phase(dev, moe_params)
-    moe_spec = moe_spec_phase(dev, moe_params, moe_draft,
-                              moe_serve["request_tokens"])
+    moe_quant, moe_params, moe_draft = timed(
+        "mixtral_quantize", moe_quantize_phase, dev, True, DRAFT_BITS)
+    moe_serve = timed("mixtral_serve", moe_serve_phase, dev, moe_params)
+    moe_spec = timed("mixtral_speculation", moe_spec_phase, dev, moe_params,
+                     moe_draft, moe_serve["request_tokens"])
+    moe_lockstep = timed("lockstep_mixtral", lockstep_phase, "mixtral",
+                         moe_config(), moe_params, dev, False)
     del moe_params, moe_draft
     torch.cuda.empty_cache()
-    dense_out = dense_phase(dev)
+    dense_out = timed("dense", dense_phase, dev)
+    log(f"phase seconds: {json.dumps(phase_s)}")
 
     # launches per path, each from that path's own run with every count
     # zeroed just before it: the quantize run (the code search), the fused
@@ -3108,8 +3717,10 @@ def main() -> int:
     # graph (it reuses llama2's quantization and runs fused only); the
     # speculation paths are the first graph run with the DRAFT_BITS draft
     # (llama2, Mixtral; their quantizations are counted with the targets')
-    # and the bf16-arena path llama2's spec-off graph run; each dense
-    # config counts its own quantization, fused and unfused runs
+    # and the bf16-arena path llama2's spec-off graph run; the gather path
+    # is llama2's paged_kernel=False run by graph, the front door its first
+    # pass, the lockstep paths each mode's first call; each dense config
+    # counts its own quantization, fused and unfused runs
     none = dict.fromkeys(counts(), 0)
     runs = {"llama2": {"quantize": quant_out["code_search_launches"],
                        "fused": serve_out["launches"],
@@ -3127,7 +3738,20 @@ def main() -> int:
                             "fused": spec_out["bf16"]["off graph"][
                                 "launches"], "unfused": none},
             "mixtral_spec": {"quantize": 0, "fused": moe_spec["launches"],
-                             "unfused": none}}
+                             "unfused": none},
+            "llama2_gather": {"quantize": 0, "fused": gather_out["launches"],
+                              "unfused": none},
+            "frontdoor": {"quantize": 0, "fused": frontdoor_out["launches"],
+                          "unfused": none},
+            "lockstep_llama2": {"quantize": 0,
+                                "fused": lockstep_out["graph"]["launches"],
+                                "unfused": none},
+            "lockstep_llama2_unfused": {
+                "quantize": 0, "fused": none,
+                "unfused": lockstep_out["unfused"]["launches"]},
+            "lockstep_mixtral": {"quantize": 0,
+                                 "fused": moe_lockstep["graph"]["launches"],
+                                 "unfused": none}}
     runs.update({arch: {"quantize": row["code_search_launches"],
                         "fused": row["graph"]["launches"],
                         "unfused": row["unfused"]["launches"]}
@@ -3142,15 +3766,20 @@ def main() -> int:
                     for path, r in runs.items()}
         return {path: r[run][kernel] for path, r in runs.items()}
     spec = ("llama2_spec", "llama2_bf16", "mixtral_spec")
+    lockstep = ("lockstep_llama2", "lockstep_mixtral")
     on_path = {  # kernel -> (run that counts it, paths that must launch it)
         "rht_qmatmul": ("fused", ("llama2", "mixtral", "llama2_prefix",
-                                  *spec, *dense)),
+                                  *spec, *dense, "llama2_gather",
+                                  "frontdoor", *lockstep)),
         "paged_attention": ("fused", ("llama2", "mixtral", "llama2_prefix",
-                                      *spec, *dense)),
-        "qmatmul": ("unfused", ("llama2", "mixtral", *dense)),
-        "rht": ("unfused", ("llama2", "mixtral", *dense)),
+                                      *spec, *dense, "frontdoor")),
+        "qmatmul": ("unfused", ("llama2", "mixtral", *dense,
+                                "lockstep_llama2_unfused")),
+        "rht": ("unfused", ("llama2", "mixtral", *dense,
+                            "lockstep_llama2_unfused")),
         "rabitq_quant": ("quantize", ("llama2", "mixtral", *dense)),
-        "grouped_rht_qmatmul": ("fused", ("mixtral", "mixtral_spec")),
+        "grouped_rht_qmatmul": ("fused", ("mixtral", "mixtral_spec",
+                                          "lockstep_mixtral")),
         "grouped_qmatmul": ("unfused", ("mixtral",)),
         "flash_attention": ("fused", ()),
     }
@@ -3158,6 +3787,11 @@ def main() -> int:
     for k, (_, paths) in on_path.items():
         check(all(launches[k][p] > 0 for p in paths),
               f"{k}: not launched on every path that runs it: {launches[k]}")
+    # the gather and lockstep paths read their KV without the paged kernel
+    check(not any(launches["paged_attention"][p] for p in (
+        "llama2_gather", *lockstep, "lockstep_llama2_unfused")),
+          f"paged attention launched off its paths: "
+          f"{launches['paged_attention']}")
     # the GEMM kernel's launches by serve run and phase
     gemms = {path: {run: r["gemm_launches"] for run, r in (
                  ("fused", serve_r), ("unfused", serve_r["unfused"]))}
@@ -3194,6 +3828,9 @@ def main() -> int:
               "src/repro/kernels/qmatmul/qmatmul.py:164", gemm_err,
               decode_gemm, ("n", "d", "c", "bits"),
               prefill={k: prefill_gemm[k] for k in (
+                  "n", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms")},
+              lockstep_prefill={k: gemm_times[-1][k] for k in (
                   "n", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms")},
               gemm_launches_by_run_and_phase=gemms,
@@ -3269,11 +3906,14 @@ def main() -> int:
               "serve": serve_out, "grouped_times": grouped_times,
               "grouped_unfused_times": grouped_unfused_times,
               "flash_times": flash_times,
-              "gemm_check": gemm_worst, "mixtral_quantize": moe_quant,
+              "gemm_check": gemm_worst, "grouped_check": grouped_check,
+              "mixtral_quantize": moe_quant,
               "mixtral_serve": moe_serve, "prefix_cache": prefix_out,
               "speculation": spec_out, "mixtral_speculation": moe_spec,
+              "gather": gather_out, "frontdoor": frontdoor_out,
+              "lockstep": {"llama2": lockstep_out, "mixtral": moe_lockstep},
               "dense_configs": dense_out, "kernels": kernels,
-              "seconds": time.monotonic() - T_START}
+              "phase_s": phase_s, "seconds": time.monotonic() - T_START}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log(f"chip_smoke: {detail['seconds']:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -66,8 +66,8 @@ def credit_launches(per_call: dict[str, int], times: int = 1) -> None:
 
 def plain_forced() -> bool:
     """Whether a serving kernel's wrapper is forced onto its plain version
-    (``set_forced_path("ref")``, or ``paged_kernel(False)``)."""
-    pops = _ops("paged_attention")
-    return (any(_ops(m)._FORCE_PATH == "ref"
-                for m in ("qmatmul", "hadamard", "paged_attention"))
-            or pops._USE_KERNEL.get() is False)
+    (``set_forced_path("ref")``).  ``paged_kernel(False)`` is not: it
+    selects the dense gather, which reads nothing back to the host and is
+    captured like the kernel."""
+    return any(_ops(m)._FORCE_PATH == "ref"
+               for m in ("qmatmul", "hadamard", "paged_attention"))

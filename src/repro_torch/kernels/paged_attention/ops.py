@@ -5,11 +5,17 @@ over the block arena routes through.  Mirrors
 Paths:
   * a CUDA tensor -> the hand-written flash-decode kernel
     (``csrc/paged_attention.cu``),
-  * a CPU tensor  -> the plain block-walking version (``ref.py``).
+  * a CPU tensor  -> the plain block-walking version (``ref.py``),
+  * ``paged_kernel(False)`` -> the reference's dense gather
+    (``ref.paged_attention_gather``) on either device: the CLI's
+    ``--no-paged-kernel`` A/B baseline, which a CUDA graph can capture.
 
-``paged_kernel(False)`` (scoped) and ``set_forced_path("ref")`` run the
-plain version on the card too, so a smoke run can hold the kernel against
-it; neither is the default.  A CUDA tensor never falls back on its own.
+``set_forced_path("ref")`` runs the plain block walk on the card too, so a
+smoke run can hold the kernel against it; it reads the host, so the engine
+captures nothing while it is set.  Neither switch is the default, and a
+CUDA tensor never falls back on its own.  ``paged_kernel`` is scoped (a
+``contextvars.ContextVar``, as in the reference), so the engine enters its
+own setting inside every step rather than relying on its caller's.
 
 Kernel source note — replaces ``repro/kernels/paged_attention/paged.py:
 paged_attention_pallas`` (``_kernel``).  The Pallas grid (B, KV, MB) walks
@@ -45,7 +51,8 @@ import functools
 
 import torch
 
-from .ref import MIN_SPLIT_KEYS, TILE_KEYS, paged_attention_ref
+from .ref import (MIN_SPLIT_KEYS, TILE_KEYS, paged_attention_gather,
+                  paged_attention_ref)
 
 _FORCE_PATH: str | None = None  # "kernel" | "ref" | None — tests poke this
 _USE_KERNEL: contextvars.ContextVar[bool | None] = contextvars.ContextVar(
@@ -65,8 +72,9 @@ def set_forced_path(path: str | None) -> None:
 
 @contextlib.contextmanager
 def paged_kernel(enabled: bool | None):
-    """Scoped kernel-vs-plain toggle (True = CUDA kernel, False = plain
-    version, None = by the tensor's device)."""
+    """Scoped kernel-vs-gather toggle (True = the CUDA kernel, False = the
+    dense gather, None = by the tensor's device: the kernel on the card,
+    its plain block walk on the host).  Nests and unwinds."""
     token = _USE_KERNEL.set(enabled if enabled is None else bool(enabled))
     try:
         yield
@@ -74,15 +82,27 @@ def paged_kernel(enabled: bool | None):
         _USE_KERNEL.reset(token)
 
 
-def _use_kernel(q: torch.Tensor) -> bool:
-    use = _USE_KERNEL.get()
+def kernel_enabled() -> bool:
+    """Whether the paged attention read resolves to the kernel's path (the
+    CUDA kernel, or its plain block walk on the host) rather than the dense
+    gather under the current scope, as the reference's ``kernel_enabled``:
+    the verify step reads it to pick its order of arena writes and reads."""
+    return _FORCE_PATH is not None or _USE_KERNEL.get() is not False
+
+
+def _resolve(q: torch.Tensor) -> str:
+    """"kernel", "ref" (the block walk) or "gather" for a read of ``q``."""
     if _FORCE_PATH is not None:
         use = _FORCE_PATH == "kernel"
+    else:
+        use = _USE_KERNEL.get()
+        if use is False:
+            return "gather"
     if use is None:
-        return q.is_cuda
+        use = q.is_cuda
     if use and not q.is_cuda:
         raise RuntimeError("the CUDA kernel path needs tensors on the card")
-    return use
+    return "kernel" if use else "ref"
 
 
 def paged_attention(q, k_arena, v_arena, block_table, pos, ring_cap, *,
@@ -92,11 +112,13 @@ def paged_attention(q, k_arena, v_arena, block_table, pos, ring_cap, *,
     (B,) -> (B, W, H, hd).  ``window`` is None or at least 1."""
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
-    if _use_kernel(q):
+    path = _resolve(q)
+    if path == "kernel":
         return paged_attention_cuda(q, k_arena, v_arena, block_table, pos,
                                     ring_cap, window=window)
-    return paged_attention_ref(q, k_arena, v_arena, block_table, pos,
-                               ring_cap, window=window)
+    plain = paged_attention_gather if path == "gather" else paged_attention_ref
+    return plain(q, k_arena, v_arena, block_table, pos, ring_cap,
+                 window=window)
 
 
 def _lib():

@@ -1,11 +1,20 @@
-"""Plain PyTorch versions of paged flash-decode attention.
+"""Plain PyTorch versions of paged flash-decode attention, and the dense
+gather path.
 
 ``paged_attention_ref`` is the plain version the wrapper runs on the host
 and the card's kernel is held against.  Unlike the reference's dense-gather
 oracle (``repro/kernels/paged_attention/ref.py``), it walks the block table
 block by block with the kernel's online softmax, floor-mod stored-position
 mask, explicit re-mask after the exp and trailing-block skip.  Its result
-equals the dense softmax up to f32 rounding.
+equals the dense softmax up to f32 rounding.  It reads its block count back
+to the host, so a step that runs it cannot be captured as a CUDA graph.
+
+``paged_attention_gather`` is the reference's dense gather, ported as it
+is: every request's blocks gathered into a dense copy, then one masked
+softmax.  It is the serving path under ``ops.paged_kernel(False)`` (the
+CLI's ``--no-paged-kernel``), an A/B baseline beside the kernel, not its
+yardstick; it reads nothing back to the host, so its steps are captured
+like the kernel's.
 
 ``paged_attention_plan_walk`` follows the CUDA kernel's partition exactly
 (``csrc/paged_attention.cu``): each request's splits (``split_plan``), the
@@ -20,7 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import NEG_INF
+from repro_torch.models.attention import (NEG_INF, paged_gather_kv,
+                                          paged_slot_positions)
 
 # The launch plan the kernel and its walk share (csrc/paged_attention.cu:
 # kTileKeys = kWarps * kKeysPerWarp; the wrapper passes TILE_KEYS and
@@ -78,6 +88,38 @@ def paged_attention_ref(q: torch.Tensor, k_arena: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
     out = out.reshape(b, kv, w, g, hd).permute(0, 2, 1, 3, 4)
+    return out.reshape(b, w, h, hd).to(q.dtype)
+
+
+def paged_attention_gather(q: torch.Tensor, k_arena: torch.Tensor,
+                           v_arena: torch.Tensor, block_table: torch.Tensor,
+                           pos: torch.Tensor, ring_cap: torch.Tensor, *,
+                           window: int | None = None) -> torch.Tensor:
+    """The reference's ``paged_attention_ref`` (``repro/kernels/
+    paged_attention/ref.py``): the same contract as ``paged_attention_ref``,
+    computed over a dense ``(B, MB*bs, KV, hd)`` gather of each request's
+    blocks with validity from each slot's stored position.  With a bf16
+    arena the scaled queries and the probabilities are rounded to bf16 and
+    both products accumulate in f32, as the reference's einsums with
+    ``preferred_element_type=f32`` do."""
+    b, w, h, hd = q.shape
+    k = paged_gather_kv(k_arena, block_table)                # (B, L, KV, hd)
+    v = paged_gather_kv(v_arena, block_table)
+    length, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qf = (q.to(torch.float32) * hd ** -0.5).to(k.dtype).to(torch.float32)
+    qf = qf.reshape(b, w, kv, g, hd)
+    s = torch.einsum("bwkgd,bskd->bkgws", qf, k.to(torch.float32))
+    stored = paged_slot_positions(pos, ring_cap, length)    # (B, L)
+    qpos = ((pos.to(torch.int64) - w)[:, None]
+            + torch.arange(w, device=q.device)[None, :])     # (B, W)
+    valid = ((stored >= 0)[:, None, :]
+             & (stored[:, None, :] <= qpos[:, :, None]))     # (B, W, L)
+    if window is not None:
+        valid &= (qpos[:, :, None] - stored[:, None, :]) < window
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(v.dtype).to(torch.float32)
+    out = torch.einsum("bkgws,bskd->bwkgd", p, v.to(torch.float32))
     return out.reshape(b, w, h, hd).to(q.dtype)
 
 

@@ -84,6 +84,11 @@ COLS_PER_CTA = 256              # 8 warps x 32 code columns
 K_CHUNK = 64                    # d values per staged chunk
 N_TILES = (1, 2, 3, 4, 8)       # compiled n-tiles (8 rows each) per CTA
 MIN_CHUNKS_PER_SPLIT = 4        # d chunks a split covers at least
+# d chunks a split covers at most: the tensor cores' f32 accumulator loses
+# precision over a long chain (at n 640 per expert, d 14336 in one split,
+# the GEMM missed the 1e-4 tolerance against its plain version), so longer
+# d is split and the partials are summed in f32 by the epilogue
+MAX_CHUNKS_PER_SPLIT = 32
 CTAS_PER_SM = 1                 # CTAs per SM the plan aims at
 _LIB = None
 
@@ -211,7 +216,8 @@ def split_plan(n: int, d: int, c: int, n_sm: int, groups: int = 1):
     ``groups`` experts of n rows each: a CTA covers 8 * n_tiles rows (every
     row of a group up to 64; wider groups take several row blocks), 256
     code columns and ``chunks_per_split`` 64-value chunks of d; splits of d
-    are added until about ``CTAS_PER_SM`` CTAs per SM.  The kernel reads
+    are added until about ``CTAS_PER_SM`` CTAs per SM, and until no split
+    covers more than ``MAX_CHUNKS_PER_SPLIT`` chunks.  The kernel reads
     code rows in 16-byte chunks, so c must be a multiple of 16."""
     if c % 16:
         raise ValueError(f"c={c}: the GEMM reads code rows in 16-byte chunks, "
@@ -221,7 +227,8 @@ def split_plan(n: int, d: int, c: int, n_sm: int, groups: int = 1):
     chunks = -(-d // K_CHUNK)
     tiles = -(-c // COLS_PER_CTA) * groups * -(-n // (8 * nt))
     want = max(1, -(-CTAS_PER_SM * n_sm // tiles))
-    splits = max(1, min(want, chunks // MIN_CHUNKS_PER_SPLIT))
+    splits = max(1, min(want, chunks // MIN_CHUNKS_PER_SPLIT),
+                 -(-chunks // MAX_CHUNKS_PER_SPLIT))
     cps = -(-chunks // splits)
     return nt, cps, -(-chunks // cps)
 

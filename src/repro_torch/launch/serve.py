@@ -1,5 +1,4 @@
-"""Quantize-then-serve CLI for the port (the paged branch of
-``repro/launch/serve.py:main``).
+"""Quantize-then-serve CLI for the port (``repro/launch/serve.py:main``).
 
     python -m repro_torch.launch.serve --avg-bits 4.0            # on the card
     python -m repro_torch.launch.serve --device cpu --tiny --avg-bits 3.3 \\
@@ -8,6 +7,8 @@
         --avg-bits 3.3                                # MoE + sliding window
     python -m repro_torch.launch.serve --device cpu --tiny --avg-bits 3.3 \\
         --speculate 2 --draft-bits 2.2                # self-speculative
+    python -m repro_torch.launch.serve --device cpu --tiny --lockstep
+    python -m repro_torch.launch.serve --device cpu --tiny --serve --port 8080
 
 Random weights from a seeded generator; with ``--avg-bits`` the model is
 calibrated on the paper's zero-shot sentence, bit widths are allocated
@@ -21,6 +22,11 @@ prompts are identical, so with more requests than ``--slots`` the second
 admission wave hits; the printed ``prefix_hit_rate`` is the share of
 prompt tokens whose prefill the cache saved, and greedy tokens do not
 depend on it.  ``--kv-dtype bf16`` stores the KV arenas in bf16.
+``--no-paged-kernel`` reads the paged KV through the reference's dense
+gather instead of the flash-decode kernel (an A/B baseline; the stats line
+prints ``attn=gather``, else ``attn=kernel``, which on the host is the
+kernel's plain version); ``--paged-kernel`` pins the kernel, which needs
+the card.
 
 ``--speculate K`` serves self-speculatively: the same calibration
 quantizes a second, ``--draft-bits`` draft (with ``--avg-bits`` both come
@@ -29,30 +35,153 @@ draft proposes K tokens a round and the target verifies them in one step.
 Greedy tokens equal the ``--speculate 0`` run's; the report gives
 ``acceptance_rate``.
 
-Not ported yet, each under its ROADMAP Queue 1 item: ``--lockstep`` (7),
-``--paged-kernel`` (5: the kernel always runs on the card), ``--tp`` (8),
-``--serve`` / ``--port`` / ``--slo-p95-ms`` / ``--max-tenant-share`` (9).
+``--lockstep`` serves through ``BatchedServer`` instead, the baseline the
+paged engine is measured against: the requests prefill together and decode
+in lockstep until the last one finishes (its decode step captured once as
+a CUDA graph on the card); its greedy sample equals the paged engine's.
+
+``--serve`` boots the streaming front door (``serve/frontdoor``) on the
+engine instead of the one-shot run: ``POST /v1/generate`` with per-token
+SSE, ``GET /healthz``, ``GET /v1/stats``, per-tenant priority admission with
+weighted fair sharing (``--max-tenant-share`` caps one tenant's share of
+the slots while others wait), drop-and-replay preemption and, with
+``--slo-p95-ms``, an SLO controller that holds chunked prefill while the
+decode gap's p95 is past the target.  ``--prompt-len`` + ``--gen`` size
+the pool's context.  It prints ``frontdoor listening on HOST:PORT``, and
+on SIGINT / SIGTERM ``frontdoor shut down cleanly`` and exits 0; an engine
+failure in its driver thread exits non-zero.
+
+Not ported yet: ``--tp`` above 1 (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import kernels, resolve_device
 from repro_torch.configs import get_config, get_tiny
 from repro_torch.core import calibrate as cal
 from repro_torch.core import pipeline as pipe
 from repro_torch.data.tokenizer import ByteTokenizer
+from repro_torch.kernels.paged_attention import ops as pops
+from repro_torch.kernels.qmatmul import ops as qops
+from repro_torch.models import decode as decmod
 from repro_torch.models import transformer as tf
-from repro_torch.serve import PagedServer, PoolConfig, Request
+from repro_torch.serve import PagedServer, PoolConfig, Request, graphs
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _lockstep_logits(cfg, params, caches, *, tokens, pos) -> torch.Tensor:
+    return decmod.decode_step(cfg, params, caches, tokens, pos)[0]
+
+
+class BatchedServer:
+    """Lockstep batched server: aligned prefill, then every request decodes
+    in lockstep until the batch's last one finishes (the reference's
+    ``BatchedServer``), the baseline the paged engine is measured against.
+    Greedy or temperature sampling; quantized models route every linear
+    through ``QuantizedLinear.apply``.  Runs on ``device`` (CUDA unless
+    ``"cpu"``) with ``fused`` fixed for its steps, as the engine's is.
+
+    The reference jits its decode step; here it is captured once per batch
+    size as a CUDA graph (``serve/graphs.py``, key ``("lockstep", fused,
+    B)``) and replayed, ``pos`` a one-element device tensor and the tokens
+    chosen on the card; ``graphs.eager()`` (or a kernel forced onto its
+    plain version) runs it op by op.  Each batch size keeps one cache of
+    ``max_context`` positions (a window's ring for windowed archs), zeroed
+    per call; the step is captured before the prefill fills it, so the
+    capture's warm-up write at position 0 is overwritten by the prompt's.
+    ``stats`` holds the last call's ``prefill_s`` and ``decode_s`` (host
+    clock, synced) and its ``decode_steps``."""
+
+    def __init__(self, cfg, params, max_context: int = 512, *,
+                 fused: bool = True, device=None):
+        self.device = resolve_device(device)
+        tf.check_supported(cfg)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"server runs on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.max_context = max_context
+        self.fused = fused
+        self.graphs = graphs.StepGraphs(self.device)
+        self.stats: dict = {}
+        self._caches: dict[int, list] = {}
+
+    @property
+    def decode_trace_count(self) -> int:
+        """Decode-step captures: one per batch size and fusion setting."""
+        return self.graphs.captures["lockstep"]
+
+    def _decode(self, caches: list, b: int):
+        fn = functools.partial(_lockstep_logits, self.cfg, self.params,
+                               caches)
+        if graphs.eager_enabled() or (self.device.type == "cuda"
+                                      and kernels.plain_forced()):
+            return graphs.eager_call(fn, self.device)
+        return self.graphs.get(
+            ("lockstep", self.fused, b), fn,
+            lambda: {"tokens": np.zeros((b, 1), np.int32),
+                     "pos": np.zeros(1, np.int32)})
+
+    def generate(self, prompts: np.ndarray, n_tokens: int,
+                 temperature: float = 0.0,
+                 generator: torch.Generator | None = None) -> np.ndarray:
+        """prompts (B, S) int32 -> (B, n_tokens) int32.  Sampling at
+        ``temperature`` > 0 draws from ``generator`` (a fresh one seeded 0
+        on the device if None); torch cannot replay ``jax.random``, so
+        sampled tokens are not the reference's."""
+        b, s = prompts.shape
+        if s + n_tokens > self.max_context:
+            raise ValueError(f"prompt + n_tokens = {s + n_tokens} exceeds "
+                             f"max_context = {self.max_context}")
+        if temperature > 0 and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        with qops.fusion(self.fused), torch.no_grad():
+            t0 = time.monotonic()
+            caches = self._caches.get(b)
+            if caches is None:
+                caches = self._caches[b] = decmod.init_caches(
+                    self.cfg, b, self.max_context, device=self.device)
+            else:
+                for cache in caches:
+                    cache["kv"].k.zero_()
+                    cache["kv"].v.zero_()
+            step = self._decode(caches, b)      # captured before the fill
+            logits, _, _ = decmod.prefill(
+                self.cfg, self.params,
+                torch.from_numpy(np.asarray(prompts, np.int32)).to(
+                    self.device), caches=caches)
+            last = logits[:, -1]
+            _sync(self.device)
+            t1 = time.monotonic()
+            out = []
+            for t in range(n_tokens):
+                if temperature > 0:
+                    probs = torch.softmax(last.to(torch.float32)
+                                          / temperature, dim=-1)
+                    tok = torch.multinomial(probs, 1,
+                                            generator=generator)[:, 0]
+                else:
+                    tok = torch.argmax(last, dim=-1)
+                out.append(tok)
+                last = step({"tokens": tok.to(torch.int32)[:, None],
+                             "pos": np.array([s + t], np.int32)})
+            tokens = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+            _sync(self.device)
+        self.stats = {"prefill_s": t1 - t0,
+                      "decode_s": time.monotonic() - t1,
+                      "decode_steps": n_tokens}
+        return tokens
 
 
 def main(argv=None):
@@ -63,6 +192,8 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--lockstep", action="store_true",
+                    help="lockstep whole-batch server (A/B baseline)")
     ap.add_argument("--unfused", action="store_true",
                     help="disable RHT+qmatmul fusion (A/B baseline)")
     ap.add_argument("--slots", type=int, default=4,
@@ -77,6 +208,12 @@ def main(argv=None):
                          "windowed archs)")
     ap.add_argument("--kv-dtype", choices=["f32", "bf16"], default="f32",
                     help="paged engine: KV arena dtype")
+    ap.add_argument("--paged-kernel", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="read the paged KV with the flash-decode kernel "
+                         "(the card only); --no-paged-kernel runs the dense "
+                         "gather (A/B baseline); default: the kernel on the "
+                         "card, its plain version on the host")
     ap.add_argument("--speculate", type=int, default=0, metavar="K",
                     help="self-speculative decoding: draft K tokens a round "
                          "from a low-bit quantization of the same weights, "
@@ -84,10 +221,39 @@ def main(argv=None):
     ap.add_argument("--draft-bits", type=float, default=2.2,
                     help="average bit budget of the speculative draft "
                          "(used when --speculate > 0)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (not ported yet: only 1)")
+    ap.add_argument("--serve", action="store_true",
+                    help="boot the streaming HTTP/SSE front door on --port "
+                         "instead of the one-shot run (POST /v1/generate, "
+                         "GET /healthz, GET /v1/stats); --prompt-len + "
+                         "--gen size the pool's max context")
+    ap.add_argument("--port", type=int, default=8080,
+                    help="front door listen port (0 binds an ephemeral "
+                         "port; the chosen one is printed at boot)")
+    ap.add_argument("--slo-p95-ms", type=float, default=None,
+                    help="front door: decode-gap p95 target in ms; past it "
+                         "the scheduler holds chunked prefill until the p95 "
+                         "recovers (default: controller off)")
+    ap.add_argument("--max-tenant-share", type=float, default=1.0,
+                    help="front door: max share of the slots one tenant "
+                         "may hold while others wait (default 1.0: no cap)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cpu runs the kernels' "
                          "plain versions on the host)")
     args = ap.parse_args(argv)
+    if args.speculate and args.lockstep:
+        ap.error("--speculate needs the paged engine (drop --lockstep)")
+    if args.tp > 1 and args.lockstep:
+        ap.error("--tp needs the paged engine (drop --lockstep)")
+    if args.serve and args.lockstep:
+        ap.error("--serve needs the paged engine (drop --lockstep)")
+    if args.tp != 1:
+        ap.error("--tp: tensor-parallel serving is not ported yet (ROADMAP "
+                 "Queue 1 item 6)")
+    if args.paged_kernel and torch.device(args.device).type != "cuda":
+        ap.error("--paged-kernel needs the card: the flash-decode kernel "
+                 "has no host version (drop it, or --device cpu)")
 
     dev = resolve_device(args.device)
     cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
@@ -136,6 +302,21 @@ def main(argv=None):
 
     tok = ByteTokenizer(cfg.vocab)
     prompt = tok.encode("the quick brown fox " * 8)[: args.prompt_len]
+    path = "unfused" if args.unfused else "fused"
+    if args.lockstep:
+        server = BatchedServer(cfg, params,
+                               max_context=args.prompt_len + args.gen,
+                               fused=not args.unfused, device=dev)
+        t0 = time.monotonic()
+        out = server.generate(np.stack([prompt] * args.requests), args.gen)
+        dt = time.monotonic() - t0
+        print(f"served {args.requests} requests x {args.gen} tokens in "
+              f"{dt:.2f}s ({args.requests * args.gen / dt:.1f} tok/s, {path} "
+              f"decode path, lockstep, prefill_s="
+              f"{server.stats['prefill_s']:.2f}, captures="
+              f"{server.decode_trace_count}, device={dev.type})")
+        print("sample:", tok.decode(np.asarray(out[0]))[:80])
+        return
     pool = PoolConfig(max_slots=args.slots, block_size=args.block_size,
                       max_context=args.prompt_len + args.gen,
                       prefill_chunk=args.prefill_chunk,
@@ -143,8 +324,15 @@ def main(argv=None):
                       kv_dtype=(torch.bfloat16 if args.kv_dtype == "bf16"
                                 else torch.float32))
     engine = PagedServer(cfg, params, pool, fused=not args.unfused,
+                         paged_kernel=args.paged_kernel,
                          draft_params=draft_params, speculate=args.speculate,
                          device=dev)
+    if args.serve:
+        from repro_torch.serve.frontdoor import FrontDoor, SchedConfig
+        FrontDoor(engine, SchedConfig(slo_p95_ms=args.slo_p95_ms,
+                                      max_tenant_share=args.max_tenant_share),
+                  port=args.port).serve_forever()
+        return
     t0 = time.monotonic()
     results = engine.run([Request(rid=i, prompt=np.asarray(prompt),
                                   max_new=args.gen)
@@ -153,7 +341,8 @@ def main(argv=None):
     dt = time.monotonic() - t0
     stats = engine.stats                # finalized by run()
     sample = results[0].tokens
-    path = "unfused" if args.unfused else "fused"
+    with pops.paged_kernel(args.paged_kernel):
+        attn = "kernel" if pops.kernel_enabled() else "gather"
     prefix = "prefix_cache=off"
     if engine.prefix_cache is not None:
         prefix = (f"prefix_cache=on, prefix_hit_rate="
@@ -167,7 +356,7 @@ def main(argv=None):
           f"({args.requests * args.gen / dt:.1f} tok/s, {path} decode path, "
           f"paged, occupancy={stats['mean_occupancy']:.2f}, "
           f"captures={stats['captures']} in {stats['capture_s']:.2f}s, "
-          f"device={dev.type}, kv={args.kv_dtype}, {prefix})")
+          f"device={dev.type}, kv={args.kv_dtype}, attn={attn}, {prefix})")
     print("sample:", tok.decode(np.asarray(sample))[:80])
 
 

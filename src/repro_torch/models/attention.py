@@ -1,5 +1,6 @@
-"""Attention: sequence-mode GQA for calibration and the paged-cache helpers
-(port of ``repro/models/attention.py:23-101, 145-266``).
+"""Attention: sequence-mode GQA for calibration and lockstep prefill, the
+lockstep KV cache, and the paged-cache helpers (port of
+``repro/models/attention.py:23-143, 145-293``).
 
 ``flash_attention`` is the reference's jnp scan as plain torch: an einsum,
 a masked softmax in f32, autograd through it (calibration differentiates
@@ -16,8 +17,15 @@ and are never read as valid.
 Chunked-prefill attention is plain jnp in the reference, so it is plain
 torch here; the decode read and the speculative verify / catch-up read go
 through the paged flash-decode kernel.
+
+The lockstep baseline (``launch/serve.BatchedServer``) keeps one dense
+``KVCache`` per layer instead, a ring of ``min(context, window)`` slots per
+request: a token at position p sits in slot p % cap.  Its decode read,
+``decode_attention``, is plain jnp in the reference, so plain torch here.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -43,6 +51,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
     return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """One layer's lockstep cache, ring-buffered when its capacity is below
+    the full context (sliding-window archs).  Written in place, so a
+    captured decode step keeps reading the storage it was captured on."""
+    k: torch.Tensor          # (B, cap, KV, hd)
+    v: torch.Tensor          # (B, cap, KV, hd)
+
+    @staticmethod
+    def init(b: int, cap: int, kv: int, hd: int, dtype=torch.float32,
+             device=None) -> "KVCache":
+        return KVCache(k=torch.zeros((b, cap, kv, hd), dtype=dtype,
+                                     device=device),
+                       v=torch.zeros((b, cap, kv, hd), dtype=dtype,
+                                     device=device))
+
+
+def cache_insert(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos: torch.Tensor) -> KVCache:
+    """Insert one step (B, 1, KV, hd) at ring slot pos % cap, in place.
+    ``pos`` is a one-element int tensor (the reference's traced scalar), so
+    one captured step serves every position."""
+    slot = pos.reshape(1).to(torch.int64) % cache.k.shape[1]
+    cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+    return cache
+
+
+def decode_attention(q: torch.Tensor, cache: KVCache,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """One-token attention over the cache: q (B, 1, H, hd) -> (B, 1, H, hd).
+    ``pos`` (one-element tensor) counts the tokens inserted, this one
+    included.  Every ring slot written so far is a valid window member
+    (softmax does not care about order), so a slot is valid when its index
+    is below min(pos, cap).  The cache stays in its dtype: the scaled
+    queries and the probabilities are rounded to it and both products
+    accumulate in f32, as the reference's einsums do."""
+    b, _, h, hd = q.shape
+    cap, kv = cache.k.shape[1], cache.k.shape[2]
+    g = h // kv
+    qf = (q.to(torch.float32) * hd ** -0.5).to(cache.k.dtype)
+    qf = qf.to(torch.float32).reshape(b, kv, g, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, cache.k.to(torch.float32))
+    n = torch.clamp(pos.reshape(1).to(torch.int64), max=cap)
+    valid = torch.arange(cap, device=q.device) < n              # (cap,)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(cache.v.dtype).to(torch.float32)
+    out = torch.einsum("bkgs,bskd->bkgd", p, cache.v.to(torch.float32))
+    return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
 def paged_gather_kv(arena: torch.Tensor, block_table: torch.Tensor

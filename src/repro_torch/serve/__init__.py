@@ -6,7 +6,11 @@
 ``engine`` — request queue, admission control (longest cached prefix,
              copy-on-write), chunked prefill interleaved with decode,
              self-speculative decoding, per-request completion,
-             preemption and cancel, re-entrant ``step()``.
+             preemption and cancel, re-entrant ``step(prefill=)``, the
+             streaming hook (``Request.on_token``) and the decode gaps.
+``graphs`` — each serving step captured once as a CUDA graph, replayed.
+``frontdoor`` — the streaming HTTP/SSE server and its SLO-aware
+             scheduler (imported on its own: ``repro_torch.serve.frontdoor``).
 """
 from .engine import PagedServer, Request, RequestResult, speculative_accept
 from .pool import (BlockAllocator, PoolConfig, PrefixCache, init_pool_caches,

@@ -7,14 +7,24 @@ iteration admits queued requests while slots and blocks are free, runs ONE
 prompt chunk for the oldest mid-prefill request, then ONE decode step over
 the whole slot set.  Chunked prefill interleaves with decode, and a request
 that finishes frees its slot and blocks at once, so queued requests join
-mid-flight.
+mid-flight.  ``step(prefill=False)`` skips the prompt chunk (the front
+door's SLO throttle, ``serve/frontdoor``), and ``decode_gaps`` holds the
+seconds between the ends of consecutive decode steps, the per-token latency
+a decoding request sees.  Each emitted token is handed to its request's
+``on_token`` as it leaves the engine, the hook the front door streams.
 
 The decode step takes fixed-shape (tokens, pos, active, block_tables,
 ring_cap) tensors, so batch churn changes contents only; a prompt chunk's
 shapes depend on its length alone.  On the card every quantized projection
 runs the fused RHT + dequant GEMM kernel (with ``fused=False`` the RHT
 kernel, then the unfused GEMM kernel) and every decode attention read the
-paged flash-decode kernel; on the CPU their plain versions run.
+paged flash-decode kernel; on the CPU their plain versions run.  With
+``paged_kernel=False`` every paged attention read runs the reference's
+dense gather instead (``kernels/paged_attention/ref.paged_attention_gather``,
+the CLI's ``--no-paged-kernel`` A/B baseline), by graph like the kernel.
+The engine enters its own settings (fusion, paged kernel, no autograd)
+inside every step, so a step driven from another thread (the front door's
+driver) runs as one driven from the thread that built the engine.
 
 Compile once, as the reference jits ``_step``, ``_chunk`` and ``_cow``: on
 the card each step is captured as a CUDA graph the first time its key is
@@ -56,21 +66,22 @@ others, keyed ``("catchup", fused, S)``, ``("draft", fused, S)``,
 ``("verify", fused, S, k + 1)`` and ``("draft_chunk", fused, C)``, and the
 copy-on-write clone copies the block in both arenas.
 
-Not ported yet (ROADMAP Queue 1): tensor parallelism (item 8) and what
-only the front door reads (item 9).
+Not ported yet: tensor parallelism (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import kernels, resolve_device
+from repro_torch.kernels.paged_attention import ops as pops
 from repro_torch.kernels.qmatmul import ops as qops
 from repro_torch.models import decode as decmod
 from repro_torch.models.config import ModelConfig
@@ -89,13 +100,22 @@ def _logits(step_fn, cfg: ModelConfig, params: dict, caches: list,
 @dataclasses.dataclass
 class Request:
     """One generation request.  ``arrival`` is seconds after the engine
-    clock's start; the engine does not admit the request earlier.  (The
-    front door's scheduling metadata comes with ROADMAP Queue 1 item 9.)"""
+    clock's start; the engine does not admit the request earlier.
+    ``tenant`` / ``priority`` / ``deadline`` are scheduling metadata the
+    engine ignores: the front door's ``Scheduler`` orders admission and
+    picks preemption victims by them.  ``on_token``, if set, is called as
+    ``on_token(rid, token, t)`` from the serving thread as each token is
+    emitted, ``t`` its entry in ``RequestResult.token_times``; it must be
+    cheap and must not raise."""
     rid: int
     prompt: np.ndarray               # (plen,) int32
     max_new: int
     eos: Optional[int] = None
     arrival: float = 0.0
+    tenant: str = "default"
+    priority: int = 0                # higher = more urgent
+    deadline: Optional[float] = None  # engine-clock seconds (SLO metadata)
+    on_token: Optional[Callable[[int, int, float], None]] = None
 
 
 @dataclasses.dataclass
@@ -115,6 +135,7 @@ class RequestResult:
     ttft_s: float = 0.0
     token_times: Optional[np.ndarray] = None
     preemptions: int = 0
+    tenant: str = "default"
 
 
 @dataclasses.dataclass
@@ -209,7 +230,11 @@ class PagedServer:
     ``params`` must already live there (see ``bridge.py`` or
     ``models.transformer.init_params``).  ``fused`` selects the RHT + GEMM
     fusion for every step of this engine (``qops.fusion``; False runs the
-    unfused A/B pair).  ``draft_params`` + ``speculate=k`` turn on
+    unfused A/B pair).  ``paged_kernel`` pins the paged attention read for
+    every step (``pops.paged_kernel``): True the flash-decode kernel (the
+    card only), False the dense gather, None by device (the kernel on the
+    card, its plain version on the host).  ``draft_params`` +
+    ``speculate=k`` turn on
     self-speculative decoding (the module docstring); ``draft_params`` lives
     on ``device`` too.  Construct once per (model, PoolConfig); ``run``
     drains a workload to completion.  Each step is captured once per key
@@ -219,11 +244,16 @@ class PagedServer:
 
     def __init__(self, cfg: ModelConfig, params: dict,
                  pool: PoolConfig | None = None, *, fused: bool = True,
+                 paged_kernel: bool | None = None,
                  temperature: float = 0.0, seed: int = 0,
                  draft_params: dict | None = None, speculate: int = 0,
                  device=None):
         self.device = resolve_device(device)
         self.fused = fused
+        if paged_kernel and self.device.type != "cuda":
+            raise ValueError("paged_kernel=True needs the card: the "
+                             "flash-decode kernel has no host version")
+        self.paged_kernel = paged_kernel
         check_supported(cfg)
         if speculate < 0:
             raise ValueError(f"speculate must be >= 0 (got {speculate})")
@@ -270,8 +300,22 @@ class PagedServer:
         self._active: dict[int, _InFlight] = {}
         self._replay: dict[int, _Replay] = {}
         self._t0: float | None = None
+        self._last_decode_end: float | None = None
+        # seconds between the ends of consecutive decode steps: the
+        # per-token latency a decoding request sees, inflated by whatever
+        # the scheduler interleaves (the SLO controller reads its tail)
+        self.decode_gaps: collections.deque = collections.deque(maxlen=2048)
 
     # ------------------------------------------------------------- plumbing
+
+    @contextlib.contextmanager
+    def _kernel_scope(self):
+        """The engine's fixed settings, entered inside every step: fusion,
+        the paged attention read, and no autograd (grad mode is per
+        thread, and the front door steps the engine from its own)."""
+        with qops.fusion(self.fused), pops.paged_kernel(self.paged_kernel), \
+                torch.no_grad():
+            yield
 
     def _sample(self, logits: np.ndarray, rid: int, step: int) -> int:
         """One token from ``logits``: greedy argmax at temperature 0, else
@@ -281,9 +325,6 @@ class PagedServer:
         rng = np.random.default_rng((self.seed, rid, step))
         g = rng.gumbel(size=logits.shape)
         return int(np.argmax(logits / self.temperature + g))
-
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.tensor(a, device=self.device)
 
     @property
     def decode_trace_count(self) -> int:
@@ -329,8 +370,7 @@ class PagedServer:
         dropped."""
         if graphs.eager_enabled() or (self.device.type == "cuda"
                                       and kernels.plain_forced()):
-            return lambda inputs: fn(**{k: self._tensor(a)
-                                        for k, a in inputs.items()})
+            return graphs.eager_call(fn, self.device)
         return self.graphs.get(key, fn, inert)
 
     def _step_fn(self, step_fn, draft: bool = False):
@@ -386,6 +426,7 @@ class PagedServer:
         pins it once, before the first ``Request.arrival`` counts."""
         if reset or self._t0 is None:
             self._t0 = time.monotonic()
+            self._last_decode_end = None
 
     def now(self) -> float:
         """Seconds since the engine clock started (starts it if needed): the
@@ -511,11 +552,14 @@ class PagedServer:
 
     def _emit(self, st: _InFlight, tok: int, now: float) -> None:
         """One token leaves the engine: record it and its emission time,
-        and stamp the request's very first token."""
+        stamp the request's very first token, and hand it to the request's
+        streaming hook."""
         st.out.append(int(tok))
         st.token_times.append(now)
         if st.t_first == 0.0 and not st.prior:
             st.t_first = now
+        if st.req.on_token is not None:
+            st.req.on_token(st.req.rid, int(tok), now)
 
     def _finish(self, st: _InFlight, now: float,
                 results: dict[int, RequestResult]) -> None:
@@ -534,7 +578,7 @@ class PagedServer:
             t_admit=st.t_admit, t_first=st.t_first, t_done=now,
             ttft_s=st.t_first - st.req.arrival,
             token_times=np.asarray(st.token_times, np.float64),
-            preemptions=st.preemptions)
+            preemptions=st.preemptions, tenant=st.req.tenant)
 
     def _done(self, st: _InFlight, tok: int) -> bool:
         return st.n_done >= st.req.max_new or tok == st.req.eos
@@ -798,20 +842,38 @@ class PagedServer:
         yet resubmitted is its caller's work, not the engine's)."""
         return bool(self._pending or self._prefilling or self._active)
 
-    def step(self) -> dict[int, RequestResult]:
+    @property
+    def active_count(self) -> int:
+        """Requests decoding now (the population an SLO protects)."""
+        return len(self._active)
+
+    def step(self, *, prefill: bool = True) -> dict[int, RequestResult]:
         """ONE scheduler iteration: admit queued requests, run one prompt
-        chunk, then one decode step over the slot set.  Returns the
-        requests that finished during this call."""
+        chunk (unless ``prefill=False``, the SLO controller's throttle),
+        then one decode step (or speculative round) over the slot set.
+        Returns the requests that finished during this call; streaming
+        callers saw their tokens through ``on_token``."""
         results: dict[int, RequestResult] = {}
         self.start_clock()
-        self._try_admit(self.now())
-        with qops.fusion(self.fused):
-            if self._prefilling:
+        with self._kernel_scope():
+            self._try_admit(self.now())
+            if prefill and self._prefilling:
                 self._prefill_one(self._t0, results)
-            if self._active and self.speculate:
-                self._spec_decode_once(self._t0, results)
-            elif self._active:
-                self._decode_once(self._t0, results)
+            if self._active:
+                if self.speculate:
+                    self._spec_decode_once(self._t0, results)
+                else:
+                    self._decode_once(self._t0, results)
+                end = time.monotonic()
+                if self._last_decode_end is not None:
+                    gap = end - self._last_decode_end
+                    self.decode_gaps.append(gap)
+                    self.stats.setdefault("decode_gap_s", []).append(gap)
+                self._last_decode_end = end
+            else:
+                # no decode ran: the next gap would measure idleness, not
+                # interference, so the gap baseline restarts
+                self._last_decode_end = None
         return results
 
     def finalize_stats(self) -> dict:

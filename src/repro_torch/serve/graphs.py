@@ -151,16 +151,23 @@ class Step:
         finally:
             kernels.set_launch_counts(before)
 
-    def __call__(self, inputs: dict[str, np.ndarray]) -> torch.Tensor:
-        """Run the step on ``inputs`` (host arrays shaped as the inert ones);
-        on the card the result is the static output, rewritten by the next
-        call."""
+    def __call__(self, inputs: dict) -> torch.Tensor:
+        """Run the step on ``inputs``, shaped as the inert ones: host arrays,
+        or tensors already on the step's device (copied on the stream, so a
+        token chosen on the card never visits the host).  On the card the
+        result is the static output, rewritten by the next call."""
         if self.graph is None:
             for k, a in inputs.items():
-                self.static[k].numpy()[...] = a
+                if isinstance(a, torch.Tensor):
+                    self.static[k].copy_(a)
+                else:
+                    self.static[k].numpy()[...] = a
             return self.fn(**self.static)
         self._copied.synchronize()        # the host copies are free again
         for k, a in inputs.items():
+            if isinstance(a, torch.Tensor):
+                self.static[k].copy_(a)
+                continue
             self._host[k].numpy()[...] = a
             self.static[k].copy_(self._host[k], non_blocking=True)
         self._copied.record()
@@ -169,11 +176,24 @@ class Step:
         return self.out
 
 
+def eager_call(fn: Callable[..., torch.Tensor], device: torch.device):
+    """``inputs -> fn(**inputs)`` op by op on fresh tensors (host arrays
+    copied to ``device``, tensors as they are): the uncaptured twin of a
+    ``Step``, for ``eager()`` and for runs with a kernel forced onto its
+    plain version."""
+    def call(inputs: dict) -> torch.Tensor:
+        return fn(**{k: a if isinstance(a, torch.Tensor)
+                     else torch.tensor(a, device=device)
+                     for k, a in inputs.items()})
+    return call
+
+
 class StepGraphs:
     """An engine's steps by key (``key[0]`` names the kind: "decode",
-    "chunk", "cow", "catchup", "draft", "verify" or "draft_chunk"), made
-    at first use; ``captures`` counts them by kind and
-    ``capture_s`` the host seconds spent warming up and capturing."""
+    "chunk", "cow", "catchup", "draft", "verify" or "draft_chunk"; the
+    lockstep server's "lockstep"), made at first use; ``captures`` counts
+    them by kind and ``capture_s`` the host seconds spent warming up and
+    capturing."""
 
     def __init__(self, device: torch.device):
         self.device = device

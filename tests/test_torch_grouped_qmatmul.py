@@ -127,17 +127,19 @@ def test_cuda_entries_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("e,cap,d,c,bits", [
     (8, 2, 4096, 28672, 4), (8, 2, 14336, 4096, 3), (8, 20, 4096, 28672, 2),
-    (4, 3, 128, 256, 8)])
+    (4, 3, 128, 256, 8), (8, 640, 14336, 4096, 8)])
 def test_grouped_split_plan_fills_the_card(e, cap, d, c, bits):
-    """The plan the grouped launch uses: every packed row in one split, and
-    at Mixtral's decode and prefill shapes expert x column x split CTAs for
-    every one of 132 SMs."""
+    """The plan the grouped launch uses: every packed row in one split, no
+    split longer than MAX_CHUNKS_PER_SPLIT chunks (the lockstep prefill's
+    640 rows per expert), and at Mixtral's decode and prefill shapes
+    expert x column x split CTAs for every one of 132 SMs."""
     nt, cps, splits = qops.split_plan(cap, d, c, n_sm=132, groups=e)
     chunks = -(-d // qops.K_CHUNK)
     assert (chunks * qops.K_CHUNK) // packing.codes_per_byte(bits) >= \
         packing.packed_rows(d, bits)
     assert (splits - 1) * cps < chunks <= splits * cps
-    assert nt in qops.N_TILES and 8 * nt >= cap
+    assert cps <= qops.MAX_CHUNKS_PER_SPLIT
+    assert nt in qops.N_TILES and 8 * nt >= min(cap, 8 * qops.N_TILES[-1])
     if d >= 4096:
         assert e * -(-c // qops.COLS_PER_CTA) * splits >= 132
 

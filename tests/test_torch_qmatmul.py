@@ -115,12 +115,15 @@ def test_cpu_tensor_takes_plain_path_and_kernel_path_refuses_cpu():
 @pytest.mark.parametrize("n,d,c,bits", [(1, 4083, 4096, 4), (8, 4083, 4096, 4),
                                         (64, 4083, 22016, 4),
                                         (8, 10974, 4096, 3), (3, 301, 40, 2),
-                                        (3, 301, 48, 2)])
+                                        (3, 301, 48, 2), (2048, 10974, 4096, 8),
+                                        (2048, 20418, 7168, 4)])
 def test_split_plan_covers_every_packed_row(n, d, c, bits):
     """The split-K plan the wrapper hands the kernel: every 64-value d chunk
-    (and so every packed row) in exactly one split, one n-tile of 8 rows
-    per 8 rows of the group, and enough column x split CTAs to give each of
-    132 SMs work at the main path's shapes.  The kernel reads code rows in
+    (and so every packed row) in exactly one split, no split longer than
+    MAX_CHUNKS_PER_SPLIT chunks (the lockstep prefill's 2048 rows would
+    otherwise run d in one split), one n-tile of 8 rows per 8 rows of the
+    group up to 64, and enough column x split CTAs to give each of 132
+    SMs work at the main path's shapes.  The kernel reads code rows in
     16-byte chunks, so a c that is not a multiple of 16 is refused (the
     plain versions take any c)."""
     if c % 16:
@@ -133,8 +136,9 @@ def test_split_plan_covers_every_packed_row(n, d, c, bits):
     assert (chunks * qops.K_CHUNK) // packing.codes_per_byte(bits) >= \
         packing.packed_rows(d, bits)
     assert (splits - 1) * cps < chunks <= splits * cps
-    assert nt in qops.N_TILES and 8 * nt >= n
-    ctas = -(-c // qops.COLS_PER_CTA) * splits
+    assert cps <= qops.MAX_CHUNKS_PER_SPLIT
+    assert nt in qops.N_TILES and 8 * nt >= min(n, 8 * qops.N_TILES[-1])
+    ctas = -(-c // qops.COLS_PER_CTA) * -(-n // (8 * nt)) * splits
     if d >= 4096:
         assert ctas >= 132
 

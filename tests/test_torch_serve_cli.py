@@ -5,7 +5,10 @@ ring), then the paged engine, fused and unfused, with the prefix cache on
 and off, and speculating from a 2.2-bit draft.  Greedy decode is
 deterministic and the paths compute the same function (greedy speculation
 emits only the target's argmax tokens), so the ``sample:`` lines must be
-byte-identical.  ``--kv-dtype bf16`` serves from bf16 arenas.  Without
+byte-identical.  ``--kv-dtype bf16`` serves from bf16 arenas.  With fp32
+weights (no quantizing run), the lockstep server (``--lockstep``) and the
+dense gather (``--no-paged-kernel``) print the paged engine's sample, and
+the flags the port refuses fail before any work.  Without
 ``--device cpu`` the CLI runs on the card, so on a host with no card it
 must refuse with ``resolve_device``'s message."""
 import functools
@@ -21,12 +24,15 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 CMD = [sys.executable, "-m", "repro_torch.launch.serve", "--tiny",
        "--avg-bits", "3.3", "--requests", "2", "--gen", "8"]
+FP32 = ["--tiny", "--requests", "2", "--gen", "8", "--device", "cpu"]
 
 pytestmark = pytest.mark.tier2  # runs the whole pipeline twice
 
 
 def _run(*extra, env_extra=None):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one intra-op thread: the tiny models gain nothing from more, and
+    # spinning threads slow the suite's other workers
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     env.update(env_extra or {})
     return subprocess.run([*CMD, *extra], cwd=ROOT, env=env,
                           capture_output=True, timeout=600)
@@ -104,3 +110,44 @@ def test_refuses_to_run_on_the_host_without_a_card():
     assert res.returncode != 0
     assert b"device='cpu'" in res.stderr
     assert b"sample:" not in res.stdout and b"calibrating" not in res.stdout
+
+
+def test_lockstep_and_gather_samples_equal_the_paged_fp32_sample(capsys):
+    """In this process (no quantizing run): the paged engine, the lockstep
+    server and the dense gather print the same sample."""
+    import torch
+    from repro_torch.launch.serve import main
+    out = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)       # as the subprocesses run (``_run``)
+    try:
+        for name, extra in (("paged", ()), ("lockstep", ("--lockstep",)),
+                            ("gather", ("--no-paged-kernel",))):
+            main([*FP32, *extra])
+            out[name] = capsys.readouterr().out
+    finally:
+        torch.set_num_threads(threads)
+    samples = {name: [ln for ln in text.splitlines()
+                      if ln.startswith("sample:")]
+               for name, text in out.items()}
+    assert all(len(v) == 1 for v in samples.values())
+    assert samples["lockstep"] == samples["paged"] == samples["gather"]
+    assert "calibrating" not in out["paged"] and "attn=kernel" in out["paged"]
+    assert "attn=gather" in out["gather"]
+    assert ("fused decode path, lockstep" in out["lockstep"]
+            and "captures=1" in out["lockstep"])
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--lockstep", "--serve"], "--serve needs the paged engine"),
+    (["--lockstep", "--speculate", "2"], "--speculate needs the paged"),
+    (["--lockstep", "--tp", "2"], "--tp needs the paged engine"),
+    (["--tp", "2"], "ROADMAP Queue 1 item 6"),
+    (["--paged-kernel", "--device", "cpu"], "--paged-kernel needs the card"),
+])
+def test_refused_flag_combinations(argv, message, capsys):
+    from repro_torch.launch.serve import main
+    with pytest.raises(SystemExit) as exit_:
+        main(["--tiny", *argv])
+    assert exit_.value.code == 2
+    assert message in capsys.readouterr().err

@@ -306,6 +306,21 @@ def test_engine_matches_reference(model, draft_kind):
     assert (port.catchup_trace_count, port.draft_trace_count,
             port.verify_trace_count, port.decode_trace_count) == (1, 1, 1, 0)
     assert port.chunk_trace_count == port.draft_chunk_trace_count == 3
+    if arch == "mixtral-8x7b" and draft_kind == "noisy":
+        # the reference's read off TPU is its dense gather; the port's
+        # (paged_kernel=False: the verify's gather branch) gives the same,
+        # once (windowed ring, MoE, mixed accepts) and on one intra-op
+        # thread, as each run costs
+        gather = PagedServer(tcfg, tparams, _pool(small_pool()),
+                             draft_params=tdraft, speculate=K,
+                             paged_kernel=False, device="cpu")
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            got = gather.run(_port(reqs))
+        finally:
+            torch.set_num_threads(threads)
+        _same(f"{arch} {draft_kind} gather", got, want, gather, ref)
 
 
 @pytest.fixture(scope="module")
