@@ -108,7 +108,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      qwen3-0.6b and yi-34b at their published widths, each cut to 4
      layers (``DENSE_LAYERS`` says why), quantized at 4.0 bits and served
      by graph, unfused and plain;
- 13. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
+ 13. training (``train_phase``): qwen3-0.6b at its published width and
+     depth (28 layers, d_model 1024, 16/8 heads at hd 128, d_ff 3072,
+     vocab 151936; 0.75 B fp32 params) trained from a seeded init on the
+     synthetic corpus (batch 8 x 256, lr 2e-3, warmup 20,
+     SMOKE_TRAIN_STEPS steps through ``launch.train.train``: losses,
+     ms/step, tokens/s, peak memory), then the same run through
+     ``FaultTolerantLoop`` with a checkpoint TRAIN_TAIL steps before its
+     end, failures past ``max_retries`` at the step after it and a
+     restore: the losses after the restore, the final params and the
+     checkpoint's round trip must equal the uninterrupted run's bit for
+     bit (deterministic algorithms); each save's seconds; then the trained
+     model calibrated on 5 corpus batches, quantized at 4.0 bits (code
+     search counted), its fp32 and quantized perplexity, and served (4
+     corpus prompts) by graph and by eager kernels with the same tokens;
+ 14. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
      path's runs counted from zero), the phases' seconds, the nvidia-smi
      line, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -124,7 +138,10 @@ kernel and runs only phase 7 (see ``prefix_main``); ``--speculation``
 builds every kernel and runs only phase 8, with the spec-off runs it is
 held to (see ``spec_main``); ``--frontdoor`` builds every kernel and runs
 only phases 9-11, after the quantizations they need (see
-``frontdoor_main``).
+``frontdoor_main``); ``--train`` builds every kernel and runs only phase
+13, with TRAIN_STEPS of training, the example's table of perplexities at
+4.3 / 3.3 / 2.3 bits and a 2.2-bit draft's acceptance on the trained
+weights (see ``train_main``).
 
 Imports nothing of JAX or of the reference package.  Exits non-zero with no
 result when no CUDA device is present.  Details too long for the end of the
@@ -138,10 +155,12 @@ import dataclasses
 import http.client
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
 import time
+import zlib
 from pathlib import Path
 
 T_START = time.monotonic()
@@ -155,12 +174,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import tree as ptree  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import calibrate as cal  # noqa: E402
 from repro_torch.core import hadamard, packing, rabitq  # noqa: E402
 from repro_torch.core import pipeline as pipe  # noqa: E402
 from repro_torch.core.qlinear import QuantizedGrouped, draw_signs  # noqa: E402
 from repro_torch.core.tricks import centralize  # noqa: E402
+from repro_torch.data import LMBatchLoader, make_corpus_tokens  # noqa: E402
+from repro_torch.data.tokenizer import ByteTokenizer  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
@@ -179,6 +202,10 @@ from repro_torch.models import decode as decmod  # noqa: E402
 from repro_torch.models import moe as moemod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
+from repro_torch.launch.train import loader_batch, train  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.runtime.fault import FaultTolerantLoop, LoopConfig  # noqa: E402
+from repro_torch.runtime.steps import make_train_step  # noqa: E402
 from repro_torch.serve import PagedServer, PoolConfig, Request, graphs  # noqa: E402
 from repro_torch.serve.frontdoor import FrontDoor, SchedConfig  # noqa: E402
 from repro_torch.serve.frontdoor.client import stream_generate  # noqa: E402
@@ -2943,6 +2970,427 @@ def dense_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ training
+
+TRAIN_ARCH = "qwen3-0.6b"
+# qwen3-0.6b at its published width and depth (28 layers, 0.75 B fp32
+# params: 12 GB with gradients and AdamW's moments; llama2-7b's 6.7 B would
+# need 107 GB), trained from a seeded init on the synthetic corpus with the
+# reference example's protocol (examples/train_and_quantize.py: lr 2e-3,
+# warmup 20) at batch 8 x 256 tokens: TRAIN_STEPS with --train; the whole
+# run cuts them to SMOKE_TRAIN_STEPS to keep to its 1050 s.  On an H100
+# 80GB HBM3 at 700 W the two runs and their checkpoints took 182.6 s at
+# 100 steps and 122.2 s at 60 (two 9 GB saves 44.0 s and a restore 15.9 s
+# of it), and at 60 the whole script took 1123.2 s
+TRAIN_STEPS = 100
+SMOKE_TRAIN_STEPS = 30
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, TRAIN_WARMUP = 8, 256, 2e-3, 20
+TRAIN_LOG = 10
+# the fault-tolerant run checkpoints TRAIN_TAIL steps before its end,
+# fails TRAIN_RETRIES + 1 times at the step after and is restored from it;
+# keep=1, so at most that checkpoint and the one being written (9 GB each)
+# sit in TRAIN_DIR
+TRAIN_TAIL = 10
+TRAIN_RETRIES = 2
+TRAIN_DIR = ROOT / "build" / "train_ckpt"
+# the last loss must be below this share of the first
+TRAIN_DROP = 0.5
+# the quantized model's perplexity may undercut the fp32 one by this share
+# (a 4-bit model is not expected to beat its fp32 source; the gap is
+# reported, not gated)
+PPL_SLACK = 0.02
+EVAL_BATCHES, EVAL_BATCH, CALIB_BATCHES = 4, 8, 5
+TRAIN_PROMPT_LENS = [64, 128, 96, 200]
+TRAIN_TABLE_BITS = (4.3, 3.3, 2.3)     # --train: the example's table
+
+
+class TimedCheckpoints(CheckpointManager):
+    """A ``CheckpointManager`` that records the seconds of each save (the
+    device -> host copy, the write, fsync and rename) and restore, and
+    holds a restore of step ``held`` against a device copy of what was
+    saved there (``roundtrip``: every leaf equal, bit for bit)."""
+
+    def __init__(self, *a, held: int, **kw):
+        super().__init__(*a, **kw)
+        self.held, self.copy, self.roundtrip = held, None, None
+        self.saves: list = []
+        self.restores: list = []
+
+    def save(self, step, tree, extra=None):
+        t0 = time.monotonic()
+        super().save(step, tree, extra)
+        self.saves.append({"step": step, "s": time.monotonic() - t0})
+        if step == self.held:           # the train step updates in place
+            self.copy = [t.clone() for t in ptree.leaves(tree)]
+
+    def restore(self, step, like, placement_fn=None):
+        t0 = time.monotonic()
+        out = super().restore(step, like, placement_fn)
+        torch.cuda.synchronize()
+        self.restores.append({"step": step, "s": time.monotonic() - t0})
+        if step == self.held and self.copy is not None:
+            got = ptree.leaves(out[0])
+            self.roundtrip = len(got) == len(self.copy) and all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(got, self.copy))
+            self.copy = None
+        return out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms for the training runs: the embedding's
+    backward (an indexed accumulate) and the loss's gather backward use
+    their sorted, atomic-free forms, so a replay can equal the first run
+    bit for bit.  cuBLAS asks for a workspace setting, which PyTorch reads
+    when a GEMM is called; the GEMMs run on one stream either way.  New
+    tensors are not filled with NaN (a check for reads of uninitialised
+    memory, not a part of determinism; it cost time on every step)."""
+    import torch.utils.deterministic as det
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    fill = det.fill_uninitialized_memory
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = env or ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+
+
+def train_runs(cfg, dev, corpus, n_steps: int) -> tuple:
+    """The uninterrupted run through ``launch.train.train`` and the
+    fault-tolerant run through ``FaultTolerantLoop`` and a checkpoint
+    manager, ``n_steps`` each; returns (summary, the trained params)."""
+    steps_a = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with deterministic():
+        _, params_a, losses_a = train(
+            arch=TRAIN_ARCH, tiny=False, steps=n_steps,
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+            warmup=TRAIN_WARMUP, seed=SEED, log_every=TRAIN_LOG,
+            corpus=corpus, device=dev,
+            on_step=lambda s, m, dt: steps_a.append(
+                (float(m["grad_norm"]), float(m["lr"]), dt)))
+    run_a_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in ptree.leaves(params_a))
+    ms = [1e3 * dt for _, _, dt in steps_a[1:]]      # the first warms up
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flop = train_step_flop(cfg)
+    out = {"params": n_params, "steps": n_steps,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+           "warmup": TRAIN_WARMUP, "losses": losses_a,
+           "grad_norms": [g for g, _, _ in steps_a],
+           "first_loss": losses_a[0], "last_loss": losses_a[-1],
+           "first_step_ms": 1e3 * steps_a[0][2],
+           "step_ms": ms, "step_ms_median": float(np.median(ms)),
+           "step_ms_min": min(ms), "step_ms_max": max(ms),
+           "tokens_per_s": tokens / (float(np.median(ms)) / 1e3),
+           "peak_mem_gib": peak, "run_s": run_a_s,
+           "tflop_per_step": flop / 1e12,
+           "step_bound_ms": flop / RATES[SIMT] * 1e3,
+           "bound_rate": SIMT}
+    log(f"train {TRAIN_ARCH} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; {n_params / 1e9:.4f} B fp32 params): {n_steps} "
+        f"steps of {TRAIN_BATCH} x {TRAIN_SEQ}, loss {losses_a[0]:.4f} -> "
+        f"{losses_a[-1]:.4f}; ms/step {spread(ms)} (first "
+        f"{out['first_step_ms']:.1f}; bound {out['step_bound_ms']:.1f}: "
+        f"{flop / 1e12:.2f} TFLOP at {SIMT}); {out['tokens_per_s']:.0f} "
+        f"tokens/s; peak {peak:.2f} GiB; {run_a_s:.1f} s")
+    check(np.isfinite(losses_a).all()
+          and losses_a[-1] < TRAIN_DROP * losses_a[0],
+          f"training did not learn: loss {losses_a[0]} -> {losses_a[-1]}")
+
+    # the fault-tolerant run: the same init, loader and step as train()
+    k = n_steps - TRAIN_TAIL
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    mgr = TimedCheckpoints(str(TRAIN_DIR), keep=1, held=k)
+    step_fn = make_train_step(cfg, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                              total_steps=n_steps)
+    loader = LMBatchLoader(corpus, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    fed, fails, losses_b = [], [], []
+
+    def batches(step):
+        b = loader_batch(loader, step)
+        fed.append((step, zlib.crc32(b.tobytes())))
+        return b
+
+    def wrapped(state, batch_np):
+        p, o = state
+        p, o, m = step_fn(p, o, {"tokens": torch.from_numpy(batch_np).to(dev)})
+        return (p, o), m
+
+    def inject(step):
+        if step == k + 1 and len(fails) <= TRAIN_RETRIES:
+            fails.append(step)
+            return True
+        return False
+
+    params_b = tf.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    loop = FaultTolerantLoop(wrapped, mgr, LoopConfig(
+        ckpt_every=k, max_retries=TRAIN_RETRIES),
+        inject_failure=inject)
+    t0 = time.monotonic()
+    with deterministic():
+        state, start = loop.maybe_resume((params_b, adamw_init(params_b)))
+        check(start == 0, "the checkpoint directory was not empty")
+        state = loop.run(state, batches, n_steps,
+                         on_metrics=lambda s, m, dt: losses_b.append(
+                             float(m["loss"])))
+    run_b_s = time.monotonic() - t0
+    replayed = [c for s, c in fed if s == k]
+    # (the straggler watchdog may add a checkpoint after a slow streak)
+    saved = [s["step"] for s in mgr.saves]
+    check(len(fails) == TRAIN_RETRIES + 1 and loop.stats.restores == 1
+          and [r["step"] for r in mgr.restores] == [k] and k in saved
+          and saved[-1] == n_steps,
+          f"the fault-tolerant run: failures {fails}, restores "
+          f"{mgr.restores}, saves {mgr.saves}")
+    check(len(replayed) == 2 and replayed[0] == replayed[1],
+          "the restored run did not replay the checkpoint step's batch")
+    same = losses_b == losses_a[:k + 1] + losses_a[k:]
+    leaves_a, leaves_b = ptree.leaves(params_a), ptree.leaves(state[0])
+    params_same = all(torch.equal(a, b) for a, b in zip(leaves_a, leaves_b))
+    roundtrip = mgr.roundtrip
+    del params_a, leaves_a
+    check(mgr.all_steps() == [n_steps], f"checkpoints left {mgr.all_steps()}")
+    out["fault"] = {
+        "ckpt_step": k, "failures_at": fails,
+        "retries": loop.stats.retries, "restores": loop.stats.restores,
+        "saves": mgr.saves, "restores_s": mgr.restores,
+        "checkpoint_gb": os.path.getsize(mgr._path(n_steps)) / 1e9,
+        "losses_after_restore": losses_b[k + 1:],
+        "losses_identical": same, "params_identical": params_same,
+        "roundtrip_identical": roundtrip,
+        "deterministic_algorithms": True, "run_s": run_b_s,
+        "straggler_events": loop.stats.straggler_events}
+    log(f"train fault-tolerant run: checkpoint at step {k}, step {k + 1} "
+        f"failed {len(fails)} times ({loop.stats.retries} retries), restored "
+        f"from step {k} and replayed; {len(losses_b[k + 1:])} losses after "
+        f"the restore identical to the uninterrupted run's: {same}; final "
+        f"params identical: {params_same}; checkpoint {k} round trip identical: "
+        f"{roundtrip}; saves (s) {[round(s['s'], 2) for s in mgr.saves]} of "
+        f"{out['fault']['checkpoint_gb']:.2f} GB each, restores (s) "
+        f"{[round(r['s'], 2) for r in mgr.restores]}; straggler events "
+        f"{loop.stats.straggler_events}; {run_b_s:.1f} s")
+    check(same and params_same and roundtrip,
+          "the restored run's losses, params or checkpoint differ from the "
+          "uninterrupted run's")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    params = state[0]
+    del state, loop
+    torch.cuda.empty_cache()
+    return out, params
+
+
+def train_step_flop(cfg) -> float:
+    """A train step's f32 operations: the projections, lm_head and the
+    plain attention's two (S x S) products (which compute every pair, the
+    masked ones too), each 2 x in the forward, 2 x again for the remat's
+    second forward and 4 x in the backward."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
+    per_layer = d * h * hd * 2 + 2 * d * kv * hd + 3 * d * cfg.d_ff
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    gemm = 2 * tokens * (cfg.n_layers * per_layer + d * cfg.vocab)
+    attn = 2 * 2 * TRAIN_BATCH * h * TRAIN_SEQ ** 2 * hd * cfg.n_layers
+    # lm_head is outside the checkpointed layers: no second forward
+    return 4 * (gemm + attn) - 2 * tokens * d * cfg.vocab
+
+
+def perplexity(cfg, params, evals) -> float:
+    with torch.no_grad():
+        return float(np.exp(np.mean([
+            float(tf.loss_fn(cfg, params, {"tokens": b})) for b in evals])))
+
+
+def train_requests(cfg, corpus) -> list:
+    """TRAIN_PROMPT_LENS prompts cut from the corpus at fixed offsets."""
+    return [Request(rid=i, prompt=corpus[5000 * i: 5000 * i + n].copy(),
+                    max_new=GEN_LEN)
+            for i, n in enumerate(TRAIN_PROMPT_LENS)]
+
+
+def train_phase(dev, extra: bool = False) -> dict:
+    """qwen3-0.6b at its published width and depth: trained (``train_runs``:
+    an uninterrupted run, then a fault-tolerant one restored from a
+    checkpoint, which must replay the same losses bit for bit), quantized
+    at AVG_BITS (calibrated on CALIB_BATCHES loader batches of 1 x 257,
+    AllocateBits, the code-search kernel, counted), its fp32 and quantized
+    perplexity over EVAL_BATCHES batches of EVAL_BATCH, then the quantized
+    model served by graph (counted from zero: the ``qwen3_trained`` path)
+    and by eager kernels, tokens identical but at near-ties.  ``extra``
+    (``--train``): also the example's table (TRAIN_TABLE_BITS) and a
+    DRAFT_BITS draft from ``quantize_model_dual`` speculating SPEC_K deep,
+    tokens identical to spec off, its acceptance on trained weights, and
+    TRAIN_STEPS of training where the whole run takes SMOKE_TRAIN_STEPS."""
+    cfg = get_config(TRAIN_ARCH)
+    phase_s = {}
+    t0 = time.monotonic()
+    corpus = make_corpus_tokens(cfg.vocab, 20000, seed=SEED)
+    out, params = train_runs(cfg, dev, corpus,
+                             TRAIN_STEPS if extra else SMOKE_TRAIN_STEPS)
+    phase_s["train"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    # the example's evaluation: a 30000-sentence corpus, eval windows of
+    # batch 8, calibration on the first row of the next 5 batches
+    eval_corpus = make_corpus_tokens(cfg.vocab, 30000, seed=SEED)
+    loader = LMBatchLoader(eval_corpus, EVAL_BATCH, TRAIN_SEQ)
+    evals = [torch.from_numpy(b).to(dev)
+             for b in loader.eval_batches(EVAL_BATCHES)]
+    calib = [{"tokens": torch.from_numpy(loader.next_batch()[:1]).to(dev)}
+             for _ in range(CALIB_BATCHES)]
+    fp_ppl = perplexity(cfg, params, evals)
+    zero_counts()
+    t1 = time.monotonic()
+    stats = cal.calibrate(lambda p, b, ctx: tf.loss_fn(cfg, p, b, ctx=ctx),
+                          params, calib)
+    torch.cuda.synchronize()
+    calibrate_s = time.monotonic() - t1
+
+    def quantize(bits):
+        return pipe.quantize_model(
+            cfg, params, stats, bits, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    qparams, rep = quantize(AVG_BITS)
+    searches = counts()["rabitq_quant"]
+    q_ppl = perplexity(cfg, qparams, evals)
+    hist = collections.Counter(rep.per_layer_bits.values())
+    out["quantize"] = {
+        "avg_bits": rep.avg_bits, "requested_avg_bits": AVG_BITS,
+        "n_layers": rep.n_layers, "calibrate_s": calibrate_s,
+        "allocate_s": rep.allocate_s, "quantize_s": rep.quantize_s,
+        "bits_histogram": {str(b): hist[b] for b in sorted(hist)},
+        "code_search_launches": searches, "fp32_ppl": fp_ppl,
+        "quantized_ppl": q_ppl, "ppl_gap": q_ppl - fp_ppl,
+        "ppl_gap_rel": q_ppl / fp_ppl - 1}
+    log(f"train quantize ({AVG_BITS} bits): calibrated on {CALIB_BATCHES} "
+        f"batches of 1 x {TRAIN_SEQ + 1} in {calibrate_s:.2f} s, allocate_s "
+        f"{rep.allocate_s:.2f}, quantize_s {rep.quantize_s:.2f}; achieved "
+        f"{rep.avg_bits:.4f} bits, widths {out['quantize']['bits_histogram']}"
+        f"; code-search launches {searches}; perplexity over {EVAL_BATCHES} "
+        f"x {EVAL_BATCH} x {TRAIN_SEQ}: fp32 {fp_ppl:.4f}, {AVG_BITS}-bit "
+        f"{q_ppl:.4f} (gap {q_ppl - fp_ppl:+.4f}, "
+        f"{100 * (q_ppl / fp_ppl - 1):+.2f}%)")
+    check(searches == rep.n_layers == 6 * cfg.n_layers
+          and AVG_BITS - 0.5 < rep.avg_bits <= AVG_BITS,
+          f"{TRAIN_ARCH}: {rep.n_layers} weights, {searches} code searches, "
+          f"{rep.avg_bits} bits")
+    check(np.isfinite(q_ppl) and q_ppl >= fp_ppl * (1 - PPL_SLACK),
+          f"quantized perplexity {q_ppl} against fp32 {fp_ppl}")
+    if extra:
+        table = {}
+        for bits in TRAIN_TABLE_BITS:
+            qp, r = quantize(bits)
+            h = collections.Counter(r.per_layer_bits.values())
+            table[str(bits)] = {"avg_bits": r.avg_bits,
+                                "ppl": perplexity(cfg, qp, evals),
+                                "allocation": {str(b): h[b] for b in sorted(h)},
+                                "allocate_s": r.allocate_s}
+            log(f"train RaanA {bits} bits (achieved {r.avg_bits:.4f}): ppl "
+                f"{table[str(bits)]['ppl']:.4f} against fp32 {fp_ppl:.4f}; "
+                f"allocation {table[str(bits)]['allocation']}")
+            check(np.isfinite(table[str(bits)]["ppl"]),
+                  f"{bits}-bit perplexity is not finite")
+            del qp
+        out["ppl_table"] = table
+        target, trep, draft, drep = pipe.quantize_model_dual(
+            cfg, params, stats, AVG_BITS, DRAFT_BITS, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+        out["dual"] = {"target_bits": trep.avg_bits,
+                       "draft_bits": drep.avg_bits,
+                       "draft_ppl": perplexity(cfg, draft, evals)}
+    del params, stats
+    torch.cuda.empty_cache()
+    phase_s["quantize"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    pool = PoolConfig(max_slots=4, block_size=16,
+                      max_context=max(TRAIN_PROMPT_LENS) + GEN_LEN,
+                      prefill_chunk=64)
+    reqs = train_requests(cfg, eval_corpus)
+    zero_counts()
+    eng, res, wall = spec_serve(cfg, qparams, dev, pool, reqs=reqs)
+    summ = serve_summary(eng, res, wall, cfg, qparams, TRAIN_PROMPT_LENS)
+    summ["launches"] = counts()
+    with graphs.eager():
+        eng_e, res_e, wall_e = spec_serve(cfg, qparams, dev, pool, reqs=reqs)
+    summ["eager_decode_step_ms"] = (1e3 * eng_e.stats["decode_s"]
+                                    / eng_e.stats["decode_steps"])
+    summ["divergences"] = divergences(res, res_e, eng_e)
+    text = ByteTokenizer(cfg.vocab)
+    summ["samples"] = {rid: {"prompt_tail": text.decode(r.prompt[-48:]),
+                             "continuation": text.decode(res[rid].tokens)}
+                       for rid, r in enumerate(reqs)}
+    summ["request_tokens"] = token_lists(res)
+    launched = {k: v for k, v in summ["launches"].items() if v}
+    log(f"train serve ({AVG_BITS}-bit trained {TRAIN_ARCH}, "
+        f"{len(reqs)} corpus prompts of {TRAIN_PROMPT_LENS}, {GEN_LEN} new): "
+        f"by graph decode {summ['decode_step_ms']:.3f} ms/step, prefill_s "
+        f"{summ['prefill_s']:.4f}, eager decode "
+        f"{summ['eager_decode_step_ms']:.3f} ms/step; tokens identical "
+        f"graph / eager {len(reqs) - len(summ['divergences'])} of "
+        f"{len(reqs)}; launches by graph {launched}")
+    log(f"train sample: ...{summ['samples'][0]['prompt_tail']!r} -> "
+        f"{summ['samples'][0]['continuation']!r}")
+    check(summ["launches"]["rht_qmatmul"] > 0
+          and summ["launches"]["paged_attention"] > 0,
+          f"the trained model's serve run missed a kernel: {launched}")
+    out["serve"] = summ
+    del eng, eng_e
+    if extra:
+        zero_counts()
+        eng, off, _ = spec_serve(cfg, target, dev, pool, reqs=reqs)
+        del eng
+        eng, on, wall = spec_serve(cfg, target, dev, pool, draft=draft,
+                                   reqs=reqs)
+        spec = spec_summary(eng, on, wall, len(reqs))
+        same_as("trained spec on vs off", token_lists(off), token_lists(on))
+        out["dual"].update({k: spec[k] for k in (
+            "acceptance_rate", "spec_rounds", "spec_proposed",
+            "spec_accepted", "tokens_per_round", "ms_per_round",
+            "ms_per_emitted_token")})
+        log(f"train speculation (target {trep.avg_bits:.4f} bits, draft "
+            f"{drep.avg_bits:.4f} bits, draft ppl "
+            f"{out['dual']['draft_ppl']:.4f}, k {SPEC_K}): acceptance_rate "
+            f"{spec['acceptance_rate']:.4f} ({spec['spec_accepted']} / "
+            f"{spec['spec_proposed']}), {spec['tokens_per_round']:.3f} "
+            f"tokens a round, {spec['ms_per_round']:.2f} ms a round; tokens "
+            f"identical to spec off {len(reqs)} of {len(reqs)}")
+        del eng, target, draft
+    del qparams
+    torch.cuda.empty_cache()
+    phase_s["serve"] = time.monotonic() - t0
+    out["phase_s"] = phase_s
+    log(f"train phase seconds: {json.dumps(phase_s)}")
+    return out
+
+
+def train_main(dev, smi) -> int:
+    """``--train``: build every kernel, then ``train_phase`` with the
+    example's table of perplexities and the trained draft's acceptance.
+    Prints one JSON line (also ``chiprun_out/chip_smoke_train.json``), the
+    nvidia-smi line and the contract's last line."""
+    _build.build()
+    out = {"gpu": smi, "train": train_phase(dev, extra=True),
+           "seconds": time.monotonic() - T_START}
+    (OUT_DIR / "chip_smoke_train.json").write_text(json.dumps(out, indent=1))
+    log(json.dumps(compact(out)))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 # ---------------------------------------- the gather, the front door, lockstep
 
 
@@ -3588,7 +4036,8 @@ def compact(node):
     if isinstance(node, dict):
         return {k: compact(v) for k, v in node.items() if k not in (
             "request_tokens", "per_step", "round_profile", "decode_profile",
-            "prefill_profile", "per_layer_bits")}
+            "prefill_profile", "per_layer_bits", "losses", "grad_norms",
+            "step_ms", "samples")}
     return node
 
 
@@ -3615,6 +4064,8 @@ def main() -> int:
         return spec_main(dev, smi)
     if sys.argv[1:] == ["--frontdoor"]:
         return frontdoor_main(dev, smi)
+    if sys.argv[1:] == ["--train"]:
+        return train_main(dev, smi)
     if modes:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3708,6 +4159,7 @@ def main() -> int:
     del moe_params, moe_draft
     torch.cuda.empty_cache()
     dense_out = timed("dense", dense_phase, dev)
+    train_out = timed("train", train_phase, dev)
     log(f"phase seconds: {json.dumps(phase_s)}")
 
     # launches per path, each from that path's own run with every count
@@ -3756,6 +4208,10 @@ def main() -> int:
                         "fused": row["graph"]["launches"],
                         "unfused": row["unfused"]["launches"]}
                  for arch, row in dense_out.items()})
+    # the trained qwen3-0.6b: its quantization and its graph serve run
+    runs["qwen3_trained"] = {
+        "quantize": train_out["quantize"]["code_search_launches"],
+        "fused": train_out["serve"]["launches"], "unfused": none}
     dense = tuple(dense_out)
 
     def by_path(kernel, run):
@@ -3770,14 +4226,16 @@ def main() -> int:
     on_path = {  # kernel -> (run that counts it, paths that must launch it)
         "rht_qmatmul": ("fused", ("llama2", "mixtral", "llama2_prefix",
                                   *spec, *dense, "llama2_gather",
-                                  "frontdoor", *lockstep)),
+                                  "frontdoor", *lockstep, "qwen3_trained")),
         "paged_attention": ("fused", ("llama2", "mixtral", "llama2_prefix",
-                                      *spec, *dense, "frontdoor")),
+                                      *spec, *dense, "frontdoor",
+                                      "qwen3_trained")),
         "qmatmul": ("unfused", ("llama2", "mixtral", *dense,
                                 "lockstep_llama2_unfused")),
         "rht": ("unfused", ("llama2", "mixtral", *dense,
                             "lockstep_llama2_unfused")),
-        "rabitq_quant": ("quantize", ("llama2", "mixtral", *dense)),
+        "rabitq_quant": ("quantize", ("llama2", "mixtral", *dense,
+                                      "qwen3_trained")),
         "grouped_rht_qmatmul": ("fused", ("mixtral", "mixtral_spec",
                                           "lockstep_mixtral")),
         "grouped_qmatmul": ("unfused", ("mixtral",)),
@@ -3912,7 +4370,8 @@ def main() -> int:
               "speculation": spec_out, "mixtral_speculation": moe_spec,
               "gather": gather_out, "frontdoor": frontdoor_out,
               "lockstep": {"llama2": lockstep_out, "mixtral": moe_lockstep},
-              "dense_configs": dense_out, "kernels": kernels,
+              "dense_configs": dense_out, "train": train_out,
+              "kernels": kernels,
               "phase_s": phase_s, "seconds": time.monotonic() - T_START}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log(f"chip_smoke: {detail['seconds']:.1f} s")

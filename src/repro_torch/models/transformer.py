@@ -1,8 +1,8 @@
 """Parameter init, the sequence-mode forward and loss, and the layer blocks
 the serving path needs.
 
-Port of the parts of ``repro/models/transformer.py`` that decode and
-calibration use: ``init_params`` for attention decoders with GLU/GELU or
+Port of the parts of ``repro/models/transformer.py`` that decode,
+calibration and training use: ``init_params`` for attention decoders with GLU/GELU or
 MoE FFNs, ``embed_tokens``, ``_qk_normalize``, ``_ffn_apply`` (returning
 the FFN output and the MoE aux loss), and the unrolled ``forward`` /
 ``loss_fn`` with their ``LinearCtx`` taps (layer names ``L{i}``, so tap
@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 
@@ -178,25 +179,36 @@ def _default_positions(cfg: ModelConfig, b: int, s: int, device,
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            ctx: Optional[LinearCtx] = None):
-    """Sequence-mode forward, layers unrolled -> (logits (B, S, V), aux)."""
+            ctx: Optional[LinearCtx] = None, remat: bool = False):
+    """Sequence-mode forward, layers unrolled -> (logits (B, S, V), aux).
+
+    ``remat``: each layer under ``torch.utils.checkpoint`` (non-reentrant),
+    so its activations are recomputed in the backward instead of kept; the
+    numbers do not change."""
     h = embed_tokens(cfg, params, tokens)
     b, s, _ = h.shape
     positions = _default_positions(cfg, b, s, h.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, lp in enumerate(params["layers"]):
-        h, aux = layer_seq(cfg, lp, h, positions, ctx, f"L{i}")
+        if remat:
+            h, aux = torch.utils.checkpoint.checkpoint(
+                layer_seq, cfg, lp, h, positions, ctx, f"L{i}",
+                use_reentrant=False)
+        else:
+            h, aux = layer_seq(cfg, lp, h, positions, ctx, f"L{i}")
         aux_total = aux_total + aux
     h = apply_norm(cfg.norm, h, params["final_norm"])
     return linear(params["lm_head"], h, ctx, "lm_head"), aux_total
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
-            ctx: Optional[LinearCtx] = None) -> torch.Tensor:
-    """Mean next-token NLL (+ the MoE aux loss, which calibration
-    differentiates through too).  batch: tokens (B, S+1) [, mask (B, S)]."""
+            ctx: Optional[LinearCtx] = None,
+            remat: bool = False) -> torch.Tensor:
+    """Mean next-token NLL (+ the MoE aux loss, which calibration and
+    training differentiate through).  batch: tokens (B, S+1) [, mask (B,
+    S)]; ``remat`` as ``forward``'s."""
     tokens = batch["tokens"]
-    logits, aux = forward(cfg, params, tokens[:, :-1], ctx=ctx)
+    logits, aux = forward(cfg, params, tokens[:, :-1], ctx=ctx, remat=remat)
     loss = cross_entropy(logits, tokens[:, 1:], batch.get("mask"))
     if cfg.moe is not None:
         loss = loss + cfg.moe.aux_coef * aux

@@ -1,0 +1,97 @@
+"""Gradient compression (port of ``repro/runtime/compression.py``).
+
+  * ``compress_decompress_grads`` -- int8 symmetric quantization of the
+    gradients inside the train step, one scale per tensor: ``max(|g|max,
+    1e-12) / 127``, round half to even (``torch.round``, as ``jnp.round``),
+    clip at +-127; leaves that are not floating point pass through.  It
+    models the quality impact of an int8 all-reduce, which is what
+    convergence tests need;
+  * ``ErrorFeedback`` -- residual accumulation, so each step's quantization
+    error is re-injected into the next (EF-SGD style).
+
+"One scale per tensor" means per tensor of the reference's layout, which
+stacks the decoder layers: its ``layers[0]["attn"]["wq"]`` is one (L, d, c)
+tensor, so a weight's copies in all L layers share one scale.  The port's
+layers are a list of per-layer trees, so under a ``"layers"`` list a leaf
+is quantized with the scale of it and its counterparts in the other layers
+(the max over all of them): the same codes as the reference's.  Every
+other leaf has its own scale.
+
+The reference's ``int8_psum`` (an all-reduce of int8 payloads over a mesh
+axis) comes with tensor parallelism (ROADMAP Queue 1 item 6).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.tree import flatten, tree_map, unflatten
+
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _is_float(g) -> bool:
+    return isinstance(g, torch.Tensor) and g.dtype in _FLOATS
+
+
+def _scale(gs: list[torch.Tensor]) -> torch.Tensor:
+    """The int8 scale shared by the f32 tensors ``gs``."""
+    a = torch.stack([torch.max(torch.abs(g)) for g in gs]).max()
+    return torch.clamp(a, min=1e-12) / 127.0
+
+
+def _roundtrip(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """g quantized to int8 codes with ``scale`` and dequantized (f32)."""
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q.to(torch.float32) * scale
+
+
+def _map_groups(fn: Callable[[list], list], tree_):
+    """``fn`` over the groups of leaves that share a scale (a list in, a
+    list of the same length out) -> a tree of ``tree_``'s structure."""
+    layers = tree_.get("layers") if isinstance(tree_, dict) else None
+    if not (isinstance(layers, list) and layers):
+        return tree_map(lambda g: fn([g])[0], tree_)
+    flats = [flatten(lp) for lp in layers]
+    if any(td != flats[0][1] for _, td in flats):
+        raise ValueError("layers of different structure")
+    cols = [fn([leaf[j] for leaf, _ in flats])
+            for j in range(len(flats[0][0]))]
+    out = {k: _map_groups(fn, v) for k, v in tree_.items() if k != "layers"}
+    out["layers"] = [unflatten(td, [col[i] for col in cols])
+                     for i, (_, td) in enumerate(flats)]
+    return out
+
+
+def _int8_group(gs: list) -> list:
+    """A group of leaves through int8 with one shared scale (f32 out); a
+    group that is not floating point passes through."""
+    if not all(_is_float(g) for g in gs):
+        return gs
+    gf = [g.to(torch.float32) for g in gs]
+    scale = _scale(gf)
+    return [_roundtrip(x, scale) for x in gf]
+
+
+def compress_decompress_grads(grads):
+    deq = _map_groups(_int8_group, grads)
+    return tree_map(lambda d, g: d.to(g.dtype) if _is_float(g) else g,
+                    deq, grads)
+
+
+class ErrorFeedback:
+    """Stateful error feedback: a tree of f32 residuals beside the
+    gradients, on their devices."""
+
+    def __init__(self, params_like):
+        self.residual = tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params_like)
+
+    def apply(self, grads):
+        gf = tree_map(lambda g, r: g.to(torch.float32) + r, grads,
+                      self.residual)
+        deq = _map_groups(_int8_group, gf)
+        self.residual = tree_map(lambda x, d: x - d, gf, deq)
+        return tree_map(lambda d, g: d.to(g.dtype), deq, grads)
