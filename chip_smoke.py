@@ -279,6 +279,11 @@ SEARCH_SHAPES = GEMM_SHAPES + [(4096, 28672), (14336, 4096), (4083, 1024)]
 # and at each rotation width the dense configs add, one of its weights
 SEARCH_SHAPES += [(1020, 6144), (2041, 1024), (3062, 1024), (7146, 1024),
                   (8167, 2048), (20418, 7168)]
+# and at the families' widths: deepseek-v2's wq_b, wo and an expert's wi /
+# wo (the grouped form keeps the full width), rwkv6's time-mix weight and
+# cv, recurrentgemma's FFN wo
+SEARCH_SHAPES += [(1531, 24576), (16334, 5120), (5120, 3072), (1536, 5120),
+                  (2552, 2560), (8933, 2560), (7656, 2560)]
 GEMM_BITS = list(range(1, 9))
 # n = 1 and 8 are decode; 16-64 prefill chunks and their remainders (3,
 # 48 and 56 the prefix path's chunks after a cache hit), 20 a prefill
@@ -295,6 +300,27 @@ DENSE_GEMM_SHAPES = [
     (1020, 2048), (1020, 1024), (1020, 6144), (3062, 1024),
     (7146, 7168), (7146, 1024), (7146, 40960), (20418, 7168)]
 DENSE_GEMM_NS = [1, 3, 4, 8, 32, 48, 56, 64]
+# the family phases (``family_phase``): FAMILY_SLOTS engine slots,
+# FAMILY_PROMPT_LENS (recurrentgemma also RG_LONG_PROMPT, past its window),
+# 64-token chunks; the lockstep server's FAMILY_LOCK prompts of
+# FAMILY_LOCK_PROMPT tokens
+FAMILY_SLOTS = 4
+FAMILY_PROMPT_LENS = [64, 200, 128, 96]
+RG_LONG_PROMPT = 2100
+FAMILY_LOCK, FAMILY_LOCK_PROMPT = 4, 128
+FAMILY_GEMM_NS = [4, 8, 32, 52, 64, FAMILY_LOCK * FAMILY_LOCK_PROMPT]
+# the MLA, RWKV6 and RG-LRU families' (d_keep, c) at published width:
+# deepseek-v2-236b's wq_a, wq_b, wkv_a, wo, shared swi and swo;
+# rwkv6-3b's time-mix projections (and RG-LRU's wg / wi / wo, attention's
+# wq / wo, all 2552 x 2560), ck and cv; recurrentgemma-2b's wk / wv (one
+# KV head of 256) and its FFN's wi and wo.  Rows: decode over 4 slots,
+# the family phases' prompt chunks (FAMILY_PROMPT_LENS in 64-token chunks:
+# 64, 8 and the long prompt's 52) and their lockstep prefill (FAMILY_LOCK
+# prompts of FAMILY_LOCK_PROMPT tokens at once)
+FAMILY_GEMM_SHAPES = [
+    (5104, 1536), (1531, 24576), (5104, 576), (16334, 5120), (5104, 6144),
+    (3062, 5120), (2552, 2560), (2552, 8960), (8933, 2560), (2552, 256),
+    (2552, 15360), (7656, 2560)]
 # the lockstep prefill's rows: 8 prompts of 256 tokens at once, through
 # llama2's projections and Mixtral's attention (wq/wo, wk/wv)
 LOCKSTEP_ROWS = 8 * 256
@@ -311,6 +337,12 @@ RHT_DIMS = [2048, 4096, 8192, 16384, 4083, 8191, 10974, 14336, 20480,
 # and the lockstep prefill's: 2048 rows at llama2's and Mixtral's kept
 # widths, Mixtral's experts' E*C = 8 * 640 rows at 4096 and 14336
 LOCKSTEP_RHT = [(2048, 4083), (2048, 10974), (5120, 4096), (5120, 14336)]
+# the families' kept widths (FAMILY_GEMM_SHAPES) at decode and chunk rows,
+# and DeepSeek-V2's grouped experts' full widths (wi 5120, wo 1536) at a
+# decode step's E * C = 160 * 6 rows
+FAMILY_RHT = ([(n, d) for n in (4, 64) for d in (5104, 1531, 16334, 2552,
+                                                 8933, 7656)]
+              + [(960, 5120), (960, 1536)])
 RHT_TIMED = [(8, 4083), (8, 10974), (64, 4083), (8, 4096), (8, 16384),
              (16, 4096), (16, 14336), (160, 4096), (160, 14336)]
 TIME_SHAPES = [(1, 4083, 4096), (8, 4083, 4096), (8, 4083, 22016),
@@ -319,7 +351,10 @@ TIME_SHAPES = [(1, 4083, 4096), (8, 4083, 4096), (8, 4083, 22016),
 # Mixtral's expert GEMMs (E, C, d, c): wi and wo at decode (8 slots, top-2:
 # C = 2) and at a 64-token prefill chunk (C = 20)
 GROUPED_SHAPES = [(8, 2, 4096, 28672), (8, 2, 14336, 4096),
-                  (8, 20, 4096, 28672), (8, 20, 14336, 4096)]
+                  (8, 20, 4096, 28672), (8, 20, 14336, 4096),
+                  # DeepSeek-V2's 160 experts (top-6) at a decode step and a
+                  # 64-token chunk: C = 6 either way
+                  (160, 6, 5120, 3072), (160, 6, 1536, 5120)]
 # checked, not timed: more rows per expert than one 64-row block holds
 # + the capacities speculation gives Mixtral's 8 slots: C = 5 for the
 # draft's catch-up (16 tokens), C = 10 for the verify (32 tokens)
@@ -331,7 +366,11 @@ GROUPED_CHECK_SHAPES = GROUPED_SHAPES + [(3, 100, 4083, 1024),
                                          (8, 10, 4096, 28672),
                                          (8, 10, 14336, 4096),
                                          (8, LOCKSTEP_CAP, 4096, 28672),
-                                         (8, LOCKSTEP_CAP, 14336, 4096)]
+                                         (8, LOCKSTEP_CAP, 14336, 4096),
+                                         # DeepSeek-V2's lockstep prefill:
+                                         # 512 tokens top-6, C = 24
+                                         (160, 24, 5120, 3072),
+                                         (160, 24, 1536, 5120)]
 FLASH_CASES = [  # name, b, s, h, kv, hd, causal, window, dtype
     ("mixtral S=4608 G=4 window 4096", 1, 4608, 32, 8, 128, True, 4096,
      torch.float32),
@@ -354,6 +393,24 @@ WALK_MAX_S = 2048               # the host tile walk checks cases up to here
 # request is longer than the 4096-token window, so its ring wraps
 MOE_LAYERS = 4
 MOE_LONG_PROMPT = 4160
+
+
+# llama2-7b's depth in the whole run: LLAMA2_LAYERS of its 32 layers
+# (published widths), to pay for the three family phases inside the
+# script's 1050 s aim.  On an H100 80GB HBM3 at 700 W its phases took 737
+# s of a 1110.4 s run at 32 layers (quantize 187.5, serve 171.0, prefix
+# 72.8, speculation 219.3, gather 39.3, front door 28.9, lockstep 16.6)
+# and 382 s of a 793.8 s run at 16 (90.2, 91.3, 37.6, 117.2, 21.1, 16.9,
+# 8.2; the three family phases 13.0 + 16.8 + 14.3).  The single-phase
+# modes (--prefix-cache, --speculation, --frontdoor, --profiles) keep all
+# 32.
+LLAMA2_LAYERS = 16
+_LLAMA2_DEPTH = [32]          # main() sets LLAMA2_LAYERS for the whole run
+
+
+def llama2_config():
+    """llama2-7b at its published width, at this run's depth."""
+    return get_config("llama2-7b").with_(n_layers=_LLAMA2_DEPTH[0])
 
 
 class SmokeFailure(RuntimeError):
@@ -505,7 +562,9 @@ def check_gemms(gen, dev) -> dict:
     shapes = [(d, c, n) for group, ns in ((GEMM_SHAPES, GEMM_NS),
                                           (DENSE_GEMM_SHAPES, DENSE_GEMM_NS),
                                           (LOCKSTEP_GEMM_SHAPES,
-                                           [LOCKSTEP_ROWS]))
+                                           [LOCKSTEP_ROWS]),
+                                          (FAMILY_GEMM_SHAPES,
+                                           FAMILY_GEMM_NS))
               for d, c in group for n in ns]
     for d, c, n in shapes:
         for bits in GEMM_BITS:
@@ -536,7 +595,8 @@ def check_gemms(gen, dev) -> dict:
         f"{qops.MAX_CHUNKS_PER_SPLIT})")
     log(f"rht_qmatmul and qmatmul: {len(shapes) * len(GEMM_BITS)} cases each "
         f"(bits 1-8; n {GEMM_NS} at {GEMM_SHAPES}, n {DENSE_GEMM_NS} at "
-        f"{DENSE_GEMM_SHAPES}, n {LOCKSTEP_ROWS} at {LOCKSTEP_GEMM_SHAPES}) "
+        f"{DENSE_GEMM_SHAPES}, n {LOCKSTEP_ROWS} at {LOCKSTEP_GEMM_SHAPES}, "
+        f"n {FAMILY_GEMM_NS} at {FAMILY_GEMM_SHAPES}) "
         f"within {RTOL} * max|plain|; max|err| fused "
         f"{worst['fused']:.3e}, unfused {worst['unfused']:.3e}; largest "
         f"|err|/max|plain| {worst['rel']:.2e}")
@@ -600,7 +660,8 @@ def check_rht(gen, dev) -> dict:
     against its host walk of the same stages (ref.rotate_walk, on the card)."""
     worst = dict.fromkeys(("err", "rowsum_err", "walk_err"), 0.0)
     walk_equal = 0
-    cases = [(n, d) for n in RHT_NS for d in RHT_DIMS] + LOCKSTEP_RHT
+    cases = ([(n, d) for n in RHT_NS for d in RHT_DIMS] + LOCKSTEP_RHT
+             + FAMILY_RHT)
     for n, d in cases:
         x = torch.randn((n, d), generator=gen, device=dev)
         s1, s2 = draw_signs(d, gen)
@@ -635,7 +696,7 @@ def check_rht(gen, dev) -> dict:
                      ("walk_err", walk_err)):
             worst[k] = max(worst[k], v)
     log(f"rht: {len(cases)} cases (n {RHT_NS} x d {RHT_DIMS}, and "
-        f"{LOCKSTEP_RHT}"
+        f"{LOCKSTEP_RHT + FAMILY_RHT}"
         f"), both entries "
         f"within atol {RHT_ATOL} (max|err| {worst['err']:.3e}); padding "
         f"zero; row sums within {RHT_ATOL} of the rows' f64 sums (max "
@@ -856,6 +917,7 @@ def attn_inputs(gen, dev, b, w, h, kv, hd, bs, mb, ctx_max, dtype, window,
 
 
 ATTN_CASES = [  # name, w, h, kv, dtype, window, ring_blocks, ctx_max, ctx_lo
+    #              [, head_dim: 128 when absent]
     ("f32 W=1", 1, 32, 32, torch.float32, None, None, 1024, None),
     ("bf16 W=1", 1, 32, 32, torch.bfloat16, None, None, 1024, None),
     ("f32 W=3", 3, 32, 32, torch.float32, None, None, 1024, None),
@@ -896,6 +958,14 @@ ATTN_CASES = [  # name, w, h, kv, dtype, window, ring_blocks, ctx_max, ctx_lo
      torch.float32, 4096, 257, 4195, 3900),
     ("mixtral verify bf16 W=4 G=4 window 4096, ring of 257 blocks", 4, 32,
      8, torch.bfloat16, 4096, 257, 4195, 3900),
+    # recurrentgemma-2b's local attention: MQA (G = 10 = R, in row chunks
+    # of 4 at hd 256), window 2048 over a 128-block ring; positions
+    # 1900-2200, the later ones past the ring (wrapped); one CTA per SM
+    # with the f32 ring, two with bf16
+    ("recurrentgemma f32 G=10 hd=256 window 2048, ring of 128 blocks", 1,
+     10, 1, torch.float32, 2048, 128, 2200, 1900, 256),
+    ("recurrentgemma bf16 G=10 hd=256 window 2048, ring of 128 blocks", 1,
+     10, 1, torch.bfloat16, 2048, 128, 2200, 1900, 256),
 ]
 # timed: name, w, h, kv, dtype, window, ring_blocks, table width, ctx_max,
 # ctx_lo (None: every request at ctx_max)
@@ -918,6 +988,12 @@ ATTN_TIMED = [
      None, None, 35, 545, 128),
     ("mixtral verify f32 B=8 W=4 G=4 window 4096, pos 3900-4195", 4, 32, 8,
      torch.float32, 4096, 257, 257, 4195, 3900),
+    # recurrentgemma-2b's decode (hd 256, MQA G = 10, window 2048 over a
+    # wrapped 128-block ring), f32 and bf16 arenas
+    ("recurrentgemma f32 B=8 G=10 hd=256 window 2048, pos 1900-2200", 1,
+     10, 1, torch.float32, 2048, 128, 128, 2200, 1900, 256),
+    ("recurrentgemma bf16 B=8 G=10 hd=256 window 2048, pos 1900-2200", 1,
+     10, 1, torch.bfloat16, 2048, 128, 128, 2200, 1900, 256),
 ]
 
 
@@ -926,7 +1002,9 @@ def attn_splits(args) -> int:
     q, k, _, bt = args[:4]
     return pops.kv_splits(q.shape[0], k.shape[2], bt.shape[1], k.shape[1],
                           torch.cuda.get_device_properties(
-                              q.device).multi_processor_count)
+                              q.device).multi_processor_count,
+                          pops.ctas_per_sm(q.shape[-1],
+                                           k.dtype == torch.bfloat16))
 
 
 def check_attention(gen, dev) -> dict:
@@ -935,8 +1013,10 @@ def check_attention(gen, dev) -> dict:
     inputs, with one split and with the combine, give equal bits."""
     worst = 0.0
     cases = []
-    b, hd, bs = 8, 128, 16
-    for name, w, h, kv, dtype, window, ring_blocks, ctx, ctx_lo in ATTN_CASES:
+    b, bs = 8, 16
+    for (name, w, h, kv, dtype, window, ring_blocks, ctx, ctx_lo,
+         *head_dim) in ATTN_CASES:
+        hd = head_dim[0] if head_dim else 128
         mb = max(64, ring_blocks or 0)           # the block table's width
         args = attn_inputs(gen, dev, b, w, h, kv, hd, bs, mb, ctx, dtype,
                            window, ring_blocks, ctx_lo=ctx_lo)
@@ -947,15 +1027,18 @@ def check_attention(gen, dev) -> dict:
         check(bool(torch.isfinite(got).all()) and err <= RTOL * scale,
               f"paged_attention {name}: max|err| {err} > {RTOL} * {scale}")
         worst = max(worst, err)
-        cases.append({"case": name, "splits": attn_splits(args),
+        cases.append({"case": name, "hd": hd, "splits": attn_splits(args),
                       "max_abs_err": err, "max_abs_plain": scale})
         if name in ("f32 W=1", "f32 G=4", "mixtral verify f32 W=4 G=4 "
-                    "window 4096, ring of 257 blocks"):  # one split; more
+                    "window 4096, ring of 257 blocks",
+                    "recurrentgemma f32 G=10 hd=256 window 2048, ring of "
+                    "128 blocks"):                # one split; more
             again = pops.paged_attention_cuda(*args, window=window)
             check(torch.equal(got, again),
                   f"paged_attention {name}: two calls differ")
     # the prefix cache: every slot's table starts with slot 0's 32 blocks
     # (a cached 512-token system prompt), contexts 520-600 past them
+    hd = 128
     args = attn_inputs(gen, dev, b, 1, 32, 32, hd, bs, 42, 600,
                        torch.float32, None, ctx_lo=520)
     args[3][1:, :32] = args[3][0, :32]
@@ -976,7 +1059,7 @@ def check_attention(gen, dev) -> dict:
     got = pops.paged_attention_cuda(q, k, v, bt, pos, ring)
     check(bool(torch.isfinite(got).all()), "inactive slot gave non-finite")
     log(f"paged_attention: {len(cases)} cases + an inactive slot within "
-        f"{RTOL} * max|plain|, three cases bitwise repeatable; max|err| "
+        f"{RTOL} * max|plain|, four cases bitwise repeatable; max|err| "
         f"{worst:.3e}; splits {[c['splits'] for c in cases]}")
     return {"max_abs_err": worst, "cases": cases, "deterministic": True}
 
@@ -1008,10 +1091,10 @@ def sdpa_decode(q, k_arena, v_arena, bt, pos, ring):
 
 
 def time_attention(gen, dev, name, w, h, kv, dtype, window, ring_blocks, mb,
-                   ctx, ctx_lo) -> dict:
+                   ctx, ctx_lo, hd=128) -> dict:
     """One ATTN_TIMED case: the kernel (graph replay and eager), its plain
     version, SDPA on the gathered K/V, and the bound of the keys read."""
-    b, hd, bs = 8, 128, 16
+    b, bs = 8, 16
     args = attn_inputs(gen, dev, b, w, h, kv, hd, bs, mb, ctx, dtype,
                        window, ring_blocks, full=ctx_lo is None,
                        ctx_lo=ctx_lo)
@@ -1272,10 +1355,10 @@ def time_flash(gen, dev, name, b, s, h, kv, hd, causal, window, dtype) -> dict:
 
 def quantized_linears(params) -> dict:
     """name -> QuantizedLinear (or QuantizedGrouped), under the pipeline's
-    names."""
-    return {f"L{i}.{g}.{k}": lp[g][k] for i, lp in enumerate(params["layers"])
-            for g in ("attn", "mlp", "moe") if g in lp for k in lp[g]
-            if hasattr(lp[g][k], "packed")}
+    names (``L3.attn.wq``, ``L0.mla.wq_a``, ``L1.tm.wr``, ``L2.moe.wi``)."""
+    return {f"L{i}.{g}.{k}": sub[k] for i, lp in enumerate(params["layers"])
+            for g, sub in lp.items() if isinstance(sub, dict) for k in sub
+            if hasattr(sub[k], "packed")}
 
 
 QUANT_TENSORS = ("packed", "rescale", "signs1", "signs2", "mean_col", "w_out",
@@ -1359,7 +1442,7 @@ def quantize_phase(dev, compare: bool = True, draft_bits: float | None = None
     ``draft_bits`` the target and a draft at that budget come from
     ``quantize_model_dual`` (one calibration, one set of signs; both
     quantizations counted); returns (summary, target, draft or None)."""
-    cfg = get_config("llama2-7b")
+    cfg = llama2_config()
     t0 = time.monotonic()
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                             device=dev)
@@ -1535,7 +1618,10 @@ class GapRecordingServer(PagedServer):
                                  results)
 
     def _decode_once(self, t0, results):
-        lens = [(len(st.served) + len(st.out), st.ring_cap)
+        # an arch without attention layers holds every token (MLA) or none
+        # (RWKV6) in per-slot rows, not in a ring of blocks
+        lens = [(len(st.served) + len(st.out),
+                 st.ring_cap if self.has_attn else 1 << 30)
                 for st in self._active.values()]
         self.step_tokens.append(sum(min(n, cap) for n, cap in lens))
         self.past_ring = max([self.past_ring] + [n - cap for n, cap in lens])
@@ -1553,16 +1639,31 @@ PROMPT_LENS = [64, 512, 128, 384, 96, 256, 448, 192]
 GEN_LEN = 32
 
 
-def decode_step_bound_ms(cfg, params, tokens_in_arena: float) -> float:
+def decode_step_bound_ms(cfg, params, tokens_in_arena: float,
+                         slots: int = 8) -> float:
     """Least time of one decode step: every weight byte (packed codes, side
-    info, every expert's codes, the MoE routers, the f32 lm_head, the
-    embedding rows read) and every live K/V byte once, over the HBM rate."""
-    nbytes = params["lm_head"].numel() * 4 + 8 * cfg.d_model * 4
+    info, every expert's codes, the layers' full-precision leaves: norms,
+    MoE routers, MLA's wkv_b, RWKV's LoRAs, RG-LRU's gates; the f32
+    lm_head, the embedding rows read), every live K/V byte (an attention
+    layer's K and V, an MLA layer's latent and rotary key, per token in
+    the arena) and each slot's recurrent state (read and written) once,
+    over the HBM rate."""
+    nbytes = params["lm_head"].numel() * 4 + slots * cfg.d_model * 4
     nbytes += sum(quant_bytes(q) for q in quantized_linears(params).values())
-    nbytes += sum(lp["moe"]["router"].numel() * 4
-                  for lp in params["layers"] if "moe" in lp)
-    kv_per_token = cfg.n_layers * 2 * cfg.n_kv * cfg.hd * 4
-    return (nbytes + tokens_in_arena * kv_per_token) / HBM_BYTES_PER_S * 1e3
+    nbytes += sum(t.numel() * t.element_size() for lp in params["layers"]
+                  for t in ptree.leaves(lp) if isinstance(t, torch.Tensor))
+    per_token, state = 0, 0
+    for mixer in cfg.pattern:
+        if mixer == "attn":
+            per_token += 2 * cfg.n_kv * cfg.hd * 4
+        elif mixer == "mla":
+            per_token += (cfg.mla.kv_lora + cfg.mla.qk_rope) * 4
+        elif mixer == "rwkv":
+            state += 2 * (cfg.n_heads * cfg.hd * cfg.hd + 2 * cfg.d_model) * 4
+        elif mixer == "rglru":
+            state += 2 * 4 * (cfg.rglru_width or cfg.d_model) * 4
+    nbytes += slots * state
+    return (nbytes + tokens_in_arena * per_token) / HBM_BYTES_PER_S * 1e3
 
 
 def requests(cfg, prompt_lens=PROMPT_LENS) -> list:
@@ -1614,7 +1715,8 @@ def serve_summary(engine, results, wall, cfg, params,
                              else "on"),
             "prefill_tokens_saved": st.get("prefill_tokens_saved", 0),
             "decode_step_bound_ms": decode_step_bound_ms(
-                cfg, params, float(np.mean(engine.step_tokens)))}
+                cfg, params, float(np.mean(engine.step_tokens)),
+                engine.pool.max_slots)}
 
 
 # serve runs per mode, for the spread of the host-clock step times
@@ -1955,7 +2057,7 @@ def llama2_pool():
 
 
 def serve_phase(dev, params) -> dict:
-    cfg = get_config("llama2-7b")
+    cfg = llama2_config()
     out = serve_four_ways("llama2", cfg, params, dev, llama2_pool(),
                           PROMPT_LENS)
     launches, unf = out["launches"], out["unfused"]["launches"]
@@ -2175,7 +2277,7 @@ def prefix_phase(dev, params) -> dict:
     Tokens must be identical in every pair (on / off, graph / eager,
     pressure / cold, preempted / uninterrupted, cancelled / uninterrupted
     for the rest), and the blocks must drain after every run."""
-    cfg = get_config("llama2-7b")
+    cfg = llama2_config()
     PagedServer(cfg, params, prefix_pool(), device=dev).run(   # warm-up
         [Request(rid=-1, prompt=np.arange(16, dtype=np.int32), max_new=2)])
     out = {}
@@ -2492,7 +2594,7 @@ def spec_phase(dev, params, draft, base, prefix_base, plain_ms,
 
     ``plain_ms`` and ``plain_peak`` are phase 5's median decode ms/step
     and peak memory, spec off, f32 arenas."""
-    cfg = get_config("llama2-7b")
+    cfg = llama2_config()
     pool = llama2_pool()
     out = {"k": SPEC_K, "plain_decode_ms_per_step": plain_ms}
     for name, d in (("draft=target", params), ("draft", draft)):
@@ -2970,6 +3072,207 @@ def dense_phase(dev) -> dict:
     return out
 
 
+# ----------------------------------------------- MLA, RWKV6 and RG-LRU
+
+# each family at its published width, the depth cut (the widths, heads,
+# experts, windows and states are as published):
+#   deepseek-v2-236b 2 of 60 layers: one layer is 3.97 B fp32 params (15.9
+#     GB: MLA 149 M, 160 experts 3.77 B, 2 shared experts 47 M), the
+#     embedding and lm_head 4.2 GB, 36 GB in all; the calibration holds it
+#     whole on the 80 GB card beside the quantized copy;
+#   rwkv6-3b 4 of 32 layers and recurrentgemma-2b 5 of 26 (one (rglru,
+#     rglru, attn) period and the remainder of 2, as its TINY variant):
+#     the time of the whole run, not memory, limits them.
+FAMILY_ARCHS = {"deepseek-v2-236b": 2, "rwkv6-3b": 4, "recurrentgemma-2b": 5}
+FAMILY_PATH = {"deepseek-v2-236b": "deepseek_v2", "rwkv6-3b": "rwkv6",
+               "recurrentgemma-2b": "recurrentgemma"}
+
+
+def family_config(arch):
+    """``arch`` at its published width, the depth cut to FAMILY_ARCHS."""
+    cfg = get_config(arch)
+    n = FAMILY_ARCHS[arch]
+    return cfg.with_(n_layers=n, mixer_pattern=cfg.pattern[:n])
+
+
+def family_prompt_lens(arch) -> list:
+    """FAMILY_PROMPT_LENS, and for recurrentgemma one prompt past its
+    2048-token window, whose KV ring wraps in prefill and in decode."""
+    return FAMILY_PROMPT_LENS + ([RG_LONG_PROMPT] if arch ==
+                                 "recurrentgemma-2b" else [])
+
+
+def family_pool(arch) -> PoolConfig:
+    return PoolConfig(max_slots=FAMILY_SLOTS, block_size=16,
+                      max_context=max(family_prompt_lens(arch)) + GEN_LEN,
+                      prefill_chunk=64)
+
+
+def family_quantize(arch, dev) -> tuple:
+    """fp32 ``family_config(arch)`` from a seed on the card, calibrated on
+    the zero-shot sentence (256 tokens), allocated (AVG_BITS) and
+    quantized with the code-search kernel (counted: one launch per 2-D
+    weight, one per expert of a grouped stack).  The fp weights are
+    dropped after.  -> (summary, quantized params)."""
+    cfg = family_config(arch)
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 11), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    fp_gb = sum(t.numel() * 4 for t in ptree.leaves(params)) / 1e9
+    layer_gb = [sum(t.numel() * 4 for t in ptree.leaves(lp)) / 1e9
+                for lp in params["layers"]]
+    zero_counts()
+    t0 = time.monotonic()
+    toks = torch.from_numpy(cal.zero_shot_tokens(cfg.vocab, 256)).to(dev)
+    stats = cal.calibrate(
+        lambda p, b, ctx, cfg=cfg: tf.loss_fn(cfg, p, b, ctx=ctx), params,
+        [{"tokens": toks}])
+    torch.cuda.synchronize()
+    calibrate_s = time.monotonic() - t0
+    calibrate_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(st.alpha) and st.alpha > 0
+              for st in stats.values()), f"{arch}: calibration gave a bad "
+          f"alpha")
+    qparams, rep = pipe.quantize_model(
+        cfg, params, stats, AVG_BITS,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 12),
+        device=dev)
+    searches = counts()["rabitq_quant"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, stats
+    torch.cuda.empty_cache()
+    qls = quantized_linears(qparams)
+    grouped = [q for q in qls.values() if isinstance(q, QuantizedGrouped)]
+    expected = len(qls) - len(grouped) + sum(q.packed.shape[0]
+                                             for q in grouped)
+    out = {"arch": arch, "n_layers": cfg.n_layers,
+           "published_layers": get_config(arch).n_layers,
+           "pattern": list(cfg.pattern), "d_model": cfg.d_model,
+           "fp32_gb": fp_gb, "fp32_layer_gb": layer_gb, "init_s": init_s,
+           "calibrate_s": calibrate_s, "allocate_s": rep.allocate_s,
+           "quantize_s": rep.quantize_s, "avg_bits": rep.avg_bits,
+           "n_quantized": rep.n_layers, "code_search_launches": searches,
+           "grouped_weights": len(grouped),
+           "per_layer_bits": rep.per_layer_bits,
+           "packed_gb": sum(q.packed.numel() for q in qls.values()) / 1e9,
+           "calibrate_peak_gib": calibrate_peak, "peak_mem_gib": peak,
+           "rotation_widths": sorted({getattr(q, "d_keep", q.d)
+                                      for q in qls.values()})}
+    check(searches == expected and rep.n_layers == len(qls)
+          and AVG_BITS - 0.5 < rep.avg_bits <= AVG_BITS,
+          f"{arch}: {rep.n_layers} weights, {searches} code searches "
+          f"(expected {expected}), {rep.avg_bits} bits")
+    log(f"{arch} quantize ({cfg.n_layers} of {out['published_layers']} "
+        f"layers, d_model {cfg.d_model}; {fp_gb:.2f} GB fp32, "
+        f"{layer_gb[0]:.2f} GB a layer): init {init_s:.1f} s, calibrate_s "
+        f"{calibrate_s:.2f}, allocate_s {rep.allocate_s:.2f}, quantize_s "
+        f"{rep.quantize_s:.2f}; {rep.avg_bits:.4f} bits over {rep.n_layers} "
+        f"weights ({len(grouped)} grouped); code searches {searches}; "
+        f"rotation widths {out['rotation_widths']}; peak {peak:.2f} GiB "
+        f"(calibration {calibrate_peak:.2f} GiB)")
+    return out, qparams
+
+
+def family_phase(arch, dev) -> dict:
+    """One family at published width (``family_config``): quantized
+    (``family_quantize``), then FAMILY_SLOTS slots serve
+    ``family_prompt_lens(arch)`` (GEN_LEN new each) by graph, eagerly
+    (``graphs.eager()``: tokens and launches identical to the graph run)
+    and unfused by graph (tokens equal but at near-ties), each counted from
+    zero; a decode step profiled by graph and eagerly (device ms, idle
+    share); then ``BatchedServer`` by graph and eagerly (identical) against
+    the paged engine on FAMILY_LOCK prompts of FAMILY_LOCK_PROMPT tokens.
+    The prefix cache and speculation are bypassed (per-slot state); only
+    recurrentgemma's attention layers launch paged attention."""
+    t_phase = time.monotonic()
+    cfg = family_config(arch)
+    out, params = family_quantize(arch, dev)
+    pool = family_pool(arch)
+    lens = family_prompt_lens(arch)
+    PagedServer(cfg, params, pool, device=dev).run(   # warm-up, not counted
+        [Request(rid=-1, prompt=np.arange(16, dtype=np.int32), max_new=2)])
+    runs = {}
+    for mode, fused, eager in (("graph", True, False), ("eager", True, True),
+                               ("unfused", False, False)):
+        zero_counts()
+        with graphs.eager(eager):
+            eng, res, wall = serve(cfg, params, dev, pool, fused=fused,
+                                   prompt_lens=lens)
+        summ = serve_summary(eng, res, wall, cfg, params, lens)
+        summ["launches"] = counts()
+        runs[mode] = (eng, res, summ)
+    base = runs["graph"][1]
+    for mode in ("graph", "eager", "unfused"):
+        eng, res, summ = runs[mode]
+        summ["divergences"] = divergences(base, res, eng)
+        summ["identical"] = len(base) - len(summ["divergences"])
+        out[mode] = {k: summ[k] for k in (
+            "decode_step_ms", "decode_step_bound_ms", "prefill_s",
+            "prefill_chunk_ms", "wall_s", "tok_per_s", "decode_steps",
+            "prefill_chunks", "captures", "capture_s", "graph_pool_mib",
+            "peak_mem_gib", "launches", "gemm_launches", "identical",
+            "divergences", "tokens_past_ring", "prefix_cache")}
+    graph, eager, unf = out["graph"], out["eager"], out["unfused"]
+    engine = runs["graph"][0]
+    check(eager["identical"] == len(base)
+          and graph["launches"] == eager["launches"],
+          f"{arch}: graph and eager differ: tokens {eager['identical']}/"
+          f"{len(base)}, launches {graph['launches']} vs "
+          f"{eager['launches']}")
+    check(graph["captures"] == {"decode": 1, "chunk": chunk_captures(
+        pool, lens)} and eager["captures"] == {"decode": 0, "chunk": 0},
+          f"{arch}: captures graph {graph['captures']}, eager "
+          f"{eager['captures']}")
+    check(engine.prefix_cache is None and engine.speculate == 0,
+          f"{arch}: the prefix cache and speculation must be bypassed")
+    out["request_tokens"] = token_lists(base)
+    del runs, engine
+    fused_l, unf_l = graph["launches"], unf["launches"]
+    attn = "attn" in cfg.pattern
+    check(fused_l["rht_qmatmul"] > 0 and unf_l["rht"] > 0
+          and unf_l["qmatmul"] > 0 and unf_l["rht_qmatmul"] == 0
+          and (fused_l["paged_attention"] > 0) == attn
+          and (fused_l["grouped_rht_qmatmul"] > 0) == (cfg.moe is not None)
+          and (unf_l["grouped_qmatmul"] > 0) == (cfg.moe is not None),
+          f"{arch}: kernels by run: fused {fused_l}, unfused {unf_l}")
+    if arch == "recurrentgemma-2b":
+        check(graph["tokens_past_ring"] > 0,
+              f"{arch}: the long request never wrapped its window ring")
+    out["decode_profile"] = {"graph": profile_decode(cfg, params, dev, pool)}
+    with graphs.eager():
+        out["decode_profile"]["eager"] = profile_decode(cfg, params, dev,
+                                                        pool)
+    out["lockstep"] = lockstep_phase(
+        FAMILY_PATH[arch], cfg, params, dev, True,
+        modes={"graph": (True, False), "eager": (True, True)},
+        n_prompts=FAMILY_LOCK, prompt_len=FAMILY_LOCK_PROMPT, pool=pool)
+    prof = {m: {k: out["decode_profile"][m][k] for k in (
+        "device_ms_per_step", "wall_ms_per_step", "idle_share",
+        "launches_per_step")} for m in ("graph", "eager")}
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"{arch} serve ({len(lens)} requests of {lens} prompt tokens, "
+        f"{GEN_LEN} new, {FAMILY_SLOTS} slots): decode ms/step graph "
+        f"{graph['decode_step_ms']:.3f} / eager {eager['decode_step_ms']:.3f}"
+        f" / unfused {unf['decode_step_ms']:.3f} (bound "
+        f"{graph['decode_step_bound_ms']:.3f}); prefill_s graph "
+        f"{graph['prefill_s']:.3f} / eager {eager['prefill_s']:.3f}; tokens "
+        f"identical graph / eager / unfused {graph['identical']} / "
+        f"{eager['identical']} / {unf['identical']} of {len(base)}; peak "
+        f"{graph['peak_mem_gib']:.2f} GiB; launches by graph {fused_l}; "
+        f"decode profile {json.dumps(prof)}; {out['phase_s']:.1f} s in all; "
+        f"{gpu_line()}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def families_phase(dev) -> dict:
+    return {arch: family_phase(arch, dev) for arch in FAMILY_ARCHS}
+
+
 # ------------------------------------------------------------------ training
 
 TRAIN_ARCH = "qwen3-0.6b"
@@ -3402,7 +3705,7 @@ def gather_phase(dev, params, draft, serve_out) -> dict:
     at near-ties, a decode profile beside the kernel's; then one run
     speculating SPEC_K deep from the DRAFT_BITS draft, whose verify steps
     take the gather branch, tokens equal to the spec-off gather run."""
-    cfg = get_config("llama2-7b")
+    cfg = llama2_config()
     pool = llama2_pool()
     runs = {}
     for mode in ("graph", "eager"):
@@ -3675,7 +3978,7 @@ def frontdoor_phase(dev, params) -> dict:
     of the same pass's prompts on an identically configured engine, whose
     decode ms/step and idle share stand beside the front door's (device
     time from CUDA events around each step's replay)."""
-    cfg = get_config("llama2-7b")
+    cfg = llama2_config()
     pool = llama2_pool()
     prompts = {k: fd_prompts(cfg, k) for k in (1, 2)}
     ref = DriverServer(cfg, params, pool, device=dev)
@@ -3742,29 +4045,36 @@ LOCKSTEP_MODES = {  # mode -> (fused, eager)
     "mixtral": {"graph": (True, False), "eager": (True, True)}}
 
 
-def lockstep_phase(name, cfg, params, dev, paged: bool) -> dict:
+def lockstep_phase(name, cfg, params, dev, paged: bool, modes=None,
+                   n_prompts=LOCKSTEP_REQUESTS, prompt_len=LOCKSTEP_PROMPT,
+                   pool=None) -> dict:
     """``BatchedServer`` (aligned prefill, lockstep decode) over
-    LOCKSTEP_REQUESTS random prompts of LOCKSTEP_PROMPT tokens, GEN_LEN new
-    each, in each of LOCKSTEP_MODES[name]: two calls per mode (the first
-    counted from zero, capturing; the second timed, tokens equal).  Graph =
-    eager exactly, no paged-attention launch; with ``paged``, the paged
-    engine serves the same prompts and the lockstep tokens equal its tokens
-    but at near-ties (of the paged run's logits)."""
+    ``n_prompts`` random prompts of ``prompt_len`` tokens, GEN_LEN new
+    each, in each of ``modes`` (default LOCKSTEP_MODES[name]): two calls
+    per mode (the first counted from zero, capturing; the second timed,
+    tokens equal).  Graph = eager exactly, no paged-attention launch; with
+    ``paged``, the paged engine (``pool``, default llama2's) serves the
+    same prompts and the lockstep tokens equal its tokens but at near-ties
+    (of the paged run's logits).  Both runs count their MoE capacity drops
+    (``moe.count_overflow``): a batch prefilled whole and one in chunks
+    drop different tokens, so a model whose runs dropped any may differ
+    at a drop as well (listed, not checked)."""
     prompts = np.random.default_rng(SEED + 7).integers(
-        0, cfg.vocab, (LOCKSTEP_REQUESTS, LOCKSTEP_PROMPT)).astype(np.int32)
+        0, cfg.vocab, (n_prompts, prompt_len)).astype(np.int32)
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
     out = {}
-    for mode, (fused, eager) in LOCKSTEP_MODES[name].items():
+    for mode, (fused, eager) in (modes or LOCKSTEP_MODES[name]).items():
         zero_counts()
-        with graphs.eager(eager):
+        with graphs.eager(eager), moemod.count_overflow(dropped):
             server = BatchedServer(cfg, params,
-                                   max_context=LOCKSTEP_PROMPT + GEN_LEN,
+                                   max_context=prompt_len + GEN_LEN,
                                    fused=fused, device=dev)
             torch.cuda.reset_peak_memory_stats()
             first = server.generate(prompts, GEN_LEN)
             launches = counts()
             again = server.generate(prompts, GEN_LEN)
         st = server.stats
-        check(first.shape == (LOCKSTEP_REQUESTS, GEN_LEN)
+        check(first.shape == (n_prompts, GEN_LEN)
               and bool(((first >= 0) & (first < cfg.vocab)).all())
               and np.array_equal(first, again),
               f"lockstep {name} {mode}: malformed or unrepeatable tokens")
@@ -3793,32 +4103,46 @@ def lockstep_phase(name, cfg, params, dev, paged: bool) -> dict:
               f"lockstep {name} unfused launches {unf}")
         out["unfused"]["identical_to_fused"] = (
             out["unfused"]["request_tokens"] == graph["request_tokens"])
+    lock_drops = int(dropped)
     if paged:
         zero_counts()
-        eng = GapRecordingServer(cfg, params, llama2_pool(), device=dev)
-        t0 = time.monotonic()
-        res = eng.run([Request(rid=i, prompt=p, max_new=GEN_LEN)
-                       for i, p in enumerate(prompts)])
-        torch.cuda.synchronize()
+        dropped.zero_()
+        with moemod.count_overflow(dropped):
+            eng = GapRecordingServer(cfg, params, pool or llama2_pool(),
+                                     device=dev)
+            t0 = time.monotonic()
+            res = eng.run([Request(rid=i, prompt=p, max_new=GEN_LEN)
+                           for i, p in enumerate(prompts)])
+            torch.cuda.synchronize()
         st = eng.stats
         out["paged"] = {"prefill_s": st["prefill_s"],
                         "decode_step_ms": 1e3 * st["decode_s"]
                         / st["decode_steps"],
                         "decode_steps": st["decode_steps"],
-                        "wall_s": time.monotonic() - t0}
-        out["paged"]["divergences"] = tie_divergences(
-            f"lockstep {name} against the paged engine",
-            dict(enumerate(graph["request_tokens"])), token_lists(res),
-            eng.gaps)
+                        "wall_s": time.monotonic() - t0,
+                        "moe_drops": {"lockstep": lock_drops,
+                                      "paged": int(dropped)}}
+        want = dict(enumerate(graph["request_tokens"]))
+        got = token_lists(res)
+        if lock_drops or int(dropped):
+            out["paged"]["differing"] = [r for r in want if want[r] != got[r]]
+            out["paged"]["identical"] = len(want) - len(
+                out["paged"]["differing"])
+        else:
+            out["paged"]["divergences"] = tie_divergences(
+                f"lockstep {name} against the paged engine", want, got,
+                eng.gaps)
+            out["paged"]["identical"] = len(want) - len(
+                out["paged"]["divergences"])
         del eng
-    log(f"lockstep {name} ({LOCKSTEP_REQUESTS} x {LOCKSTEP_PROMPT} prompt "
+    log(f"lockstep {name} ({n_prompts} x {prompt_len} prompt "
         f"tokens, {GEN_LEN} new): " + "; ".join(
             f"{mode} prefill_s {r['prefill_s']:.4f}, decode "
             f"{r['decode_step_ms']:.3f} ms/step"
             for mode, r in out.items())
         + f"; graph = eager; launches {graph['launches']}"
-        + (f"; paged near-tie divergences {out['paged']['divergences']}"
-           if paged else "") + f"; {gpu_line()}")
+        + (f"; paged: {json.dumps(out['paged'])}" if paged else "")
+        + f"; {gpu_line()}")
     return out
 
 
@@ -3838,7 +4162,7 @@ def profiles_main(dev, smi) -> int:
     _build.build()
     out = {"src": str(SRC), "gpu": smi}
     for name, phase, cfg_of, pool_of, labels in (
-            ("llama2", quantize_phase, lambda: get_config("llama2-7b"),
+            ("llama2", quantize_phase, lambda: llama2_config(),
              llama2_pool, ()),
             ("mixtral", moe_quantize_phase, moe_config, moe_pool,
              MOE_PREFILL_LABELS)):
@@ -3944,6 +4268,27 @@ def prefix_main(dev, smi) -> int:
     return 0
 
 
+def ptxas_lines(logs: dict) -> dict:
+    """Each source's ptxas register and spill lines from its build log."""
+    return {name: [ln.strip() for ln in lg.splitlines()
+                   if "registers" in ln or "spill" in ln]
+            for name, lg in logs.items()}
+
+
+def families_main(dev, smi) -> int:
+    """``--families``: build every kernel and run only the three family
+    phases (``families_phase``); prints each phase's seconds and one JSON
+    line (also written to ``chiprun_out/chip_smoke_families.json``)."""
+    out = {"gpu": smi, "ptxas": ptxas_lines(_build.build()),
+           "families": families_phase(dev)}
+    (OUT_DIR / "chip_smoke_families.json").write_text(
+        json.dumps(out, indent=1))
+    log("phase seconds: " + json.dumps(
+        {a: r["phase_s"] for a, r in out["families"].items()}))
+    log(json.dumps(compact(out)))
+    return 0
+
+
 def spec_main(dev, smi) -> int:
     """``--speculation``: build every kernel, quantize llama2-7b with its
     DRAFT_BITS draft (``quantize_model_dual``, without the plain
@@ -3953,7 +4298,7 @@ def spec_main(dev, smi) -> int:
     (one spec-off graph run, then ``moe_spec_phase``).  Prints one JSON
     line (also ``chiprun_out/chip_smoke_spec.json``)."""
     _build.build()
-    cfg = get_config("llama2-7b")
+    cfg = llama2_config()
     quant, qparams, draft = quantize_phase(dev, compare=False,
                                            draft_bits=DRAFT_BITS)
     zero_counts()
@@ -3990,7 +4335,7 @@ def frontdoor_main(dev, smi) -> int:
     then Mixtral's quantization and its ``lockstep_phase``.  Prints one
     JSON line (also ``chiprun_out/chip_smoke_frontdoor.json``)."""
     _build.build()
-    cfg = get_config("llama2-7b")
+    cfg = llama2_config()
     pool = llama2_pool()
     quant, qparams, draft = quantize_phase(dev, compare=False,
                                            draft_bits=DRAFT_BITS)
@@ -4066,17 +4411,18 @@ def main() -> int:
         return frontdoor_main(dev, smi)
     if sys.argv[1:] == ["--train"]:
         return train_main(dev, smi)
+    if sys.argv[1:] == ["--families"]:
+        return families_main(dev, smi)
     if modes:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
 
+    _LLAMA2_DEPTH[0] = LLAMA2_LAYERS
     t_build = time.monotonic()
     logs = _build.build()
     build_s = time.monotonic() - t_build
     log(f"build: {build_s:.1f} s ({len(logs)} sources)")
-    regs = {name: [ln.strip() for ln in lg.splitlines()
-                   if "registers" in ln or "spill" in ln]
-            for name, lg in logs.items()}
+    regs = ptxas_lines(logs)
     for name, lines in regs.items():
         used = [int(ln.split("Used ")[1].split()[0]) for ln in lines
                 if "Used " in ln]
@@ -4146,7 +4492,7 @@ def main() -> int:
                        serve_out)
     frontdoor_out = timed("frontdoor", frontdoor_phase, dev, qparams)
     lockstep_out = timed("lockstep_llama2", lockstep_phase, "llama2",
-                         get_config("llama2-7b"), qparams, dev, True)
+                         llama2_config(), qparams, dev, True)
     del qparams, draft
     torch.cuda.empty_cache()
     moe_quant, moe_params, moe_draft = timed(
@@ -4158,6 +4504,9 @@ def main() -> int:
                          moe_config(), moe_params, dev, False)
     del moe_params, moe_draft
     torch.cuda.empty_cache()
+    family_out = {}
+    for arch in FAMILY_ARCHS:
+        family_out[arch] = timed(FAMILY_PATH[arch], family_phase, arch, dev)
     dense_out = timed("dense", dense_phase, dev)
     train_out = timed("train", train_phase, dev)
     log(f"phase seconds: {json.dumps(phase_s)}")
@@ -4208,6 +4557,17 @@ def main() -> int:
                         "fused": row["graph"]["launches"],
                         "unfused": row["unfused"]["launches"]}
                  for arch, row in dense_out.items()})
+    # the families: each one's quantization, its fused (graph) and unfused
+    # serve runs, and its lockstep graph run
+    for arch, row in family_out.items():
+        path = FAMILY_PATH[arch]
+        runs[path] = {"quantize": row["code_search_launches"],
+                      "fused": row["graph"]["launches"],
+                      "unfused": row["unfused"]["launches"]}
+        runs[f"lockstep_{path}"] = {
+            "quantize": 0, "fused": row["lockstep"]["graph"]["launches"],
+            "unfused": none}
+    families = tuple(FAMILY_PATH.values())
     # the trained qwen3-0.6b: its quantization and its graph serve run
     runs["qwen3_trained"] = {
         "quantize": train_out["quantize"]["code_search_launches"],
@@ -4223,31 +4583,36 @@ def main() -> int:
         return {path: r[run][kernel] for path, r in runs.items()}
     spec = ("llama2_spec", "llama2_bf16", "mixtral_spec")
     lockstep = ("lockstep_llama2", "lockstep_mixtral")
+    fam_lock = tuple(f"lockstep_{p}" for p in families)
     on_path = {  # kernel -> (run that counts it, paths that must launch it)
         "rht_qmatmul": ("fused", ("llama2", "mixtral", "llama2_prefix",
                                   *spec, *dense, "llama2_gather",
-                                  "frontdoor", *lockstep, "qwen3_trained")),
+                                  "frontdoor", *lockstep, *families,
+                                  *fam_lock, "qwen3_trained")),
         "paged_attention": ("fused", ("llama2", "mixtral", "llama2_prefix",
                                       *spec, *dense, "frontdoor",
-                                      "qwen3_trained")),
-        "qmatmul": ("unfused", ("llama2", "mixtral", *dense,
+                                      "recurrentgemma", "qwen3_trained")),
+        "qmatmul": ("unfused", ("llama2", "mixtral", *dense, *families,
                                 "lockstep_llama2_unfused")),
-        "rht": ("unfused", ("llama2", "mixtral", *dense,
+        "rht": ("unfused", ("llama2", "mixtral", *dense, *families,
                             "lockstep_llama2_unfused")),
         "rabitq_quant": ("quantize", ("llama2", "mixtral", *dense,
-                                      "qwen3_trained")),
+                                      *families, "qwen3_trained")),
         "grouped_rht_qmatmul": ("fused", ("mixtral", "mixtral_spec",
-                                          "lockstep_mixtral")),
-        "grouped_qmatmul": ("unfused", ("mixtral",)),
+                                          "lockstep_mixtral", "deepseek_v2",
+                                          "lockstep_deepseek_v2")),
+        "grouped_qmatmul": ("unfused", ("mixtral", "deepseek_v2")),
         "flash_attention": ("fused", ()),
     }
     launches = {k: by_path(k, run) for k, (run, _) in on_path.items()}
     for k, (_, paths) in on_path.items():
         check(all(launches[k][p] > 0 for p in paths),
               f"{k}: not launched on every path that runs it: {launches[k]}")
-    # the gather and lockstep paths read their KV without the paged kernel
+    # the gather and lockstep paths read their KV without the paged kernel,
+    # and MLA and RWKV6 hold no KV blocks
     check(not any(launches["paged_attention"][p] for p in (
-        "llama2_gather", *lockstep, "lockstep_llama2_unfused")),
+        "llama2_gather", *lockstep, "lockstep_llama2_unfused", *fam_lock,
+        "deepseek_v2", "rwkv6")),
           f"paged attention launched off its paths: "
           f"{launches['paged_attention']}")
     # the GEMM kernel's launches by serve run and phase
@@ -4370,7 +4735,8 @@ def main() -> int:
               "speculation": spec_out, "mixtral_speculation": moe_spec,
               "gather": gather_out, "frontdoor": frontdoor_out,
               "lockstep": {"llama2": lockstep_out, "mixtral": moe_lockstep},
-              "dense_configs": dense_out, "train": train_out,
+              "dense_configs": dense_out, "families": family_out,
+              "train": train_out,
               "kernels": kernels,
               "phase_s": phase_s, "seconds": time.monotonic() - T_START}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -1,23 +1,29 @@
 """Carry the reference's parameters into the port.
 
 Input contract: plain containers of numpy arrays (dicts, lists, ``None``),
-so this module needs nothing of the JAX package.  Two tree shapes are
-accepted under ``params["layers"]`` (one entry per scan position; the
-attention decoders ported so far have a scan period of 1):
+so this module needs nothing of the JAX package.  ``params["layers"]``
+holds one entry per scan position j < p (p = ``cfg.scan_period``: 1 for a
+homogeneous stack, 3 for recurrentgemma's (rglru, rglru, attn)), in one of
+two shapes:
 
-  * the stacked fp tree of ``repro/models/decode.py:80-91`` — one dict whose
-    arrays carry a leading layer axis;
-  * the unrolled per-layer list that ``repro/core/pipeline.py:quantize_model``
-    builds, where each quantized weight is a dict with the keys
+  * the stacked fp tree of ``repro/models/transformer.py:init_params`` —
+    a dict whose arrays carry a leading axis over the layers i with
+    i % p == j;
+  * the unrolled per-position lists that ``repro/core/pipeline.py:
+    quantize_model`` builds, where each quantized weight is a dict with
+    the keys
     ``packed, rescale, signs1, signs2, mean_col, w_out, out_idx, keep_idx``
     (arrays or None) and ``bits, d, d_keep, c`` (ints) — the leaves and
     static fields of ``repro.core.qlinear.QuantizedLinear`` — and each
     quantized MoE expert stack a dict with ``packed, rescale, signs1,
     signs2`` and ``bits, d, c``, those of ``QuantizedGrouped``.
 
-A MoE layer's fp ``moe`` subtree (router (d, E), wi (E, d, 2f), wo (E, f,
-d), each with the leading layer axis in the stacked tree) carries across
-like any other subtree.
+Layer i is element i // p of position i % p, so the port's list is in
+execution order, as the reference's ``get_layer`` and ``_apply_layers``
+walk it (full periods, then the remainder).  Every other subtree (a MoE
+layer's router and shared experts, MLA's norms and ``wkv_b``, RWKV's
+``tm`` / ``cm`` vectors and LoRAs, RG-LRU's block-diagonal ``wa`` / ``wx``
+and conv filter) carries across leaf by leaf.
 
 The caller flattens a JAX tree into that form (``numpy.asarray`` on every
 array, a dict per ``QuantizedLinear``); the result is the port's param
@@ -99,12 +105,12 @@ def params_from_reference(tree: dict, device=None) -> dict:
     """The port's params from a reference param tree of numpy containers,
     on ``device`` (CUDA unless ``"cpu"``)."""
     dev = resolve_device(device)
-    if len(tree["layers"]) != 1:
-        raise NotImplementedError("scan periods > 1 (mixed mixer patterns) "
-                                  "are not ported yet")
-    stack = tree["layers"][0]
-    per_layer = (list(stack) if isinstance(stack, list)
-                 else [_take(stack, i) for i in range(_n_stacked(stack))])
+    stacks = [list(st) if isinstance(st, list)
+              else [_take(st, i) for i in range(_n_stacked(st))]
+              for st in tree["layers"]]
+    period = len(stacks)
+    n_layers = sum(len(st) for st in stacks)
+    per_layer = [stacks[i % period][i // period] for i in range(n_layers)]
     return {"embed": _convert(tree["embed"], dev),
             "layers": [_convert(lp, dev) for lp in per_layer],
             "final_norm": _convert(tree["final_norm"], dev),

@@ -2,7 +2,8 @@
 
 The reference registry (``repro.configs``) pulls in JAX through its shapes
 module, so the port keeps its own.  Only the architectures the port can
-serve are listed; the rest join as their mixers are ported (ROADMAP).
+serve are listed; qwen2-vl (mrope) and whisper (encoder-decoder) join as
+they are ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -17,6 +18,9 @@ _MODULES = {
     "llama3.2-3b": "llama3_2_3b",
     "qwen3-0.6b": "qwen3_0_6b",
     "yi-34b": "yi_34b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "rwkv6-3b": "rwkv6_3b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)

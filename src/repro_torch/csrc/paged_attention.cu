@@ -45,13 +45,20 @@
 //     and the combine launch, if any, skips the row.  Otherwise it writes
 //     the split's (m, l, acc) and paged_attention_combine merges the splits
 //     in split order 0..S-1, so results repeat bit for bit.
+//   * Head dim 256 (recurrentgemma's MQA): a lane holds 8 values of each
+//     row (two 16-byte loads in f32).  The f32 ring is then 192 KB, so one
+//     CTA fits on an SM (the wrapper plans its grid splits for 1 CTA per
+//     SM there, ops.ctas_per_sm); a bf16 ring is 96 KB and keeps two.
+//     Rows come in chunks of at most 4 (not 8) at hd 256, so q, acc and
+//     the 8 keys' values (32 + 32 + 64 registers a lane) stay in
+//     registers.
 //   * Split plan (per request, on the card): with S grid splits, a request
 //     with nkeys = nblk * bs keys uses s_eff = clip(nkeys / min_split_keys,
 //     1, S) splits of ceil(tiles / s_eff) tiles; a split with no tile (s >=
 //     s_eff, or past the last tile) writes m = NEG_INF, l = 0, acc = 0.
 //
-// Domain: hd 64 or 128 (the wrapper raises otherwise), any block size,
-// any W and G, f32 or bf16 arenas, f32 q and output.
+// Domain: hd 64, 128 or 256 (the wrapper raises otherwise), any block
+// size, any W and G, f32 or bf16 arenas, f32 q and output.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,13 +101,20 @@ __device__ __forceinline__ Plan plan_of(int pos, int ring, int bs, int MB,
   return p;
 }
 
-// VEC consecutive elements (4, 8 or 16 bytes, aligned) as f32.
+// VEC consecutive elements (4, 8, 16 or 32 bytes, 16-byte aligned from 16
+// up) as f32.
 template <typename T, int VEC>
 __device__ __forceinline__ void load_vec(const T* p, float (&out)[VEC]) {
   constexpr int kWords = VEC * (int)sizeof(T) / 4;
-  static_assert(kWords == 1 || kWords == 2 || kWords == 4, "vector width");
+  static_assert(kWords == 1 || kWords == 2 || kWords == 4 || kWords == 8,
+                "vector width");
   uint32_t w[kWords];
-  if constexpr (kWords == 4) {
+  if constexpr (kWords == 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint4 t = *(reinterpret_cast<const uint4*>(p) + 1);
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+    w[4] = t.x; w[5] = t.y; w[6] = t.z; w[7] = t.w;
+  } else if constexpr (kWords == 4) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
     w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
   } else if constexpr (kWords == 2) {
@@ -440,8 +454,12 @@ cudaError_t launch_rows(int R, dim3 grid, const float* q, const void* k,
                           H, KV, bs, MB, window, qscale, min_keys, st)
   if (R <= 1) return PA_SPLIT(1);
   if (R <= 2) return PA_SPLIT(2);
-  if (R <= 4) return PA_SPLIT(4);
-  return PA_SPLIT(8);
+  if constexpr (HD > 128) {
+    return PA_SPLIT(4);         // hd 256: chunks of 4 rows (registers)
+  } else {
+    if (R <= 4) return PA_SPLIT(4);
+    return PA_SPLIT(8);
+  }
 #undef PA_SPLIT
 }
 
@@ -458,7 +476,8 @@ extern "C" int paged_attention(const float* q, const void* k_arena,
                                int window, float scale, int splits,
                                int kv_bf16, int tile_keys, int min_split_keys,
                                void* stream) {
-  if (tile_keys != kTileKeys || (hd != 64 && hd != 128) || bs < 1 || MB < 1
+  if (tile_keys != kTileKeys || (hd != 64 && hd != 128 && hd != 256)
+      || bs < 1 || MB < 1
       || splits < 1 || min_split_keys < 1 || H % KV)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -471,9 +490,12 @@ extern "C" int paged_attention(const float* q, const void* k_arena,
                      ring_cap, m, l, acc, out, W, H, KV, bs, MB, window,     \
                      qscale, min_split_keys, st)
   if (kv_bf16)
-    e = hd == 64 ? PA_ROWS(__nv_bfloat16, 64) : PA_ROWS(__nv_bfloat16, 128);
+    e = hd == 64    ? PA_ROWS(__nv_bfloat16, 64)
+        : hd == 128 ? PA_ROWS(__nv_bfloat16, 128)
+                    : PA_ROWS(__nv_bfloat16, 256);
   else
-    e = hd == 64 ? PA_ROWS(float, 64) : PA_ROWS(float, 128);
+    e = hd == 64 ? PA_ROWS(float, 64)
+        : hd == 128 ? PA_ROWS(float, 128) : PA_ROWS(float, 256);
 #undef PA_ROWS
   if (e != cudaSuccess || splits == 1) return (int)e;
   paged_attention_combine_kernel<<<B * KV * R, 128, 0, st>>>(

@@ -25,22 +25,23 @@ byte once, at about one FMA per byte), so the design keeps bytes in
 flight.  One CTA of 4 warps per (request, KV head, split) copies its
 split's block ids to shared memory and walks its keys in 32-key tiles
 through a 3-slot ring filled by 16-byte ``cp.async`` (two tiles in flight
-while one is computed; two CTAs per SM with an f32 arena).  Each warp owns
+while one is computed; two CTAs per SM, but one at head_dim 256 with an f32
+arena, whose ring is 192 KB: ``ctas_per_sm``).  Each warp owns
 8 keys of every tile, with its own online softmax and accumulator in
 registers; the one barrier per tile hands a slot back to the copier.  The
 warps merge in warp order at the end of the split.
 
 Launch plan (``kv_splits`` on the host; per request on the card, as
 ``ref.split_plan`` computes it): the grid has S splits, enough (request,
-KV head, split) CTAs to fill the resident slots (``CTAS_PER_SM`` per SM)
+KV head, split) CTAs to fill the resident slots (``ctas_per_sm`` per SM)
 without a second wave, and no more than one per ``MIN_SPLIT_KEYS`` keys of
 the table. On the card each request then uses only as many of the S splits
 as its own keys allow (MIN_SPLIT_KEYS or more each on average); a request
 with one split writes its output directly, and the combine launch (S > 1
 only) merges the others' partials in split order, so results repeat bit
 for bit. ``ref.paged_attention_plan_walk`` walks the same plan on the
-host. The kernel takes head_dim 64 or 128 (``HEAD_DIMS``) and raises for
-others.
+host. The kernel takes head_dim 64, 128 or 256 (``HEAD_DIMS``) and raises
+for others.
 """
 from __future__ import annotations
 
@@ -58,8 +59,11 @@ _FORCE_PATH: str | None = None  # "kernel" | "ref" | None — tests poke this
 _USE_KERNEL: contextvars.ContextVar[bool | None] = contextvars.ContextVar(
     "repro_torch_paged_attention_kernel", default=None)
 launches = 0                    # kernel launches (one per wrapper call)
-CTAS_PER_SM = 2                 # resident split CTAs per SM (f32 ring 96 KB)
-HEAD_DIMS = (64, 128)           # head dims the kernel is compiled for
+CTAS_PER_SM = 2                 # resident split CTAs per SM (f32 ring 96 KB
+#                                 at hd 128; see ctas_per_sm)
+HEAD_DIMS = (64, 128, 256)      # head dims the kernel is compiled for
+STAGES = 3                      # the kernel's K/V ring slots (kStages)
+SMEM_PER_SM = 228 * 1024        # shared memory an SM shares among its CTAs
 _LIB = None
 
 
@@ -140,11 +144,21 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def kv_splits(b: int, kv: int, mb: int, bs: int, n_sm: int) -> int:
+def ctas_per_sm(hd: int, bf16: bool) -> int:
+    """Split CTAs resident on an SM at once: CTAS_PER_SM while two of the
+    kernel's K/V rings (STAGES x 32 keys of K and V) fit in an SM's shared
+    memory, else 1 (hd 256 with an f32 arena: 192 KB a ring)."""
+    ring = STAGES * 2 * TILE_KEYS * hd * (2 if bf16 else 4)
+    return CTAS_PER_SM if CTAS_PER_SM * ring <= SMEM_PER_SM - 4096 else 1
+
+
+def kv_splits(b: int, kv: int, mb: int, bs: int, n_sm: int,
+              per_sm: int = CTAS_PER_SM) -> int:
     """Grid splits of each request's keys (flash-decoding): as many as keep
-    every (request, KV head, split) CTA resident at once (CTAS_PER_SM per
-    SM), at most one per MIN_SPLIT_KEYS keys of a full table, at least 1."""
-    by_slots = CTAS_PER_SM * n_sm // max(b * kv, 1)
+    every (request, KV head, split) CTA resident at once (``per_sm`` per
+    SM: ``ctas_per_sm`` of the launch's head dim and arena dtype), at most
+    one per MIN_SPLIT_KEYS keys of a full table, at least 1."""
+    by_slots = per_sm * n_sm // max(b * kv, 1)
     return max(1, min(mb * bs // MIN_SPLIT_KEYS, by_slots))
 
 
@@ -191,7 +205,8 @@ def paged_attention_cuda(q, k_arena, v_arena, block_table, pos, ring_cap, *,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    splits = kv_splits(b, kv, mb, bs, _sm_count(dev.index))
+    splits = kv_splits(b, kv, mb, bs, _sm_count(dev.index),
+                       ctas_per_sm(hd, k_arena.dtype == torch.bfloat16))
     scratch = ()                # per-split partials, for the combine launch
     if splits > 1:
         rows = (splits, b, kv, w * (h // kv))

@@ -8,6 +8,8 @@
     python -m repro_torch.launch.serve --device cpu --tiny --avg-bits 3.3 \\
         --speculate 2 --draft-bits 2.2                # self-speculative
     python -m repro_torch.launch.serve --device cpu --tiny --lockstep
+    python -m repro_torch.launch.serve --arch rwkv6-3b --tiny --device cpu \\
+        --avg-bits 3.3          # also deepseek-v2-236b, recurrentgemma-2b
     python -m repro_torch.launch.serve --device cpu --tiny --serve --port 8080
 
 Random weights from a seeded generator; with ``--avg-bits`` the model is
@@ -154,12 +156,12 @@ class BatchedServer:
                     self.cfg, b, self.max_context, device=self.device)
             else:
                 for cache in caches:
-                    cache["kv"].k.zero_()
-                    cache["kv"].v.zero_()
+                    for t in decmod.cache_tensors(cache):
+                        t.zero_()
             step = self._decode(caches, b)      # captured before the fill
             logits, _, _ = decmod.prefill(
                 self.cfg, self.params,
-                torch.from_numpy(np.asarray(prompts, np.int32)).to(
+                torch.from_numpy(np.array(prompts, np.int32)).to(
                     self.device), caches=caches)
             last = logits[:, -1]
             _sync(self.device)

@@ -16,9 +16,12 @@ Where a loose port would diverge from the reference:
     tokens the capacity drops.  A stable descending sort picks as the
     reference does.
   * the capacity is a Python float expression, as in the reference;
-  * the combine adds ``top_k`` contributions per token onto 0; at top-2
-    (Mixtral) that is 0 + a + b, and a + b == b + a in IEEE arithmetic, so
-    ``index_add`` is independent of the order it applies them in.
+  * the combine adds ``top_k`` contributions per token onto 0, in the
+    order the reference's scatter-add applies them (the dispatch order:
+    ascending expert id), one add per k.  A scatter with atomics on the
+    card would sum DeepSeek-V2's six in an order that changes from run to
+    run, and a graph replay and an eager run of one step could then
+    differ in the last bit.
 
 The tensor-parallel column gather of the reference is an identity at TP = 1
 and comes with the TP slice (ROADMAP).
@@ -38,7 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.qlinear import QuantizedGrouped
 
-from .common import LinearCtx
+from .common import LinearCtx, linear
 from .ffn import _gelu
 
 
@@ -98,8 +101,8 @@ def moe_ffn(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
             ctx: LinearCtx | None = None, name: str = "moe"):
     """x (B, S, d) -> (y (B, S, d), aux_loss scalar).
 
-    Params: router (d, E) fp32; wi (E, d, 2f); wo (E, f, d).  The
-    reference's shared experts (DeepSeek-V2's swi/swo) come with MLA."""
+    Params: router (d, E) fp32; wi (E, d, 2f); wo (E, f, d); optional
+    shared experts (DeepSeek-V2): swi (d, 2fs), swo (fs, d)."""
     b, s, d = x.shape
     t = b * s
     dev = x.device
@@ -150,10 +153,23 @@ def moe_ffn(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     h = (F.silu(gate_h) if act == "silu" else _gelu(gate_h)) * up
     ybuf = _expert_matmul(p["wo"], h, ctx, f"{name}.wo")             # (E, C, d)
 
-    # --- combine (order-independent at top-2, see the module note) ---
+    # --- combine, in dispatch order per token (see the module note) ---
     gathered = ybuf[e_sorted, torch.clamp(slot, max=capacity - 1)]   # (T*K, d)
     contrib = gathered * g_sorted[:, None].to(gathered.dtype)
     contrib = torch.where(keep[:, None], contrib, torch.zeros_like(contrib))
-    y = torch.zeros((t, d), dtype=xf.dtype, device=dev).index_add(
-        0, t_sorted, contrib.to(xf.dtype))
+    # back to (T, K), each token's entries by ascending expert id
+    by_token = torch.empty_like(contrib).index_copy_(0, order, contrib)
+    kord = torch.argsort(expert_ids, dim=-1, stable=True)            # (T, K)
+    by_token = torch.gather(by_token.reshape(t, top_k, d), 1,
+                            kord[..., None].expand(t, top_k, d))
+    y = torch.zeros((t, d), dtype=xf.dtype, device=dev)
+    for k in range(top_k):
+        y = y + by_token[:, k].to(xf.dtype)
+
+    # --- shared experts (DeepSeek-V2) ---
+    if "swi" in p:
+        gu_s = linear(p["swi"], xf, ctx, f"{name}.swi")
+        gsh, ush = torch.chunk(gu_s, 2, dim=-1)
+        hs = (F.silu(gsh) if act == "silu" else _gelu(gsh)) * ush
+        y = y + linear(p["swo"], hs, ctx, f"{name}.swo")
     return y.reshape(b, s, d), aux

@@ -1,13 +1,16 @@
 """Parameter init, the sequence-mode forward and loss, and the layer blocks
 the serving path needs.
 
-Port of the parts of ``repro/models/transformer.py`` that decode,
-calibration and training use: ``init_params`` for attention decoders with GLU/GELU or
-MoE FFNs, ``embed_tokens``, ``_qk_normalize``, ``_ffn_apply`` (returning
-the FFN output and the MoE aux loss), and the unrolled ``forward`` /
-``loss_fn`` with their ``LinearCtx`` taps (layer names ``L{i}``, so tap
-names equal the reference's: ``L3.attn.wq``, ``L3.mlp.wi``,
-``L3.moe.wi``, ..., ``lm_head``).
+Port of ``repro/models/transformer.py`` for the decoder-only families:
+``init_params`` for attention (GQA), MLA, RWKV6 and RG-LRU mixers with
+GLU/GELU, MoE (with DeepSeek-V2's shared experts) or RWKV channel-mix FFNs,
+``embed_tokens``, ``_qk_normalize``, ``_ffn_apply`` (returning the FFN
+output and the MoE aux loss), ``layer_seq`` per mixer, and the unrolled
+``forward`` / ``loss_fn`` with their ``LinearCtx`` taps (layer names
+``L{i}``, so tap names equal the reference's: ``L3.attn.wq``,
+``L3.mla.wq_a``, ``L3.tm.wr``, ``L3.rglru.wi``, ``L3.moe.swi``, ...,
+``lm_head``).  ``check_supported`` refuses the encoder-decoder (whisper)
+and mrope (qwen2-vl), which come with the next slice.
 
 Param layout (the reference's, with the layers unrolled):
 
@@ -15,8 +18,9 @@ Param layout (the reference's, with the layers unrolled):
             "final_norm": {...}, "lm_head": (d, V)}
 
 PyTorch runs eagerly, so there is no scan and no stacked layer axis:
-``layers`` is a list of per-layer dicts whether the model is fp or
-quantized (``bridge.py`` unrolls the reference's stacked trees).
+``layers`` is a list of per-layer dicts in execution order, whether the
+model is fp or quantized, and layer i's mixer is ``cfg.pattern[i]``
+(``bridge.py`` unrolls the reference's stacked trees, period by period).
 Weights come from a ``torch.Generator``; they differ from the reference's
 ``jax.random`` draws, so parity tests carry weights across instead.
 """
@@ -31,7 +35,10 @@ from repro_torch import resolve_device
 
 from . import attention as attnmod
 from . import ffn as ffnmod
+from . import mla as mlamod
 from . import moe as moemod
+from . import rglru as rglrumod
+from . import rwkv6 as rwkvmod
 from .common import (LinearCtx, apply_norm, apply_rope, cross_entropy,
                      dense_init, linear, norm_params, rms_norm)
 from .config import ModelConfig
@@ -65,31 +72,119 @@ def _init_moe(cfg: ModelConfig, gen, device, dtype) -> dict:
         w = torch.randn((mo.n_experts, d_in, d_out), generator=gen,
                         device=device, dtype=torch.float32)
         return w.mul_(d_in ** -0.5).to(dtype)     # 3.8 GB at full width
-    return {"router": dense_init(gen, d, mo.n_experts, device),
-            "wi": experts(d, 2 * fe),
-            "wo": experts(fe, d)}
+    p = {"router": dense_init(gen, d, mo.n_experts, device),
+         "wi": experts(d, 2 * fe),
+         "wo": experts(fe, d)}
+    if mo.n_shared:
+        fs = fe * mo.n_shared
+        p["swi"] = dense_init(gen, d, 2 * fs, device, dtype)
+        p["swo"] = dense_init(gen, fs, d, device, dtype, scale=fs ** -0.5)
+    return p
+
+
+def _randn(gen, shape, device, scale: float, dtype) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def _const(shape, value: float, device) -> torch.Tensor:
+    return torch.full(shape, value, dtype=torch.float32, device=device)
+
+
+def _init_mla(cfg: ModelConfig, gen, device, dtype) -> dict:
+    m, d = cfg.mla, cfg.d_model
+    return {
+        "wq_a": dense_init(gen, d, m.q_lora, device, dtype),
+        "q_norm": _const((m.q_lora,), 1.0, device),
+        "wq_b": dense_init(gen, m.q_lora,
+                           m.n_heads * (m.qk_nope + m.qk_rope), device, dtype),
+        "wkv_a": dense_init(gen, d, m.kv_lora + m.qk_rope, device, dtype),
+        "kv_norm": _const((m.kv_lora,), 1.0, device),
+        "wkv_b": dense_init(gen, m.kv_lora, m.n_heads * (m.qk_nope + m.v_head),
+                            device, dtype),
+        "wo": dense_init(gen, m.n_heads * m.v_head, d, device, dtype,
+                         scale=(m.n_heads * m.v_head) ** -0.5),
+    }
+
+
+def _init_rwkv_tm(cfg: ModelConfig, gen, device, dtype) -> dict:
+    d, h, dk = cfg.d_model, cfg.n_heads, cfg.hd
+    lr = rwkvmod.LORA_R
+    return {
+        "mu_x": _const((d,), 0.5, device),
+        "mu_rkvwg": _const((5, d), 0.5, device),
+        "tm_w1": dense_init(gen, d, 5 * lr, device, dtype, scale=1e-2),
+        "tm_w2": _randn(gen, (5, lr, d), device, 1e-2, dtype),
+        "w0": _const((d,), 0.0, device),
+        "dw_a": dense_init(gen, d, rwkvmod.DECAY_R, device, dtype, scale=1e-2),
+        "dw_b": dense_init(gen, rwkvmod.DECAY_R, d, device, dtype, scale=1e-2),
+        "u": _const((h, dk), 0.0, device),
+        "ln_x": _const((d,), 1.0, device),
+        "wr": dense_init(gen, d, d, device, dtype),
+        "wk": dense_init(gen, d, d, device, dtype),
+        "wv": dense_init(gen, d, d, device, dtype),
+        "wg": dense_init(gen, d, d, device, dtype),
+        "wo": dense_init(gen, d, d, device, dtype),
+    }
+
+
+def _init_rwkv_cm(cfg: ModelConfig, gen, device, dtype) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"mu_k": _const((d,), 0.5, device),
+            "mu_r": _const((d,), 0.5, device),
+            "ck": dense_init(gen, d, f, device, dtype),
+            "cv": dense_init(gen, f, d, device, dtype, scale=f ** -0.5),
+            "cr": dense_init(gen, d, d, device, dtype)}
+
+
+def _init_rglru(cfg: ModelConfig, gen, device, dtype) -> dict:
+    d = cfg.d_model
+    dr = cfg.rglru_width or d
+    nb = cfg.n_heads
+    bs = dr // nb
+    return {
+        "wg": dense_init(gen, d, dr, device, dtype),
+        "wi": dense_init(gen, d, dr, device, dtype),
+        "conv_w": _randn(gen, (rglrumod.CONV_WIDTH, dr), device, 0.1, dtype),
+        "conv_b": _const((dr,), 0.0, device),
+        "wa": _randn(gen, (nb, bs, bs), device, bs ** -0.5, dtype),
+        "ba": _const((dr,), 2.0, device),     # bias toward remembering
+        "bx": _const((dr,), 0.0, device),
+        "wx": _randn(gen, (nb, bs, bs), device, bs ** -0.5, dtype),
+        "lambda": torch.linspace(2.0, 5.0, dr, dtype=torch.float32,
+                                 device=device),
+        "wo": dense_init(gen, dr, d, device, dtype, scale=dr ** -0.5),
+    }
+
+
+_MIXER_INIT = {"attn": ("attn", _init_attn), "mla": ("mla", _init_mla),
+               "rwkv": ("tm", _init_rwkv_tm), "rglru": ("rglru", _init_rglru)}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves attention decoders with GLU/GELU or (unshared) MoE
-    FFNs and RoPE so far."""
-    if (cfg.enc_dec or any(mx != "attn" for mx in cfg.pattern)
-            or cfg.ffn_kind() not in ("glu", "gelu", "moe")
-            or (cfg.moe is not None and cfg.moe.n_shared)
-            or cfg.pos not in ("rope", "none")):
+    """The port runs every decoder-only family of the reference (attention,
+    MLA, RWKV6, RG-LRU and their mixes) with RoPE or no positions; the
+    encoder-decoder and mrope come with the next slice."""
+    if cfg.enc_dec or cfg.pos not in ("rope", "none"):
         raise NotImplementedError(
-            f"{cfg.name}: the port supports attention decoders with GLU/GELU "
-            "or MoE FFNs and RoPE so far (ROADMAP Queue 1)")
+            f"{cfg.name}: the port does not run encoder-decoder models "
+            "(whisper) or mrope (qwen2-vl) yet; they come with the next "
+            "slice (ROADMAP Queue 1 item 5)")
 
 
 def init_layer(cfg: ModelConfig, generator: torch.Generator, device,
-               dtype=torch.float32) -> dict:
-    """One decoder layer's params, drawn from ``generator`` on ``device``."""
+               dtype=torch.float32, mixer: str = "attn") -> dict:
+    """One decoder layer's params for ``mixer``, drawn from ``generator``
+    on ``device``."""
+    key, init = _MIXER_INIT[mixer]
     p = {"ln1": norm_params(cfg.norm, cfg.d_model, device),
          "ln2": norm_params(cfg.norm, cfg.d_model, device),
-         "attn": _init_attn(cfg, generator, device, dtype)}
-    if cfg.ffn_kind() == "moe":
+         key: init(cfg, generator, device, dtype)}
+    fk = cfg.ffn_kind()
+    if fk == "moe":
         p["moe"] = _init_moe(cfg, generator, device, dtype)
+    elif fk == "cm":
+        p["cm"] = _init_rwkv_cm(cfg, generator, device, dtype)
     else:
         p["mlp"] = _init_ffn(cfg, generator, device, dtype)
     return p
@@ -103,8 +198,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    layers = [init_layer(cfg, generator, dev, dtype)
-              for _ in range(cfg.n_layers)]
+    layers = [init_layer(cfg, generator, dev, dtype, mixer)
+              for mixer in cfg.pattern]
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=generator,
                         device=dev, dtype=torch.float32) * 0.02
     params: dict[str, Any] = {
@@ -131,13 +226,16 @@ def embed_tokens(cfg: ModelConfig, params: dict,
 def _ffn_apply(cfg: ModelConfig, lp: dict, h2: torch.Tensor,
                ctx: LinearCtx | None = None, name: str = "layer"):
     """The layer's FFN -> (y, aux); aux is the MoE load-balance loss (0.0
-    for dense FFNs)."""
+    for the others).  RWKV's channel mix here is the sequence form with a
+    zero shift register (the serving paths carry theirs)."""
     fk = cfg.ffn_kind()
     if fk == "moe":
         return moemod.moe_ffn(lp["moe"], h2, n_experts=cfg.moe.n_experts,
                               top_k=cfg.moe.top_k,
                               capacity_factor=cfg.moe.capacity_factor,
                               act=cfg.act, ctx=ctx, name=f"{name}.moe")
+    if fk == "cm":
+        return rwkvmod.channel_mix(lp["cm"], h2, None, ctx, f"{name}.cm"), 0.0
     if fk == "gelu":
         return ffnmod.gelu_ffn(lp["mlp"], h2, ctx, f"{name}.mlp"), 0.0
     return ffnmod.glu_ffn(lp["mlp"], h2, act=cfg.act, ctx=ctx,
@@ -160,12 +258,23 @@ def _attn_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return linear(p["wo"], out.reshape(b, s, h * hd), ctx, f"{name}.wo")
 
 
-def layer_seq(cfg: ModelConfig, lp: dict, h: torch.Tensor,
+def layer_seq(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
               positions: torch.Tensor, ctx=None, name: str = "layer"):
-    """One attention layer in sequence mode (the reference's ``layer_seq``
-    for the ``attn`` mixer) -> (h, aux_loss)."""
+    """One decoder layer in sequence mode (the reference's ``layer_seq``)
+    -> (h, aux_loss)."""
     hn = apply_norm(cfg.norm, h, lp["ln1"])
-    mix = _attn_seq(cfg, lp["attn"], hn, positions, ctx, f"{name}.attn")
+    if mixer == "attn":
+        mix = _attn_seq(cfg, lp["attn"], hn, positions, ctx, f"{name}.attn")
+    elif mixer == "mla":
+        mix = mlamod.mla_full(lp["mla"], hn, cfg.mla, positions, ctx,
+                              f"{name}.mla")
+    elif mixer == "rwkv":
+        mix = rwkvmod.time_mix(lp["tm"], hn, n_heads=cfg.n_heads,
+                               head_dim=cfg.hd, ctx=ctx, name=f"{name}.tm")
+    elif mixer == "rglru":
+        mix = rglrumod.rglru_block(lp["rglru"], hn, ctx, f"{name}.rglru")
+    else:
+        raise ValueError(mixer)
     h = h + mix.to(h.dtype)
     h2 = apply_norm(cfg.norm, h, lp["ln2"])
     y, aux = _ffn_apply(cfg, lp, h2, ctx, name)
@@ -189,13 +298,13 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     b, s, _ = h.shape
     positions = _default_positions(cfg, b, s, h.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i, lp in enumerate(params["layers"]):
+    for i, (mixer, lp) in enumerate(zip(cfg.pattern, params["layers"])):
         if remat:
             h, aux = torch.utils.checkpoint.checkpoint(
-                layer_seq, cfg, lp, h, positions, ctx, f"L{i}",
+                layer_seq, cfg, mixer, lp, h, positions, ctx, f"L{i}",
                 use_reentrant=False)
         else:
-            h, aux = layer_seq(cfg, lp, h, positions, ctx, f"L{i}")
+            h, aux = layer_seq(cfg, mixer, lp, h, positions, ctx, f"L{i}")
         aux_total = aux_total + aux
     h = apply_norm(cfg.norm, h, params["final_norm"])
     return linear(params["lm_head"], h, ctx, "lm_head"), aux_total

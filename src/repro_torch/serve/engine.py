@@ -1,8 +1,11 @@
 """Continuous-batching LM serving engine over the paged KV-cache pool.
 
-Port of ``repro/serve/engine.py`` for attention decoders with dense or
-MoE FFNs; a sliding-window model's requests hold at most a window of
-blocks and reuse them as a ring.  One scheduler
+Port of ``repro/serve/engine.py`` for every decoder family: attention
+(dense or MoE FFNs), MLA with shared experts, RWKV6 and the RG-LRU hybrid.
+A sliding-window model's requests hold at most a window of blocks and
+reuse them as a ring; MLA and recurrent layers keep one row per slot in
+the pool, which a prompt chunk starts from zero (``pos0 == 0``) and a
+decode step advances for the active slots only.  One scheduler
 iteration admits queued requests while slots and blocks are free, runs ONE
 prompt chunk for the oldest mid-prefill request, then ONE decode step over
 the whole slot set.  Chunked prefill interleaves with decode, and a request
@@ -45,10 +48,11 @@ copy-on-write by one captured clone, keyed ``("cow",)``), and completed
 requests release their blocks; fully written blocks stay cached on an LRU
 that is evicted only under allocation pressure.  Pure-attention archs
 without a window only: a window's ring blocks mutate in place, so Mixtral
-bypasses the cache.  ``preempt`` drops a request's blocks (registered
-first, so its replay walks them as hits) and keeps its emitted tokens to
-re-feed as prompt when it is resubmitted; ``cancel`` aborts a request
-wherever it is.
+bypasses the cache, and per-slot MLA and recurrent state is nothing the
+cache can name, so those archs bypass it too.  ``preempt`` drops a
+request's blocks (registered first, so its replay walks them as hits) and
+keeps its emitted tokens to re-feed as prompt when it is resubmitted;
+``cancel`` aborts a request wherever it is.
 
 Self-speculative decoding: with ``draft_params`` (a low-bit quantization of
 the same weights, ``core.pipeline.quantize_model_dual``) and
@@ -60,7 +64,11 @@ single-token draft steps, then one W = k + 1 verify step of the target
 (``speculative_accept``), emitting 1 to k + 1 tokens per slot.  The draft
 has its own KV arena under the same block tables (prefilled in the same
 chunks), and the pool reserves ``lookahead = k`` ring tokens per request.
-Greedy speculation gives the tokens of plain decoding.  On the card the
+Greedy speculation gives the tokens of plain decoding.  Pure-attention
+archs only, as in the reference: MLA latents and recurrent state cannot
+take back a rejected token, so for those archs ``speculate`` is silently
+bypassed (``speculating`` is False, the plain decode loop runs and no
+draft arena is made).  On the card the
 catch-up, draft, verify and draft-chunk steps are captured like the
 others, keyed ``("catchup", fused, S)``, ``("draft", fused, S)``,
 ``("verify", fused, S, k + 1)`` and ``("draft_chunk", fused, C)``, and the
@@ -270,10 +278,11 @@ class PagedServer:
         self.temperature = temperature
         self.seed = seed
         # rejected tokens are overwritten by position, which attention K/V
-        # allows; the reference's bypass for sequential per-slot state has
-        # nothing to bypass here (check_supported admits attention only)
-        self.speculating = bool(speculate)
-        self.speculate = speculate
+        # allows; sequential per-slot state (MLA latents, RWKV, RG-LRU)
+        # cannot roll back, so those archs bypass speculation silently
+        self.speculating = bool(speculate) and all(
+            mx == "attn" for mx in cfg.pattern)
+        self.speculate = speculate if self.speculating else 0
         self.draft_params = draft_params if self.speculating else None
         if self.speculating and self.pool.lookahead < speculate:
             # verify writes reach k positions past the accepted frontier
@@ -283,7 +292,8 @@ class PagedServer:
         self.draft_caches = (init_pool_caches(cfg, self.pool, self.device)
                              if self.speculating else None)
         # the cache needs blocks that are immutable once written: a window's
-        # ring reuses its blocks in place, so windowed archs bypass it
+        # ring reuses its blocks in place, and per-slot state lives in rows
+        # the cache cannot name, so windowed and non-attention archs bypass
         self.cacheable = (self.pool.prefix_cache and cfg.window is None
                           and all(mx == "attn" for mx in cfg.pattern))
         self.prefix_cache = (PrefixCache(self.pool.block_size)
@@ -293,6 +303,7 @@ class PagedServer:
         self.free_slots = list(range(self.pool.max_slots - 1, -1, -1))
         self.table_width = max(
             request_blocks(cfg, self.pool, self.pool.max_context), 1)
+        self.has_attn = "attn" in cfg.pattern
         self.graphs = graphs.StepGraphs(self.device)
         self.stats: dict = {}
         self._pending: collections.deque[Request] = collections.deque()
@@ -395,9 +406,12 @@ class PagedServer:
                "dst": np.array([dst], np.int64)})
 
     def _chunk_inputs(self, tokens: np.ndarray, pos0: int, bt_row: np.ndarray,
-                      ring_cap: int) -> dict:
+                      ring_cap: int, slot: int, active: bool = True) -> dict:
+        """A prompt chunk's inputs; ``active=False`` makes them inert (the
+        warm-up and capture: null-block table, per-slot rows kept)."""
         return {"tokens": tokens[None], "pos0": np.int32(pos0),
-                "bt_row": bt_row, "ring_cap": np.int32(ring_cap)}
+                "bt_row": bt_row, "ring_cap": np.int32(ring_cap),
+                "slot": np.int32(slot), "active": np.bool_(active)}
 
     def _decode_inputs(self, active: dict) -> dict:
         """The decode step's inputs for the slots in ``active``; with none,
@@ -587,14 +601,17 @@ class PagedServer:
                      results: dict[int, RequestResult]) -> None:
         st = self._prefilling[0]
         plen = len(st.served)
-        c = min(self.pool.prefill_chunk, plen - st.filled, st.ring_cap)
+        c = min(self.pool.prefill_chunk, plen - st.filled)
+        if self.has_attn:
+            c = min(c, st.ring_cap)   # scatter uniqueness within a chunk
         step = self._compiled(
             ("chunk", qops.fused_enabled(), c),
             self._step_fn(decmod.prefill_chunk_paged),
             lambda: self._chunk_inputs(np.zeros(c, np.int32), 0,
-                                       np.zeros(self.table_width, np.int32), 1))
+                                       np.zeros(self.table_width, np.int32), 1,
+                                       0, False))
         inputs = self._chunk_inputs(st.served[st.filled:st.filled + c],
-                                    st.filled, st.bt_row, st.ring_cap)
+                                    st.filled, st.bt_row, st.ring_cap, st.slot)
         t_start = time.monotonic()
         logits = step(inputs)
         if self.speculating:
@@ -604,7 +621,8 @@ class PagedServer:
                 self._step_fn(decmod.prefill_chunk_paged, draft=True),
                 lambda: self._chunk_inputs(
                     np.zeros(c, np.int32), 0,
-                    np.zeros(self.table_width, np.int32), 1))(inputs)
+                    np.zeros(self.table_width, np.int32), 1, 0,
+                    False))(inputs)
         logits = logits.to(torch.float32).cpu().numpy()  # waits for both
         self._add_stat("prefill_s", time.monotonic() - t_start)
         st.filled += c

@@ -39,10 +39,13 @@ What a capture needs, and what this module does about it:
     libraries and makes each kernel's one-time ``cudaFuncSetAttribute``
     opt-in and cuBLAS's lazy set-up, none of which belongs in a graph.
   * Inert inputs.  Warm-up and capture see the inputs the engine calls
-    inert (inactive slots, a block table of the null block 0), so the
-    warm-up writes the null block only.  A warm-up on real inputs would not
-    be idempotent: a prompt chunk whose window ring wraps would write its
-    K/V over ring slots the real chunk then reads as history.
+    inert (inactive slots, a block table of the null block 0, a chunk
+    marked inactive), so the warm-up writes the null block only and leaves
+    every per-slot MLA and recurrent row as it was: a chunk is first
+    captured while other requests' rows are live.  A warm-up on real
+    inputs would not be idempotent: a prompt chunk whose window ring wraps
+    would write its K/V over ring slots the real chunk then reads as
+    history.
   * Launch counters.  A capture records launches without running them and
     a replay runs them without the wrappers, so the counters are restored
     after warm-up and capture, and each replay credits the launches its
@@ -107,10 +110,12 @@ def clone_block(caches: list, src: torch.Tensor, dst: torch.Tensor) -> None:
     """Copy physical block ``src`` into block ``dst`` in every layer's K
     and V arena, in place (the reference's ``_cow_core``).  ``src`` and
     ``dst`` are one-element int64 tensors, so one capture serves every
-    pair of blocks."""
+    pair of blocks.  Per-slot MLA and recurrent rows hold no blocks (and
+    their archs bypass the prefix cache, the clone's one caller)."""
     for cache in caches:
-        for arena in cache.values():
-            arena.index_copy_(0, dst, arena.index_select(0, src))
+        for key in ("k", "v"):
+            if key in cache:
+                cache[key].index_copy_(0, dst, cache[key].index_select(0, src))
 
 
 class Step:

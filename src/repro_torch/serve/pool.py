@@ -1,8 +1,16 @@
-"""Paged KV-cache pool (port of ``repro/serve/pool.py`` for attention archs).
+"""Paged KV-cache pool (port of ``repro/serve/pool.py``): a fixed arena of
+(num_blocks, block_size, KV, hd) blocks per attention layer, shared by all
+in-flight requests, plus per-slot rows for the caches that are O(1) or
+latent-compressed per request (the reference's table at ``:11-13``):
 
-A fixed arena of (num_blocks, block_size, KV, hd) blocks per layer, shared by
-all in-flight requests; a physical block id addresses the same slab in every
-layer's arena, so one block table serves the whole stack.  Physical block 0
+  attn   -> {"k": (N, bs, KV, hd), "v": ...}        one arena per layer
+  mla    -> {"mla": MLACache((S, cap, kv_lora), (S, cap, qk_rope))}
+  rwkv   -> {"rwkv": RWKVState((S, H, dk, dk), (S, d), (S, d))}
+  rglru  -> {"rglru": RGLRUState((S, dr), (S, CONV_WIDTH - 1, dr))}
+
+A physical block id addresses the same slab in every attention layer's
+arena, so one block table serves the whole stack; an attention-free arch
+needs no blocks at all (``request_blocks`` is 0).  Physical block 0
 is the null block: unallocated block-table entries point at it and
 inactive-slot writes land in it; stored-position masks guarantee it is never
 read as a real key.
@@ -34,10 +42,12 @@ from repro_torch.models.config import ModelConfig
 class PoolConfig:
     """Static sizing of the paged KV pool.  ``num_blocks=None`` sizes the
     arena so every slot can hold a ``max_context`` request at once.
-    ``kv_dtype`` is the arenas' dtype (f32 or bf16).  ``lookahead`` is
-    extra ring capacity per request in tokens, which a speculating engine
-    sets to its depth k: its verify writes reach k positions past the
-    accepted frontier and must not wrap onto history still in use."""
+    ``kv_dtype`` is the arenas' and the per-slot MLA rows' dtype (f32 or
+    bf16; recurrent states keep f32 where the reference's do).
+    ``lookahead`` is extra ring capacity per request in tokens, which a
+    speculating engine sets to its depth k: its verify writes reach k
+    positions past the accepted frontier and must not wrap onto history
+    still in use."""
     max_slots: int = 8          # concurrent in-flight requests
     block_size: int = 16        # tokens per KV block
     max_context: int = 512      # per-request cap (prompt + generation)
@@ -62,9 +72,12 @@ class PoolConfig:
 
 
 def request_blocks(cfg: ModelConfig, pool: PoolConfig, total_len: int) -> int:
-    """Blocks a request of ``total_len`` tokens needs.  Sliding-window archs
-    are capped at the window: their blocks are ring-reused in place.
-    ``pool.lookahead`` tokens come on top of the capped capacity."""
+    """Blocks a request of ``total_len`` tokens needs (0 for attention-free
+    archs).  Sliding-window archs are capped at the window: their blocks
+    are ring-reused in place.  ``pool.lookahead`` tokens come on top of the
+    capped capacity."""
+    if "attn" not in cfg.pattern:
+        return 0
     cap = decmod.attn_capacity(cfg, total_len) + pool.lookahead
     return -(-cap // pool.block_size)
 
@@ -246,9 +259,21 @@ class BlockAllocator:
 
 
 def init_pool_caches(cfg: ModelConfig, pool: PoolConfig, device) -> list:
-    """One {"k", "v"} arena pair per layer, each (num_blocks, block_size,
-    KV, hd) zeros of ``pool.kv_dtype`` on ``device``."""
+    """One cache per layer on ``device``: an attention layer's {"k", "v"}
+    arenas, each (num_blocks, block_size, KV, hd) zeros of
+    ``pool.kv_dtype``, or another mixer's per-slot rows (``pool.max_slots``
+    of them; an MLA row holds ``pool.max_context`` positions), in
+    ``pool.kv_dtype`` but for the recurrent states, which are f32 as in
+    the reference."""
     shape = (pool.resolved_num_blocks(cfg), pool.block_size, cfg.n_kv, cfg.hd)
-    return [{"k": torch.zeros(shape, dtype=pool.kv_dtype, device=device),
-             "v": torch.zeros(shape, dtype=pool.kv_dtype, device=device)}
-            for _ in range(cfg.n_layers)]
+
+    def one(mixer):
+        if mixer == "attn":
+            return {"k": torch.zeros(shape, dtype=pool.kv_dtype,
+                                     device=device),
+                    "v": torch.zeros(shape, dtype=pool.kv_dtype,
+                                     device=device)}
+        return decmod.init_layer_cache(cfg, mixer, pool.max_slots,
+                                       pool.max_context, pool.kv_dtype,
+                                       device)
+    return [one(mixer) for mixer in cfg.pattern]

@@ -192,8 +192,7 @@ def test_batched_server_refuses_what_the_port_cannot_serve():
                             generator=torch.Generator().manual_seed(1))
             for _ in range(2))
     np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tdec.init_layer_cache(cfg, "rwkv", 1, 8)
-    with pytest.raises(NotImplementedError):
-        BatchedServer(cfg.with_(mixer_pattern=("rwkv",) * cfg.n_layers),
-                      params, device="cpu")
+    with pytest.raises(ValueError, match="unknown mixer"):
+        tdec.init_layer_cache(cfg, "xattn", 1, 8)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        BatchedServer(cfg.with_(pos="mrope"), params, device="cpu")
