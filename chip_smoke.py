@@ -27,8 +27,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      grouped (MoE expert) GEMM fused and unfused at Mixtral's decode and
      prefill shapes and speculation's capacities (C = 5, 10), the GEMMs,
      the RHT and the grouped GEMM also at the lockstep prefill's shapes
-     (2048 rows; 5120 rotated rows; C = 640), and the
-     flash-attention forward at Mixtral's and llama2's shapes (also
+     (2048 rows; 5120 rotated rows; C = 640), the GEMMs and the RHT at
+     qwen2-vl-2b's and whisper-large-v3's kept widths (Whisper's encoder
+     at 1500 and 6000 rows, against ``exact_gemm`` too), paged attention
+     at qwen2-vl's G = 6 (R = 6 at decode, R = 24 in a W = 4 verify), and
+     the flash-attention forward at Mixtral's and llama2's shapes (also
      against its host tile walk);
   4. quantize: llama2-7b at its published width (32 layers, d_model 4096,
      32 heads, d_ff 11008, vocab 32000) in fp32, random weights from a
@@ -122,7 +125,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      model calibrated on 5 corpus batches, quantized at 4.0 bits (code
      search counted), its fp32 and quantized perplexity, and served (4
      corpus prompts) by graph and by eager kernels with the same tokens;
- 14. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
+ 14. qwen2-vl-2b (``qwen2_vl_phase``) at its published width and depth (28
+     layers, mrope): quantized at 4.0 bits, served through the paged
+     engine by graph, eagerly and unfused (a request sharing 256 prompt
+     tokens hits the prefix cache), speculating (k = 3, draft = target),
+     through ``BatchedServer`` against the paged engine, and through
+     ``make_prefill_step`` / ``make_serve_step`` on a (3, B, S)
+     vision-grid position batch fused and unfused; then whisper-large-v3
+     (``whisper_phase``) at its published width, cut to WHISPER_LAYERS
+     decoder and encoder layers: seeded random (4, 1500, 1280) frames for
+     the audio stub, calibrated with frames, quantized at 4.0 bits
+     (encoder, decoder and cross-attention), 4 prompts through the
+     lockstep steps fused, unfused and plain, tokens identical but at
+     near-ties;
+ 15. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
      path's runs counted from zero), the phases' seconds, the nvidia-smi
      line, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -141,7 +157,9 @@ only phases 9-11, after the quantizations they need (see
 ``frontdoor_main``); ``--train`` builds every kernel and runs only phase
 13, with TRAIN_STEPS of training, the example's table of perplexities at
 4.3 / 3.3 / 2.3 bits and a 2.2-bit draft's acceptance on the trained
-weights (see ``train_main``).
+weights (see ``train_main``); ``--mrope-whisper`` builds every kernel
+and runs only phase 14, Whisper at its full 32 + 32 layers (see
+``mrope_whisper_main``).
 
 Imports nothing of JAX or of the reference package.  Exits non-zero with no
 result when no CUDA device is present.  Details too long for the end of the
@@ -205,7 +223,8 @@ from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.launch.train import loader_batch, train  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.runtime.fault import FaultTolerantLoop, LoopConfig  # noqa: E402
-from repro_torch.runtime.steps import make_train_step  # noqa: E402
+from repro_torch.runtime.steps import (  # noqa: E402
+    make_prefill_step, make_serve_step, make_train_step)
 from repro_torch.serve import PagedServer, PoolConfig, Request, graphs  # noqa: E402
 from repro_torch.serve.frontdoor import FrontDoor, SchedConfig  # noqa: E402
 from repro_torch.serve.frontdoor.client import stream_generate  # noqa: E402
@@ -321,6 +340,21 @@ FAMILY_GEMM_SHAPES = [
     (5104, 1536), (1531, 24576), (5104, 576), (16334, 5120), (5104, 6144),
     (3062, 5120), (2552, 2560), (2552, 8960), (8933, 2560), (2552, 256),
     (2552, 15360), (7656, 2560)]
+# qwen2-vl-2b's (d_keep, c) at published width: wq / wo (1536 kept 1531),
+# wk / wv (2 KV heads of 128: c = 256), the GLU's wi (2 x 8960) and its wo
+# (8960 kept 8933); rows: decode over 8 slots, speculation's catch-up (16)
+# and verify (32), a prompt chunk (64) and the lockstep and mrope-step
+# prefills (4 x 128)
+MROPE_GEMM_SHAPES = [(1531, 1536), (1531, 256), (1531, 17920), (8933, 1536)]
+MROPE_GEMM_NS = [1, 8, 16, 32, 64, 512]
+# whisper-large-v3's: its attention and cross-attention projections (1280
+# kept 1276) and its GELU FFN's wi and wo (5120 kept 5104); rows: decode
+# over 4 prompts, the decoder's prefill (4 x 64), and the encoder over one
+# clip (1500 frames: calibration) and over four (6000: the prefill step,
+# and the cross-attention's K/V), both also against ``exact_gemm``
+WHISPER_GEMM_SHAPES = [(1276, 1280), (1276, 5120), (5104, 1280)]
+WHISPER_ENC_ROWS = [1500, 4 * 1500]
+WHISPER_GEMM_NS = [1, 4, 256] + WHISPER_ENC_ROWS
 # the lockstep prefill's rows: 8 prompts of 256 tokens at once, through
 # llama2's projections and Mixtral's attention (wq/wo, wk/wv)
 LOCKSTEP_ROWS = 8 * 256
@@ -343,11 +377,22 @@ LOCKSTEP_RHT = [(2048, 4083), (2048, 10974), (5120, 4096), (5120, 14336)]
 FAMILY_RHT = ([(n, d) for n in (4, 64) for d in (5104, 1531, 16334, 2552,
                                                  8933, 7656)]
               + [(960, 5120), (960, 1536)])
+# qwen2-vl's kept widths at its decode and prefill rows, Whisper's at its
+# decode rows, its decoder's prefill and its encoder's one and four clips
+MROPE_WHISPER_RHT = ([(n, d) for n in (8, 32, 512) for d in (1531, 8933)]
+                     + [(n, d) for n in [4, 256] + WHISPER_ENC_ROWS
+                        for d in (1276, 5104)])
 RHT_TIMED = [(8, 4083), (8, 10974), (64, 4083), (8, 4096), (8, 16384),
-             (16, 4096), (16, 14336), (160, 4096), (160, 14336)]
+             (16, 4096), (16, 14336), (160, 4096), (160, 14336),
+             (8, 1531), (8, 8933), (4, 1276), (6000, 1276), (6000, 5104)]
 TIME_SHAPES = [(1, 4083, 4096), (8, 4083, 4096), (8, 4083, 22016),
                (8, 10974, 4096), (64, 4083, 4096), (16, 4083, 4096),
                (32, 4083, 4096), (LOCKSTEP_ROWS, 4083, 4096)]
+# the GEMMs (fused and unfused) at qwen2-vl's decode (8 slots) and
+# Whisper's decode (4 prompts) and encoder (four clips: 6000 rows)
+MROPE_WHISPER_TIMED = [(8, 1531, 1536), (8, 1531, 256), (8, 8933, 1536),
+                       (4, 1276, 1280), (6000, 1276, 1280),
+                       (6000, 5104, 1280)]
 # Mixtral's expert GEMMs (E, C, d, c): wi and wo at decode (8 slots, top-2:
 # C = 2) and at a 64-token prefill chunk (C = 20)
 GROUPED_SHAPES = [(8, 2, 4096, 28672), (8, 2, 14336, 4096),
@@ -564,7 +609,10 @@ def check_gemms(gen, dev) -> dict:
                                           (LOCKSTEP_GEMM_SHAPES,
                                            [LOCKSTEP_ROWS]),
                                           (FAMILY_GEMM_SHAPES,
-                                           FAMILY_GEMM_NS))
+                                           FAMILY_GEMM_NS),
+                                          (MROPE_GEMM_SHAPES, MROPE_GEMM_NS),
+                                          (WHISPER_GEMM_SHAPES,
+                                           WHISPER_GEMM_NS))
               for d, c in group for n in ns]
     for d, c, n in shapes:
         for bits in GEMM_BITS:
@@ -586,17 +634,19 @@ def check_gemms(gen, dev) -> dict:
                       f"max|err| {err} > {RTOL} * {scale}")
                 worst[name] = max(worst[name], err)
                 worst["rel"] = max(worst["rel"], err / scale)
-            if n == LOCKSTEP_ROWS:
+            if n == LOCKSTEP_ROWS or n in WHISPER_ENC_ROWS:
                 exact_rel(worst, x, packed, rescale, s1, s2, bits, d,
                           *(cases["fused"]))
-    log(f"rht_qmatmul at n {LOCKSTEP_ROWS}, against f64: kernel "
+    log(f"rht_qmatmul at n {[LOCKSTEP_ROWS] + WHISPER_ENC_ROWS}, against "
+        f"f64: kernel "
         f"{worst['kernel_vs_f64']:.2e}, plain {worst['plain_vs_f64']:.2e} "
         f"of max|plain| (the split plan's MAX_CHUNKS_PER_SPLIT "
         f"{qops.MAX_CHUNKS_PER_SPLIT})")
     log(f"rht_qmatmul and qmatmul: {len(shapes) * len(GEMM_BITS)} cases each "
         f"(bits 1-8; n {GEMM_NS} at {GEMM_SHAPES}, n {DENSE_GEMM_NS} at "
         f"{DENSE_GEMM_SHAPES}, n {LOCKSTEP_ROWS} at {LOCKSTEP_GEMM_SHAPES}, "
-        f"n {FAMILY_GEMM_NS} at {FAMILY_GEMM_SHAPES}) "
+        f"n {FAMILY_GEMM_NS} at {FAMILY_GEMM_SHAPES}, n {MROPE_GEMM_NS} at "
+        f"{MROPE_GEMM_SHAPES}, n {WHISPER_GEMM_NS} at {WHISPER_GEMM_SHAPES}) "
         f"within {RTOL} * max|plain|; max|err| fused "
         f"{worst['fused']:.3e}, unfused {worst['unfused']:.3e}; largest "
         f"|err|/max|plain| {worst['rel']:.2e}")
@@ -661,7 +711,7 @@ def check_rht(gen, dev) -> dict:
     worst = dict.fromkeys(("err", "rowsum_err", "walk_err"), 0.0)
     walk_equal = 0
     cases = ([(n, d) for n in RHT_NS for d in RHT_DIMS] + LOCKSTEP_RHT
-             + FAMILY_RHT)
+             + FAMILY_RHT + MROPE_WHISPER_RHT)
     for n, d in cases:
         x = torch.randn((n, d), generator=gen, device=dev)
         s1, s2 = draw_signs(d, gen)
@@ -696,7 +746,7 @@ def check_rht(gen, dev) -> dict:
                      ("walk_err", walk_err)):
             worst[k] = max(worst[k], v)
     log(f"rht: {len(cases)} cases (n {RHT_NS} x d {RHT_DIMS}, and "
-        f"{LOCKSTEP_RHT + FAMILY_RHT}"
+        f"{LOCKSTEP_RHT + FAMILY_RHT + MROPE_WHISPER_RHT}"
         f"), both entries "
         f"within atol {RHT_ATOL} (max|err| {worst['err']:.3e}); padding "
         f"zero; row sums within {RHT_ATOL} of the rows' f64 sums (max "
@@ -966,6 +1016,17 @@ ATTN_CASES = [  # name, w, h, kv, dtype, window, ring_blocks, ctx_max, ctx_lo
      10, 1, torch.float32, 2048, 128, 2200, 1900, 256),
     ("recurrentgemma bf16 G=10 hd=256 window 2048, ring of 128 blocks", 1,
      10, 1, torch.bfloat16, 2048, 128, 2200, 1900, 256),
+    # qwen2-vl-2b's decode: G = 6 (12 heads over 2 KV heads of 128), R = 6
+    # rows of the 8-row instantiation; its verify of k = 3 proposals (W =
+    # 4): R = 24, in row chunks of 8
+    ("qwen2-vl f32 G=6: H=12, KV=2", 1, 12, 2, torch.float32, None, None,
+     1024, None),
+    ("qwen2-vl bf16 G=6: H=12, KV=2", 1, 12, 2, torch.bfloat16, None, None,
+     1024, None),
+    ("qwen2-vl verify f32 W=4 G=6 (R=24)", 4, 12, 2, torch.float32, None,
+     None, 1024, None),
+    ("qwen2-vl verify bf16 W=4 G=6 (R=24)", 4, 12, 2, torch.bfloat16, None,
+     None, 1024, None),
 ]
 # timed: name, w, h, kv, dtype, window, ring_blocks, table width, ctx_max,
 # ctx_lo (None: every request at ctx_max)
@@ -994,6 +1055,14 @@ ATTN_TIMED = [
      10, 1, torch.float32, 2048, 128, 128, 2200, 1900, 256),
     ("recurrentgemma bf16 B=8 G=10 hd=256 window 2048, pos 1900-2200", 1,
      10, 1, torch.bfloat16, 2048, 128, 128, 2200, 1900, 256),
+    # qwen2-vl-2b's decode (G = 6) at context 1024, f32 and bf16 arenas,
+    # and its verify (W = 4, R = 24) on the serving mix
+    ("qwen2-vl f32 B=8 G=6 ctx 1024", 1, 12, 2, torch.float32, None, None,
+     64, 1024, None),
+    ("qwen2-vl bf16 B=8 G=6 ctx 1024", 1, 12, 2, torch.bfloat16, None, None,
+     64, 1024, None),
+    ("qwen2-vl verify f32 B=8 W=4 G=6 ctx 128-547", 4, 12, 2, torch.float32,
+     None, None, 35, 547, 128),
 ]
 
 
@@ -1355,8 +1424,11 @@ def time_flash(gen, dev, name, b, s, h, kv, hd, causal, window, dtype) -> dict:
 
 def quantized_linears(params) -> dict:
     """name -> QuantizedLinear (or QuantizedGrouped), under the pipeline's
-    names (``L3.attn.wq``, ``L0.mla.wq_a``, ``L1.tm.wr``, ``L2.moe.wi``)."""
-    return {f"L{i}.{g}.{k}": sub[k] for i, lp in enumerate(params["layers"])
+    names (``L3.attn.wq``, ``L0.mla.wq_a``, ``L1.tm.wr``, ``L2.moe.wi``,
+    ``L1.xattn.wk``, and Whisper's encoder ``enc5.mlp.wo``)."""
+    return {f"{scope}{i}.{g}.{k}": sub[k]
+            for scope, key in pipe.SCOPES
+            for i, lp in enumerate(params.get(key, ()))
             for g, sub in lp.items() if isinstance(sub, dict) for k in sub
             if hasattr(sub[k], "packed")}
 
@@ -3108,13 +3180,14 @@ def family_pool(arch) -> PoolConfig:
                       prefill_chunk=64)
 
 
-def family_quantize(arch, dev) -> tuple:
-    """fp32 ``family_config(arch)`` from a seed on the card, calibrated on
-    the zero-shot sentence (256 tokens), allocated (AVG_BITS) and
+def family_quantize(arch, dev, cfg=None, extra=None) -> tuple:
+    """fp32 ``cfg`` (default ``family_config(arch)``) from a seed on the
+    card, calibrated on the zero-shot sentence (256 tokens; ``extra``:
+    more entries of the batch, Whisper's frames), allocated (AVG_BITS) and
     quantized with the code-search kernel (counted: one launch per 2-D
     weight, one per expert of a grouped stack).  The fp weights are
     dropped after.  -> (summary, quantized params)."""
-    cfg = family_config(arch)
+    cfg = cfg or family_config(arch)
     t0 = time.monotonic()
     torch.cuda.reset_peak_memory_stats()
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(
@@ -3129,7 +3202,7 @@ def family_quantize(arch, dev) -> tuple:
     toks = torch.from_numpy(cal.zero_shot_tokens(cfg.vocab, 256)).to(dev)
     stats = cal.calibrate(
         lambda p, b, ctx, cfg=cfg: tf.loss_fn(cfg, p, b, ctx=ctx), params,
-        [{"tokens": toks}])
+        [{"tokens": toks, **(extra or {})}])
     torch.cuda.synchronize()
     calibrate_s = time.monotonic() - t0
     calibrate_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3271,6 +3344,310 @@ def family_phase(arch, dev) -> dict:
 
 def families_phase(dev) -> dict:
     return {arch: family_phase(arch, dev) for arch in FAMILY_ARCHS}
+
+
+# ------------------------------------- mrope (qwen2-vl) and Whisper's steps
+
+QWEN2_VL, WHISPER = "qwen2-vl-2b", "whisper-large-v3"
+# whisper-large-v3's depth in the whole run: WHISPER_LAYERS decoder layers
+# and as many encoder layers of its 32 + 32 (published widths: d_model
+# 1280, 20 heads of 64, d_ff 5120, 1500 frames), to keep the script inside
+# its 1050 s aim as later phases join it.  On an H100 80GB HBM3 at 700 W
+# the phase took 10.4 s at 8 + 8 layers in a whole run of 879.9 s
+# (AllocateBits 3.77 s over 128 weights) and 41.5 s at 32 + 32 in
+# --mrope-whisper (AllocateBits 15.18 s over 512 weights; 6.40 GB fp32,
+# a 19.83 GiB calibration peak), which keeps all 64.
+WHISPER_LAYERS = 8
+_WHISPER_DEPTH = [32]          # main() sets WHISPER_LAYERS for the whole run
+WHISPER_BATCH = 4              # decoder prompts, each over its own clip
+WHISPER_PROMPT = 64            # decoder prompt tokens before GEN_LEN new
+# the mrope steps' batch: MROPE_BATCH prompts of MROPE_PROMPT tokens, a
+# GRID_SIDE x GRID_SIDE vision grid (temporal 0, height i // side, width
+# i % side) and then text from the grid's largest position + 1
+MROPE_BATCH, MROPE_PROMPT, GRID_SIDE = 4, 128, 8
+
+
+def whisper_config():
+    return get_config(WHISPER).with_(n_layers=_WHISPER_DEPTH[0],
+                                     n_enc_layers=_WHISPER_DEPTH[0])
+
+
+def grid_positions(b: int, s: int) -> np.ndarray:
+    """(3, b, s) int32 vision-grid positions (see MROPE_BATCH)."""
+    n = GRID_SIDE * GRID_SIDE
+    pos = np.zeros((3, s), np.int32)
+    i = np.arange(n)
+    pos[1, :n], pos[2, :n] = i // GRID_SIDE, i % GRID_SIDE
+    pos[:, n:] = (np.arange(s - n) + GRID_SIDE)[None]
+    return np.broadcast_to(pos[:, None], (3, b, s)).copy()
+
+
+def lockstep_steps(cfg, params, batch: dict, n_tokens: int) -> dict:
+    """``make_prefill_step`` on ``batch``, then ``n_tokens`` greedy
+    ``make_serve_step`` calls (op by op) in the current fusion setting:
+    tokens (row -> list), each step's top-2 logit gaps ((row, step) ->
+    (gap, max |logit|)), the prefill step's seconds (Whisper's encoder
+    included), decode ms/step, peak memory and the launches."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    prefill = make_prefill_step(cfg, s + n_tokens)
+    serve_step = make_serve_step(cfg)
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.monotonic()
+        last, caches = prefill(params, batch)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        logits, out = [], []
+        for t in range(n_tokens):
+            logits.append(last.float())
+            tok = torch.argmax(last, dim=-1).to(torch.int32)
+            out.append(tok)
+            last, caches = serve_step(params, caches, tok[:, None], s + t)
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+    toks = torch.stack(out, 1).cpu().numpy()
+    gaps = {}
+    for t, lg in enumerate(logits):
+        top2 = torch.topk(lg, 2, dim=-1).values.cpu().numpy()
+        scale = lg.abs().amax(-1).cpu().numpy()
+        for r in range(b):
+            gaps[(r, t)] = (float(top2[r, 0] - top2[r, 1]), float(scale[r]))
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all())
+          and bool(torch.isfinite(last).all()),
+          f"{cfg.name} lockstep steps: malformed tokens or logits")
+    return {"request_tokens": {r: toks[r].tolist() for r in range(b)},
+            "gaps": gaps, "prefill_step_s": t1 - t0,
+            "decode_step_ms": 1e3 * (t2 - t1) / n_tokens,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": counts()}
+
+
+def steps_three_ways(what: str, cfg, params, batch, n_tokens,
+                     plain: bool) -> dict:
+    """``lockstep_steps`` fused, unfused and (with ``plain``) with the
+    plain versions forced; each other run's tokens equal the fused run's
+    but at near-ties of its own logits."""
+    runs = {}
+    for mode, fused in (("fused", True), ("unfused", False)) + (
+            (("plain", True),) if plain else ()):
+        forced = (qops, pops, hops) if mode == "plain" else ()
+        for ops in forced:
+            ops.set_forced_path("ref")
+        try:
+            with qops.fusion(fused):
+                runs[mode] = lockstep_steps(cfg, params, batch, n_tokens)
+        finally:
+            for ops in forced:
+                ops.set_forced_path(None)
+    base = runs["fused"]["request_tokens"]
+    for mode, run in runs.items():
+        run["divergences"] = tie_divergences(
+            f"{what} {mode} against fused", base, run["request_tokens"],
+            run.pop("gaps"))
+        run["identical"] = len(base) - len(run["divergences"])
+    unf, fus = runs["unfused"]["launches"], runs["fused"]["launches"]
+    check(fus["rht_qmatmul"] > 0 and unf["rht"] > 0 and unf["qmatmul"] > 0
+          and unf["rht_qmatmul"] == 0 and fus["paged_attention"] == 0
+          and unf["paged_attention"] == 0,
+          f"{what}: kernels fused {fus}, unfused {unf}")
+    if plain:
+        check(not any(runs["plain"]["launches"].values()),
+              f"{what}: the plain run launched {runs['plain']['launches']}")
+    return runs
+
+
+def qwen2_vl_phase(dev) -> dict:
+    """qwen2-vl-2b at its published width and depth (28 layers, d_model
+    1536, 12 heads over 2 KV heads of 128, d_ff 8960, vocab 151936, mrope
+    sections (16, 24, 24)): quantized (``family_quantize``, AVG_BITS), then
+    the paged engine over 8 slots serves the churn workload by graph,
+    eagerly (tokens and launches identical) and unfused by graph (tokens
+    equal but at near-ties), each followed on the same engine by one
+    request sharing 256 prompt tokens with request 1 (the prefix cache
+    hits); a speculating run (k = SPEC_K, draft = target: every proposal
+    accepted, W = SPEC_K + 1 verify steps) with the graph run's tokens but
+    at near-ties; a decode step profiled by graph and eagerly; the
+    lockstep ``BatchedServer`` by graph and eagerly against the paged
+    engine; then ``make_prefill_step`` / ``make_serve_step`` on a
+    (3, B, S) vision-grid batch, fused and unfused."""
+    t_phase = time.monotonic()
+    cfg = get_config(QWEN2_VL)
+    out, params = family_quantize(QWEN2_VL, dev, cfg=cfg)
+    pool = llama2_pool()
+    lens = PROMPT_LENS
+    reqs = requests(cfg, lens)
+    pair = Request(rid=len(lens), max_new=GEN_LEN, prompt=np.concatenate(
+        [reqs[1].prompt[:256], np.random.default_rng(SEED + 5).integers(
+            0, cfg.vocab, 64).astype(np.int32)]))
+    PagedServer(cfg, params, pool, device=dev).run(   # warm-up, not counted
+        [Request(rid=-1, prompt=np.arange(16, dtype=np.int32), max_new=2)])
+    runs = {}
+    for mode, fused, eager in (("graph", True, False), ("eager", True, True),
+                               ("unfused", False, False)):
+        zero_counts()
+        with graphs.eager(eager):
+            eng, res, wall = serve(cfg, params, dev, pool, fused=fused,
+                                   prompt_lens=lens)
+            summ = serve_summary(eng, res, wall, cfg, params, lens)
+            summ["launches"] = counts()
+            saved = eng.stats.get("prefill_tokens_saved", 0)
+            res.update(eng.run([dataclasses.replace(pair)]))
+            summ["pair_tokens_saved"] = (
+                eng.stats.get("prefill_tokens_saved", 0) - saved)
+        runs[mode] = (eng, res, summ)
+    base = runs["graph"][1]
+    for mode in ("graph", "eager", "unfused"):
+        eng, res, summ = runs[mode]
+        summ["divergences"] = divergences(base, res, eng)
+        summ["identical"] = len(base) - len(summ["divergences"])
+        check(summ["pair_tokens_saved"] >= 256,
+              f"{QWEN2_VL} {mode}: the shared-prefix request saved "
+              f"{summ['pair_tokens_saved']} prompt tokens, not 256")
+        out[mode] = {k: summ[k] for k in (
+            "decode_step_ms", "decode_step_bound_ms", "prefill_s",
+            "prefill_chunk_ms", "wall_s", "tok_per_s", "decode_steps",
+            "prefill_chunks", "captures", "capture_s", "graph_pool_mib",
+            "peak_mem_gib", "launches", "gemm_launches", "identical",
+            "divergences", "pair_tokens_saved")}
+    graph, eager, unf = out["graph"], out["eager"], out["unfused"]
+    check(eager["identical"] == len(base)
+          and graph["launches"] == eager["launches"],
+          f"{QWEN2_VL}: graph and eager differ: tokens {eager['identical']}/"
+          f"{len(base)}, launches {graph['launches']} vs "
+          f"{eager['launches']}")
+    check(graph["captures"]["decode"] == 1
+          and eager["captures"] == {"decode": 0, "chunk": 0},
+          f"{QWEN2_VL}: captures graph {graph['captures']}, eager "
+          f"{eager['captures']}")
+    fused_l, unf_l = graph["launches"], unf["launches"]
+    check(fused_l["rht_qmatmul"] > 0 and fused_l["paged_attention"] > 0
+          and unf_l["rht"] > 0 and unf_l["qmatmul"] > 0
+          and unf_l["rht_qmatmul"] == 0
+          and fused_l["grouped_rht_qmatmul"] == 0
+          and unf_l["grouped_qmatmul"] == 0,
+          f"{QWEN2_VL}: kernels by run: fused {fused_l}, unfused {unf_l}")
+    # speculation, draft = target: W = SPEC_K + 1 verify steps (R = 24)
+    zero_counts()
+    spec = GapRecordingServer(cfg, params, pool, draft_params=params,
+                              speculate=SPEC_K, device=dev)
+    t0 = time.monotonic()
+    spec_res = spec.run(requests(cfg, lens))
+    torch.cuda.synchronize()
+    st = spec.stats
+    want = {r: base[r].tokens.tolist() for r in range(len(lens))}
+    out["speculation"] = {
+        "wall_s": time.monotonic() - t0, "k": SPEC_K,
+        "acceptance_rate": st["acceptance_rate"],
+        "spec_rounds": st["spec_rounds"], "ms_per_round":
+        1e3 * st["spec_s"] / st["spec_rounds"],
+        "captures": dict(spec.graphs.captures), "launches": counts(),
+        "divergences": tie_divergences(
+            f"{QWEN2_VL} speculation against speculation off", want,
+            token_lists(spec_res), runs["graph"][0].gaps)}
+    check(st["spec_rounds"] > 0 and st["acceptance_rate"] > 0.9
+          and out["speculation"]["launches"]["paged_attention"] > 0,
+          f"{QWEN2_VL} speculation: {out['speculation']}")
+    out["request_tokens"] = token_lists(base)
+    del runs, spec, eng
+    out["decode_profile"] = {"graph": profile_decode(cfg, params, dev, pool)}
+    with graphs.eager():
+        out["decode_profile"]["eager"] = profile_decode(cfg, params, dev,
+                                                        pool)
+    out["lockstep"] = lockstep_phase(
+        "qwen2_vl", cfg, params, dev, True,
+        modes={"graph": (True, False), "eager": (True, True)},
+        n_prompts=FAMILY_LOCK, prompt_len=FAMILY_LOCK_PROMPT, pool=pool)
+    rng = np.random.default_rng(SEED + 9)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (MROPE_BATCH, MROPE_PROMPT)).astype(np.int32)).to(dev),
+        "positions": torch.from_numpy(grid_positions(
+            MROPE_BATCH, MROPE_PROMPT)).to(dev)}
+    out["mrope_steps"] = steps_three_ways(f"{QWEN2_VL} mrope steps", cfg,
+                                          params, batch, GEN_LEN, False)
+    prof = {m: {k: out["decode_profile"][m][k] for k in (
+        "device_ms_per_step", "wall_ms_per_step", "idle_share",
+        "launches_per_step")} for m in ("graph", "eager")}
+    ms = out["mrope_steps"]
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"{QWEN2_VL} serve ({len(lens)} requests of {lens} prompt tokens "
+        f"and one sharing 256 of request 1's, {GEN_LEN} new, 8 slots): "
+        f"decode ms/step graph {graph['decode_step_ms']:.3f} / eager "
+        f"{eager['decode_step_ms']:.3f} / unfused "
+        f"{unf['decode_step_ms']:.3f} (bound "
+        f"{graph['decode_step_bound_ms']:.3f}); prefill_s graph "
+        f"{graph['prefill_s']:.3f} / eager {eager['prefill_s']:.3f}; tokens "
+        f"identical graph / eager / unfused {graph['identical']} / "
+        f"{eager['identical']} / {unf['identical']} of {len(base)}; prefix "
+        f"pair saved {graph['pair_tokens_saved']} tokens; speculation "
+        f"k={SPEC_K} acceptance {out['speculation']['acceptance_rate']:.3f},"
+        f" {out['speculation']['ms_per_round']:.3f} ms/round, divergences "
+        f"{len(out['speculation']['divergences'])}; peak "
+        f"{graph['peak_mem_gib']:.2f} GiB; launches by graph {fused_l}; "
+        f"decode profile {json.dumps(prof)}; mrope steps ({MROPE_BATCH} x "
+        f"{MROPE_PROMPT}, a {GRID_SIDE}x{GRID_SIDE} grid): prefill step s "
+        f"fused {ms['fused']['prefill_step_s']:.3f} / unfused "
+        f"{ms['unfused']['prefill_step_s']:.3f}, decode ms/step "
+        f"{ms['fused']['decode_step_ms']:.3f} / "
+        f"{ms['unfused']['decode_step_ms']:.3f}, unfused tokens identical "
+        f"{ms['unfused']['identical']} of {MROPE_BATCH}; "
+        f"{out['phase_s']:.1f} s in all; {gpu_line()}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_phase(dev) -> dict:
+    """whisper-large-v3 at its published width (``whisper_config``):
+    seeded random (B, 1500, 1280) encoder frames stand in for the audio
+    stub; calibrated on the zero-shot sentence with one clip's frames,
+    quantized at AVG_BITS (encoder and decoder, the cross-attention
+    included; code searches counted); then WHISPER_BATCH decoder prompts
+    of WHISPER_PROMPT tokens, each over its own clip, through
+    ``make_prefill_step`` (the encoder at B x 1500 rows, the cross K/V
+    cached) and GEN_LEN greedy ``make_serve_step`` calls, fused, unfused
+    and with the plain versions forced: tokens identical but at near-ties.
+    No paged attention: Whisper's attention is plain torch, as the
+    reference's is."""
+    t_phase = time.monotonic()
+    cfg = whisper_config()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    frames = torch.randn((WHISPER_BATCH, cfg.n_audio_ctx, cfg.d_model),
+                         generator=gen, device=dev)
+    out, params = family_quantize(WHISPER, dev, cfg=cfg,
+                                  extra={"enc_embeds": frames[:1]})
+    out["n_enc_layers"] = cfg.n_enc_layers
+    enc_names = [n for n in out["per_layer_bits"] if n.startswith("enc")]
+    check(len(enc_names) == 6 * cfg.n_enc_layers
+          and len(out["per_layer_bits"]) == len(enc_names)
+          + 10 * cfg.n_layers
+          and list(out["per_layer_bits"])[-len(enc_names):] == enc_names,
+          f"{WHISPER}: the allocation's entries are not the decoder's 10 a "
+          f"layer and then the encoder's 6 a layer")
+    rng = np.random.default_rng(SEED + 10)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (WHISPER_BATCH, WHISPER_PROMPT)).astype(np.int32)).to(
+            dev), "enc_embeds": frames}
+    out["steps"] = steps_three_ways(WHISPER, cfg, params, batch, GEN_LEN,
+                                    True)
+    out["phase_s"] = time.monotonic() - t_phase
+    st = out["steps"]
+    log(f"{WHISPER} steps ({cfg.n_layers} + {cfg.n_enc_layers} of 32 + 32 "
+        f"layers; {WHISPER_BATCH} prompts of {WHISPER_PROMPT} tokens over "
+        f"{cfg.n_audio_ctx} frames each, {GEN_LEN} new): prefill step s "
+        + " / ".join(f"{m} {r['prefill_step_s']:.3f}" for m, r in st.items())
+        + "; decode ms/step " + " / ".join(
+            f"{m} {r['decode_step_ms']:.3f}" for m, r in st.items())
+        + "; tokens identical to fused " + " / ".join(
+            f"{m} {r['identical']}" for m, r in st.items())
+        + f" of {WHISPER_BATCH}; peak {st['fused']['peak_mem_gib']:.2f} GiB;"
+        f" launches fused {st['fused']['launches']}; {out['phase_s']:.1f} s "
+        f"in all; {gpu_line()}")
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------ training
@@ -4289,6 +4666,21 @@ def families_main(dev, smi) -> int:
     return 0
 
 
+def mrope_whisper_main(dev, smi) -> int:
+    """``--mrope-whisper``: build every kernel and run only the qwen2-vl
+    and Whisper phases, both at full depth (qwen2-vl-2b 28 layers,
+    whisper-large-v3 32 + 32); prints each phase's seconds and one JSON
+    line (also ``chiprun_out/chip_smoke_mrope_whisper.json``)."""
+    out = {"gpu": smi, "ptxas": ptxas_lines(_build.build()),
+           "qwen2_vl": qwen2_vl_phase(dev), "whisper": whisper_phase(dev)}
+    (OUT_DIR / "chip_smoke_mrope_whisper.json").write_text(
+        json.dumps(out, indent=1))
+    log("phase seconds: " + json.dumps(
+        {k: out[k]["phase_s"] for k in ("qwen2_vl", "whisper")}))
+    log(json.dumps(compact(out)))
+    return 0
+
+
 def spec_main(dev, smi) -> int:
     """``--speculation``: build every kernel, quantize llama2-7b with its
     DRAFT_BITS draft (``quantize_model_dual``, without the plain
@@ -4413,11 +4805,14 @@ def main() -> int:
         return train_main(dev, smi)
     if sys.argv[1:] == ["--families"]:
         return families_main(dev, smi)
+    if sys.argv[1:] == ["--mrope-whisper"]:
+        return mrope_whisper_main(dev, smi)
     if modes:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
 
     _LLAMA2_DEPTH[0] = LLAMA2_LAYERS
+    _WHISPER_DEPTH[0] = WHISPER_LAYERS
     t_build = time.monotonic()
     logs = _build.build()
     build_s = time.monotonic() - t_build
@@ -4448,7 +4843,12 @@ def main() -> int:
     log(f"launch floor (empty kernel, graph replay): {floor_ms:.4f} ms")
     search_times = [time_code_search(gen, dev, d, c)
                     for d, c in SEARCH_TIMED]
-    for name, rows in (("rht_qmatmul", gemm_times), ("qmatmul", unfused_times),
+    mw_times = [time_gemm(gen, dev, n, d, c, 4)
+                for n, d, c in MROPE_WHISPER_TIMED]
+    mw_unfused_times = [time_gemm(gen, dev, n, d, c, 4, fused=False)
+                        for n, d, c in MROPE_WHISPER_TIMED]
+    for name, rows in (("rht_qmatmul", gemm_times + mw_times),
+                       ("qmatmul", unfused_times + mw_unfused_times),
                        ("rht", rht_times), ("rabitq_quant", search_times)):
         for t in rows:
             log(f"{name} time {json.dumps(t)}")
@@ -4507,6 +4907,8 @@ def main() -> int:
     family_out = {}
     for arch in FAMILY_ARCHS:
         family_out[arch] = timed(FAMILY_PATH[arch], family_phase, arch, dev)
+    qwen2_vl_out = timed("qwen2_vl", qwen2_vl_phase, dev)
+    whisper_out = timed("whisper", whisper_phase, dev)
     dense_out = timed("dense", dense_phase, dev)
     train_out = timed("train", train_phase, dev)
     log(f"phase seconds: {json.dumps(phase_s)}")
@@ -4568,6 +4970,19 @@ def main() -> int:
             "quantize": 0, "fused": row["lockstep"]["graph"]["launches"],
             "unfused": none}
     families = tuple(FAMILY_PATH.values())
+    # qwen2-vl: its quantization, its graph and unfused serve runs and its
+    # lockstep graph run; Whisper: its quantization and its fused and
+    # unfused lockstep-step runs
+    runs["qwen2_vl"] = {"quantize": qwen2_vl_out["code_search_launches"],
+                        "fused": qwen2_vl_out["graph"]["launches"],
+                        "unfused": qwen2_vl_out["unfused"]["launches"]}
+    runs["qwen2_vl_lockstep"] = {
+        "quantize": 0, "fused": qwen2_vl_out["lockstep"]["graph"]["launches"],
+        "unfused": none}
+    runs["whisper"] = {"quantize": whisper_out["code_search_launches"],
+                       "fused": whisper_out["steps"]["fused"]["launches"],
+                       "unfused": whisper_out["steps"]["unfused"]["launches"]}
+    mw = ("qwen2_vl", "whisper")
     # the trained qwen3-0.6b: its quantization and its graph serve run
     runs["qwen3_trained"] = {
         "quantize": train_out["quantize"]["code_search_launches"],
@@ -4588,16 +5003,18 @@ def main() -> int:
         "rht_qmatmul": ("fused", ("llama2", "mixtral", "llama2_prefix",
                                   *spec, *dense, "llama2_gather",
                                   "frontdoor", *lockstep, *families,
-                                  *fam_lock, "qwen3_trained")),
+                                  *fam_lock, "qwen3_trained", *mw,
+                                  "qwen2_vl_lockstep")),
         "paged_attention": ("fused", ("llama2", "mixtral", "llama2_prefix",
                                       *spec, *dense, "frontdoor",
-                                      "recurrentgemma", "qwen3_trained")),
+                                      "recurrentgemma", "qwen3_trained",
+                                      "qwen2_vl")),
         "qmatmul": ("unfused", ("llama2", "mixtral", *dense, *families,
-                                "lockstep_llama2_unfused")),
+                                "lockstep_llama2_unfused", *mw)),
         "rht": ("unfused", ("llama2", "mixtral", *dense, *families,
-                            "lockstep_llama2_unfused")),
+                            "lockstep_llama2_unfused", *mw)),
         "rabitq_quant": ("quantize", ("llama2", "mixtral", *dense,
-                                      *families, "qwen3_trained")),
+                                      *families, "qwen3_trained", *mw)),
         "grouped_rht_qmatmul": ("fused", ("mixtral", "mixtral_spec",
                                           "lockstep_mixtral", "deepseek_v2",
                                           "lockstep_deepseek_v2")),
@@ -4612,9 +5029,16 @@ def main() -> int:
     # and MLA and RWKV6 hold no KV blocks
     check(not any(launches["paged_attention"][p] for p in (
         "llama2_gather", *lockstep, "lockstep_llama2_unfused", *fam_lock,
-        "deepseek_v2", "rwkv6")),
+        "deepseek_v2", "rwkv6", "whisper", "qwen2_vl_lockstep")),
           f"paged attention launched off its paths: "
           f"{launches['paged_attention']}")
+    # neither qwen2-vl nor Whisper has experts
+    check(not any(launches[k][p] for k in ("grouped_rht_qmatmul",
+                                           "grouped_qmatmul")
+                  for p in (*mw, "qwen2_vl_lockstep")),
+          f"the grouped GEMM launched on a path without experts: "
+          f"{launches['grouped_rht_qmatmul']}, "
+          f"{launches['grouped_qmatmul']}")
     # the GEMM kernel's launches by serve run and phase
     gemms = {path: {run: r["gemm_launches"] for run, r in (
                  ("fused", serve_r), ("unfused", serve_r["unfused"]))}
@@ -4657,6 +5081,9 @@ def main() -> int:
                   "n", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms")},
               gemm_launches_by_run_and_phase=gemms,
+              mrope_whisper=[{k: t[k] for k in (
+                  "n", "d", "c", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms")} for t in mw_times],
               note="one GEMM kernel (dequant_gemm_kernel) behind every "
                    "entry; gemm_launches_by_run_and_phase counts its "
                    "launches through any entry in each serve run's prefill "
@@ -4672,7 +5099,10 @@ def main() -> int:
                       ("llama2", serve_out), ("mixtral", moe_serve))}),
         entry("qmatmul", "src/repro_torch/csrc/rht_qmatmul.cu",
               "src/repro/kernels/qmatmul/qmatmul.py:66", unfused_err,
-              decode_unfused, ("n", "d", "c", "bits")),
+              decode_unfused, ("n", "d", "c", "bits"),
+              mrope_whisper=[{k: t[k] for k in (
+                  "n", "d", "c", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms")} for t in mw_unfused_times]),
         entry("rht", "src/repro_torch/csrc/hadamard.cu",
               "src/repro/kernels/hadamard/hadamard.py:35", rht_err,
               decode_rht, ("n", "d", "plan"),
@@ -4736,6 +5166,9 @@ def main() -> int:
               "gather": gather_out, "frontdoor": frontdoor_out,
               "lockstep": {"llama2": lockstep_out, "mixtral": moe_lockstep},
               "dense_configs": dense_out, "families": family_out,
+              "qwen2_vl": qwen2_vl_out, "whisper": whisper_out,
+              "mrope_whisper_gemm_times": mw_times,
+              "mrope_whisper_unfused_gemm_times": mw_unfused_times,
               "train": train_out,
               "kernels": kernels,
               "phase_s": phase_s, "seconds": time.monotonic() - T_START}

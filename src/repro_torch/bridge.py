@@ -20,10 +20,13 @@ two shapes:
 
 Layer i is element i // p of position i % p, so the port's list is in
 execution order, as the reference's ``get_layer`` and ``_apply_layers``
-walk it (full periods, then the remainder).  Every other subtree (a MoE
-layer's router and shared experts, MLA's norms and ``wkv_b``, RWKV's
-``tm`` / ``cm`` vectors and LoRAs, RG-LRU's block-diagonal ``wa`` / ``wx``
-and conv filter) carries across leaf by leaf.
+walk it (full periods, then the remainder).  Whisper's ``enc_layers``
+holds one such entry (a stack of the encoder's layers, or the list that
+``quantize_model`` unrolls it into) and ``enc_norm`` a norm's dict.
+Every other subtree (a MoE layer's router and shared experts, MLA's
+norms and ``wkv_b``, RWKV's ``tm`` / ``cm`` vectors and LoRAs, RG-LRU's
+block-diagonal ``wa`` / ``wx`` and conv filter, a Whisper decoder layer's
+``ln_x`` / ``xattn``) carries across leaf by leaf.
 
 The caller flattens a JAX tree into that form (``numpy.asarray`` on every
 array, a dict per ``QuantizedLinear``); the result is the port's param
@@ -101,20 +104,30 @@ def _n_stacked(node) -> int:
     return int(np.asarray(node).shape[0])
 
 
+def _unrolled(positions: list, device) -> list:
+    """Per-layer dicts in execution order from the reference's per-scan-
+    position stacks (or lists)."""
+    stacks = [list(st) if isinstance(st, list)
+              else [_take(st, i) for i in range(_n_stacked(st))]
+              for st in positions]
+    period = len(stacks)
+    n_layers = sum(len(st) for st in stacks)
+    return [_convert(stacks[i % period][i // period], device)
+            for i in range(n_layers)]
+
+
 def params_from_reference(tree: dict, device=None) -> dict:
     """The port's params from a reference param tree of numpy containers,
     on ``device`` (CUDA unless ``"cpu"``)."""
     dev = resolve_device(device)
-    stacks = [list(st) if isinstance(st, list)
-              else [_take(st, i) for i in range(_n_stacked(st))]
-              for st in tree["layers"]]
-    period = len(stacks)
-    n_layers = sum(len(st) for st in stacks)
-    per_layer = [stacks[i % period][i // period] for i in range(n_layers)]
-    return {"embed": _convert(tree["embed"], dev),
-            "layers": [_convert(lp, dev) for lp in per_layer],
-            "final_norm": _convert(tree["final_norm"], dev),
-            "lm_head": _convert(tree["lm_head"], dev)}
+    out = {"embed": _convert(tree["embed"], dev),
+           "layers": _unrolled(tree["layers"], dev),
+           "final_norm": _convert(tree["final_norm"], dev),
+           "lm_head": _convert(tree["lm_head"], dev)}
+    if "enc_layers" in tree:
+        out["enc_layers"] = _unrolled(tree["enc_layers"], dev)
+        out["enc_norm"] = _convert(tree["enc_norm"], dev)
+    return out
 
 
 def _share_leaves(t, d):
@@ -138,14 +151,13 @@ def draft_from_reference(target: dict, draft_tree: dict, device=None) -> dict:
     of the target half): full-precision leaves shared with ``target``, and
     every quantized weight's signs aliased to the target's tensors."""
     draft = _share_leaves(target, params_from_reference(draft_tree, device))
-    for t, d in zip(target["layers"], draft["layers"]):
-        for tq, dq in _quantized_pairs(t, d):
-            if not (torch.equal(tq.signs1, dq.signs1)
-                    and (tq.signs2 is None) == (dq.signs2 is None)
-                    and (tq.signs2 is None
-                         or torch.equal(tq.signs2, dq.signs2))):
-                raise ValueError("the draft's rotation differs from the "
-                                 "target's: not a dual quantization pair")
+    for tq, dq in _quantized_pairs(target, draft):
+        if not (torch.equal(tq.signs1, dq.signs1)
+                and (tq.signs2 is None) == (dq.signs2 is None)
+                and (tq.signs2 is None
+                     or torch.equal(tq.signs2, dq.signs2))):
+            raise ValueError("the draft's rotation differs from the "
+                             "target's: not a dual quantization pair")
     return _alias_rotation(target, draft)
 
 
@@ -155,3 +167,6 @@ def _quantized_pairs(t, d):
     elif isinstance(d, dict):
         for k, v in d.items():
             yield from _quantized_pairs(t[k], v)
+    elif isinstance(d, list):
+        for a, b in zip(t, d):
+            yield from _quantized_pairs(a, b)

@@ -1,9 +1,10 @@
 """--arch registry for the port: id -> ModelConfig (full + tiny variant).
 
 The reference registry (``repro.configs``) pulls in JAX through its shapes
-module, so the port keeps its own.  Only the architectures the port can
-serve are listed; qwen2-vl (mrope) and whisper (encoder-decoder) join as
-they are ported (ROADMAP).
+module, so the port keeps its own.  It lists every architecture of the
+reference's registry: qwen2-vl-2b (mrope) serves through the paged engine
+like the other decoders, whisper-large-v3 (encoder-decoder) through the
+lockstep steps of ``runtime/steps.py`` only, as in the reference.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ _MODULES = {
     "deepseek-v2-236b": "deepseek_v2_236b",
     "rwkv6-3b": "rwkv6_3b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -57,7 +57,9 @@ def calibrate(loss_with_ctx: Callable[[dict, dict, LinearCtx], torch.Tensor],
 
     ``loss_with_ctx(params, batch, ctx)`` must route every linear through
     the ctx (``models.transformer.loss_fn`` does).  Batches hold tensors on
-    the params' device."""
+    the params' device, and reach the loss whole: mrope's ``positions``
+    and Whisper's ``enc_embeds`` too, whose encoder taps are named
+    ``enc{i}.*`` and whose cross-attention taps ``L{i}.xattn.*``."""
     stats: dict[str, dict] = {}
     for batch in batches:
         ctx = LinearCtx(perturb={}, collect=True)

@@ -2,12 +2,15 @@
 RaBitQ-H quantize -> deployable quantized params.
 
 Port of ``repro/core/pipeline.py:quantize_model`` for attention decoders
-with dense or MoE FFNs: per-layer heterogeneous bit widths from the DP
-allocator, the outlier and centralization tricks for 2-D projections,
-``quantize_grouped`` for the stacked MoE experts (wi, wo), and the port's
-own param layout (``params["layers"]`` a list of per-layer dicts, as
-``bridge.py`` and the engine use).  Embeddings, norms, the MoE router and
-lm_head stay in full precision.
+and every other family of the registry: per-layer heterogeneous bit widths
+from the DP allocator, the outlier and centralization tricks for 2-D
+projections, ``quantize_grouped`` for the stacked MoE experts (wi, wo),
+and the port's own param layout (``params["layers"]`` a list of per-layer
+dicts, as ``bridge.py`` and the engine use).  Whisper's encoder is the
+``enc`` scope (``params["enc_layers"]``): its weights come after every
+decoder weight, named ``enc{i}.attn.wq``, ..., as the reference collects
+them, and the decoder's cross-attention weights are ``L{i}.xattn.*``.
+Embeddings, norms, the MoE router and lm_head stay in full precision.
 
 The reference splits one ``jax.random`` key per quantized weight; the port
 draws each weight's Rademacher signs with ``draw_signs(d_keep, generator)``
@@ -84,14 +87,19 @@ def _copy_dicts(node):
     return node
 
 
+SCOPES = (("L", "layers"), ("enc", "enc_layers"))   # name prefix, params key
+
+
 def _entries(params: dict) -> list:
-    """(name, layer index, path, kind, shape) of every quantizable weight,
-    in the order the allocation and the signs take them."""
+    """(name, params key, layer index, path, kind, shape) of every
+    quantizable weight, in the order the allocation and the signs take
+    them: the decoder's layers, then the encoder's."""
     entries = []
-    for i, lp in enumerate(params["layers"]):
-        for path, kind in _walk_layer(lp):
-            entries.append((f"L{i}." + ".".join(path), i, path, kind,
-                            tuple(_get(lp, path).shape)))
+    for scope, key in SCOPES:
+        for i, lp in enumerate(params.get(key, ())):
+            for path, kind in _walk_layer(lp):
+                entries.append((f"{scope}{i}." + ".".join(path), key, i,
+                                path, kind, tuple(_get(lp, path).shape)))
     return entries
 
 
@@ -103,7 +111,7 @@ def draw_model_signs(params: dict, stats: dict[str, LayerStat], *,
     ``signs`` where it names the weight, else drawn from ``generator`` in
     entry order for the width the weight keeps after its outlier split."""
     out = {}
-    for name, _, _, kind, shape in _entries(params):
+    for name, _, _, _, kind, shape in _entries(params):
         if signs is not None and name in signs:
             out[name] = signs[name]
             continue
@@ -164,7 +172,7 @@ def quantize_model(cfg: ModelConfig, params: dict,
                              outlier_frac=outlier_frac, signs=signs)
 
     ms, alphas, overheads = [], [], []
-    for name, _, _, kind, shape in entries:
+    for name, _, _, _, kind, shape in entries:
         m = int(np.prod(shape))
         st = stats.get(name)
         alphas.append(float(np.sqrt(m)) if st is None         # weight-only
@@ -179,13 +187,16 @@ def quantize_model(cfg: ModelConfig, params: dict,
     allocate_s = time.monotonic() - t_alloc
 
     qparams = dict(params)
-    qparams["layers"] = [_copy_dicts(lp) for lp in params["layers"]]
+    for _, key in SCOPES:
+        if key in params:
+            qparams[key] = [_copy_dicts(lp) for lp in params[key]]
     per_layer_bits: dict[str, int] = {}
     used_bits = 0
     overhead_used = 0
     t_quant = time.monotonic()
-    for (name, i, path, kind, shape), bits in zip(entries, allocation.bits):
-        target = qparams["layers"][i]
+    for (name, key, i, path, kind, shape), bits in zip(entries,
+                                                       allocation.bits):
+        target = qparams[key][i]
         w = _get(target, path)
         st = stats.get(name)
         x_col = (np.sqrt(np.maximum(st.x_col_sq, 0.0))
@@ -233,7 +244,9 @@ def _alias_rotation(tq: dict, dq: dict) -> dict:
             return {k: share(t[k], v) for k, v in d.items()}
         return d
     out = dict(dq)
-    out["layers"] = [share(t, d) for t, d in zip(tq["layers"], dq["layers"])]
+    for _, key in SCOPES:
+        if key in dq:
+            out[key] = [share(t, d) for t, d in zip(tq[key], dq[key])]
     return out
 
 

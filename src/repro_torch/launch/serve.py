@@ -9,7 +9,8 @@
         --speculate 2 --draft-bits 2.2                # self-speculative
     python -m repro_torch.launch.serve --device cpu --tiny --lockstep
     python -m repro_torch.launch.serve --arch rwkv6-3b --tiny --device cpu \\
-        --avg-bits 3.3          # also deepseek-v2-236b, recurrentgemma-2b
+        --avg-bits 3.3          # also deepseek-v2-236b, recurrentgemma-2b,
+                                # qwen2-vl-2b
     python -m repro_torch.launch.serve --device cpu --tiny --serve --port 8080
 
 Random weights from a seeded generator; with ``--avg-bits`` the model is
@@ -53,6 +54,13 @@ the pool's context.  It prints ``frontdoor listening on HOST:PORT``, and
 on SIGINT / SIGTERM ``frontdoor shut down cleanly`` and exits 0; an engine
 failure in its driver thread exits non-zero.
 
+``--arch whisper-large-v3`` exits with an error on every path: the paged
+engine refuses encoder-decoder archs (as the reference's does), and
+``BatchedServer`` has no encoder frames to pass (the reference's takes
+none either, so it fails there too); the port's refuses at construction.
+Whisper serves through ``runtime/steps.make_prefill_step`` /
+``make_serve_step`` with ``enc_embeds`` in the batch.
+
 Not ported yet: ``--tp`` above 1 (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
@@ -74,6 +82,10 @@ from repro_torch.kernels.qmatmul import ops as qops
 from repro_torch.models import decode as decmod
 from repro_torch.models import transformer as tf
 from repro_torch.serve import PagedServer, PoolConfig, Request, graphs
+
+ENC_DEC_LOCKSTEP = ("BatchedServer does not support encoder-decoder archs: "
+                    "it takes no encoder frames (serve them through "
+                    "runtime.steps.make_prefill_step with enc_embeds)")
 
 
 def _sync(dev: torch.device) -> None:
@@ -107,7 +119,8 @@ class BatchedServer:
     def __init__(self, cfg, params, max_context: int = 512, *,
                  fused: bool = True, device=None):
         self.device = resolve_device(device)
-        tf.check_supported(cfg)
+        if cfg.enc_dec:
+            raise ValueError(ENC_DEC_LOCKSTEP)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"server runs on {self.device}")
@@ -259,6 +272,10 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
+    if cfg.enc_dec:
+        ap.error(f"{cfg.name}: "
+                 + (ENC_DEC_LOCKSTEP if args.lockstep else
+                    "PagedServer does not support encoder-decoder archs"))
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
 

@@ -14,6 +14,9 @@ Params come from ``init_params`` with a ``torch.Generator`` seeded by
 parity tests pass bridged params instead).  Every step's time ends in a
 sync on the card.  It prints ``step N loss L gnorm G Tms`` every
 ``log_every`` steps and last ``trained <name>: loss a -> b in Ns``.
+``--arch qwen2-vl-2b`` trains on its default positions (mrope's three
+equal text streams); an encoder-decoder arch (whisper-large-v3) is
+refused, as the reference's loop has no encoder frames for it either.
 """
 from __future__ import annotations
 
@@ -55,6 +58,11 @@ def train(arch: str = "llama2-7b", tiny: bool = True, steps: int = 200,
     device tensors; seconds end in a sync on the card)."""
     dev = resolve_device(device)
     cfg = get_tiny(arch) if tiny else get_config(arch)
+    if cfg.enc_dec:
+        raise ValueError(f"{cfg.name}: the training loop feeds token batches "
+                         "only and has no encoder frames for an "
+                         "encoder-decoder arch (train it through "
+                         "runtime.steps.make_train_step with enc_embeds)")
     if params is None:
         params = tf.init_params(
             cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)

@@ -1,13 +1,15 @@
 """Shared building blocks: the linear chokepoint, norms, RoPE, loss, init.
 
-Port of the parts of ``repro/models/common.py`` the attention-decoder path
-uses.  Every weight multiplication goes through ``linear``, which dispatches
-on ``QuantizedLinear`` (the fused RHT + dequant GEMM) or multiplies a plain
+Port of the parts of ``repro/models/common.py`` the model paths use (RoPE,
+Qwen2-VL's multimodal RoPE and Whisper's sinusoidal table included).
+Every weight multiplication goes through ``linear``, which dispatches on
+``QuantizedLinear`` (the fused RHT + dequant GEMM) or multiplies a plain
 (d, c) tensor, so that RaanA calibration can tap per-layer statistics and
 inject output perturbations through a ``LinearCtx``.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import torch
@@ -104,6 +106,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple[int, ...],
+                theta: float = 1_000_000.0) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): x (B, S, H, hd), positions (3, B, S)
+    (temporal, height, width streams).  The hd/2 rotary channel pairs are
+    sectioned across the streams (channel pair j takes stream
+    ``repeat(arange(3), sections)[j]``), in ``apply_rope``'s half-split
+    convention; with three equal streams it equals ``apply_rope``."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)                           # (hd/2,)
+    ang_all = positions[..., None].to(torch.float32) * inv    # (3, B, S, hd/2)
+    # each pair's stream from the sections' boundaries, made on the device
+    # (no host copy, so a CUDA graph captures it)
+    pair = torch.arange(hd // 2, device=x.device)
+    sec_id = torch.zeros_like(pair)
+    for edge in itertools.accumulate(sections[:-1]):
+        sec_id = sec_id + (pair >= edge).to(pair.dtype)             # (hd/2,)
+    idx = sec_id.reshape(1, 1, 1, -1).expand(1, *ang_all.shape[1:])
+    ang = torch.gather(ang_all, 0, idx)[0]                    # (B, S, hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (n, d): [sin | cos] of
+    pos / 10000^(i / max(d/2 - 1, 1)), i < d/2 (the reference's divisor,
+    not the textbook d/2)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / max(d // 2 - 1, 1))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, device,

@@ -3,7 +3,19 @@ decode.py``): the lockstep path (``init_caches``, ``prefill``,
 ``decode_step``) and the paged steps (``_attn_qkv``, ``layer_decode_paged``
 / ``decode_step_paged``, ``layer_verify_paged`` / ``decode_verify_paged``
 and ``layer_prefill_chunk`` / ``prefill_chunk_paged``), for attention, MLA,
-RWKV6 and RG-LRU mixers and their mixes.
+RWKV6 and RG-LRU mixers and their mixes, with RoPE or Qwen2-VL's mrope.
+
+Whisper (encoder-decoder) runs the lockstep path only, as in the
+reference: ``prefill`` encodes the frames once and caches each decoder
+layer's cross-attention K/V (``xk`` / ``xv``, (B, T, KV, hd) in the
+dtype of the linear that made them, f32, whatever the self-attention
+cache's dtype), which every decode step reads whole; the sinusoidal table
+is added to the decoder's input, at ``pos`` by a tensor index in a decode
+step.  The paged steps refuse encoder-decoder archs in the reference's
+words.  mrope's paged steps take (B, W) positions and expand them to the
+three equal streams of text tokens (an ``expand``, no copy, so the CUDA
+graphs still capture); the lockstep ``prefill`` also takes (3, B, S)
+vision-grid positions, and its decode steps continue from ``pos``.
 
 Layers run in execution order over ``params["layers"]`` with layer i's
 mixer ``cfg.pattern[i]``: the order the reference's ``_apply_layers``
@@ -52,9 +64,12 @@ from . import attention as attnmod
 from . import mla as mlamod
 from . import rglru as rglrumod
 from . import rwkv6 as rwkvmod
-from .common import apply_norm, apply_rope, linear
+from .common import apply_norm, linear, sinusoidal_positions
 from .config import ModelConfig
-from .transformer import _ffn_apply, _qk_normalize, embed_tokens
+from .transformer import (_default_positions, _ffn_apply, _qk_normalize,
+                          embed_tokens, encode, rotate_qk)
+
+ENC_DEC_PAGED = "paged serving does not support encoder-decoder archs"
 
 
 def attn_capacity(cfg: ModelConfig, context: int) -> int:
@@ -67,7 +82,8 @@ def attn_capacity(cfg: ModelConfig, context: int) -> int:
 def init_layer_cache(cfg: ModelConfig, mixer: str, b: int, context: int,
                      dtype=torch.float32, device=None) -> dict:
     """One layer's lockstep cache (recurrent state is f32 whatever
-    ``dtype``, as the reference's)."""
+    ``dtype``, as the reference's).  An encoder-decoder layer's ``xk`` /
+    ``xv`` join it in ``prefill``."""
     if mixer == "attn":
         return {"kv": attnmod.KVCache.init(b, attn_capacity(cfg, context),
                                            cfg.n_kv, cfg.hd, dtype, device)}
@@ -137,7 +153,9 @@ def _ring_fill(cache: attnmod.KVCache, k: torch.Tensor,
 def layer_prefill(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
                   positions: torch.Tensor, cache: dict):
     """A whole sequence through one layer, filling its cache in place ->
-    (h, aux, cache).  h (B, S, d); positions (B, S)."""
+    (h, aux, cache).  h (B, S, d); positions (B, S), or (3, B, S) for
+    mrope; an encoder-decoder layer attends over the cache's ``xk`` /
+    ``xv`` after its self-attention."""
     b, s, _ = h.shape
     hn = apply_norm(cfg.norm, h, lp["ln1"])
     if mixer == "attn":
@@ -164,6 +182,12 @@ def layer_prefill(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
     else:
         raise ValueError(mixer)
     h = h + mix.to(h.dtype)
+    if cfg.enc_dec:
+        hx = apply_norm(cfg.norm, h, lp["ln_x"])
+        q = linear(lp["xattn"]["wq"], hx).reshape(b, s, cfg.n_heads, cfg.hd)
+        out = attnmod.flash_attention(q, cache["xk"], cache["xv"],
+                                      causal=False)
+        h = h + linear(lp["xattn"]["wo"], out.reshape(b, s, -1))
     h2 = apply_norm(cfg.norm, h, lp["ln2"])
     if mixer == "rwkv":
         y, aux = rwkvmod.channel_mix(lp["cm"], h2), 0.0
@@ -175,17 +199,32 @@ def layer_prefill(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            positions: torch.Tensor | None = None,
+            enc_embeds: torch.Tensor | None = None,
             context: int | None = None, caches: list | None = None):
     """Run the prefix -> (logits (B, S, V), caches, pos = S).  ``caches``
     (from ``init_caches`` for this batch and context) are filled in place;
     without them fresh f32 ones of ``context`` (default S) positions are
-    made."""
+    made.  ``positions``: (B, S), or mrope's (3, B, S) (default 0..S-1).
+    An encoder-decoder model encodes ``enc_embeds`` (B, T, d) and caches
+    each layer's cross K/V."""
     h = embed_tokens(cfg, params, tokens)
-    b, s, _ = h.shape
+    b, s, d = h.shape
     if caches is None:
         caches = init_caches(cfg, b, context or s, device=h.device)
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=h.device)[None, :].expand(b, s)
+    if cfg.enc_dec:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} needs encoder frames (enc_embeds)")
+        encoder_out = encode(cfg, params, enc_embeds)
+        t = encoder_out.shape[1]
+        for lp, cache in zip(params["layers"], caches):
+            for key, w in (("xk", "wk"), ("xv", "wv")):   # the linear's dtype
+                cache[key] = linear(lp["xattn"][w], encoder_out).reshape(
+                    b, t, cfg.n_kv, cfg.hd)
+    if cfg.pos == "sinusoidal":
+        h = h + sinusoidal_positions(s, d, h.device).to(h.dtype)[None]
+    if positions is None:
+        positions = _default_positions(cfg, b, s, h.device)
     for mx, lp, cache in zip(cfg.pattern, params["layers"], caches):
         h, _, _ = layer_prefill(cfg, mx, lp, h, positions, cache)
     h = apply_norm(cfg.norm, h, params["final_norm"])
@@ -195,12 +234,13 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 def layer_decode(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
                  cache: dict, pos: torch.Tensor) -> torch.Tensor:
     """One layer, one token: h (B, 1, d) at absolute position ``pos`` (a
-    one-element int32 tensor) -> h; the cache is advanced in place."""
+    one-element int32 tensor) -> h; the cache is advanced in place.  mrope
+    takes ``pos`` on all three streams, as the reference's step does."""
     b = h.shape[0]
     hn = apply_norm(cfg.norm, h, lp["ln1"])
     if mixer == "attn":
         p = lp["attn"]
-        posb = pos.reshape(1, 1).expand(b, 1)
+        posb = _streams(cfg, pos.reshape(1, 1).expand(b, 1))
         q, k, v = _attn_qkv(cfg, p, hn, posb)
         kvc = attnmod.cache_insert(cache["kv"], k, v, pos)
         out = attnmod.decode_attention(q, kvc, pos + 1)
@@ -220,6 +260,15 @@ def layer_decode(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
     else:
         raise ValueError(mixer)
     h = h + mix.to(h.dtype)
+    if cfg.enc_dec:
+        hx = apply_norm(cfg.norm, h, lp["ln_x"])
+        q = linear(lp["xattn"]["wq"], hx).reshape(b, 1, cfg.n_heads, cfg.hd)
+        xk = cache["xk"]
+        every = torch.full((1,), xk.shape[1], dtype=torch.int32,
+                           device=xk.device)        # all T frames valid
+        out = attnmod.decode_attention(
+            q, attnmod.KVCache(k=xk, v=cache["xv"]), every)
+        h = h + linear(lp["xattn"]["wo"], out.reshape(b, 1, -1))
     h2 = apply_norm(cfg.norm, h, lp["ln2"])
     if mixer == "rwkv":
         y = rwkvmod.channel_mix(lp["cm"], h2[:, 0],
@@ -234,8 +283,15 @@ def decode_step(cfg: ModelConfig, params: dict, caches: list,
                 tokens: torch.Tensor, pos: torch.Tensor):
     """One token for the whole batch: tokens (B, 1) -> (logits (B, V),
     caches).  ``pos`` (a one-element int32 tensor) is the number of tokens
-    already in the cache; reads nothing back to the host."""
+    already in the cache; reads nothing back to the host (the sinusoidal
+    row is taken by a tensor index, clamped to the table as the
+    reference's ``dynamic_slice`` is)."""
     h = embed_tokens(cfg, params, tokens)
+    if cfg.pos == "sinusoidal":
+        table = sinusoidal_positions(caches_context(caches, cfg),
+                                     h.shape[-1], h.device)
+        row = pos.reshape(1).to(torch.int64).clamp(0, table.shape[0] - 1)
+        h = h + table.index_select(0, row)[None].to(h.dtype)
     for mx, lp, cache in zip(cfg.pattern, params["layers"], caches):
         h = layer_decode(cfg, mx, lp, h, cache, pos)
     h = apply_norm(cfg.norm, h, params["final_norm"])
@@ -245,7 +301,8 @@ def decode_step(cfg: ModelConfig, params: dict, caches: list,
 def caches_context(caches: list, cfg: ModelConfig) -> int:
     """Positional extent a sinusoidal table needs (the reference's
     ``caches_context``): at least 2048, else the first cache's capacity
-    (an attention ring's or an MLA row's)."""
+    (an attention ring's or an MLA row's; a Whisper layer's ring comes
+    before its cross K/V, whose T frames do not count)."""
     for cache in caches:
         for t in cache_tensors(cache):
             if t.ndim >= 3:
@@ -256,18 +313,25 @@ def caches_context(caches: list, cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------- paged path
 
 
+def _streams(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    """(B, W) positions as ``_attn_qkv`` takes them: mrope's (3, B, W)
+    equal streams by an ``expand`` (no copy), else as they are."""
+    if cfg.pos == "mrope":
+        return positions[None].expand(3, *positions.shape)
+    return positions
+
+
 def _attn_qkv(cfg: ModelConfig, p: dict, hn: torch.Tensor,
               positions: torch.Tensor):
-    """q/k/v projections + qk-norm + rope.  hn (B, S, d); positions (B, S)."""
+    """q/k/v projections + qk-norm + rope / mrope.  hn (B, S, d);
+    positions (B, S), or (3, B, S) for mrope."""
     b, s, _ = hn.shape
     hd = cfg.hd
     q = linear(p["wq"], hn).reshape(b, s, -1, hd)
     k = linear(p["wk"], hn).reshape(b, s, -1, hd)
     v = linear(p["wv"], hn).reshape(b, s, -1, hd)
     q, k = _qk_normalize(p, q, k)
-    if cfg.pos == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = rotate_qk(cfg, q, k, positions)
     return q, k, v
 
 
@@ -278,7 +342,7 @@ def _attn_decode_paged(cfg: ModelConfig, p: dict, hn: torch.Tensor,
     """An attention layer's mixer, one token per slot: this token's K/V
     into the arena in place, then the paged read over the arena."""
     b = hn.shape[0]
-    q, k, v = _attn_qkv(cfg, p, hn, pos[:, None])
+    q, k, v = _attn_qkv(cfg, p, hn, _streams(cfg, pos[:, None]))
     block_size = cache["k"].shape[1]
     pb, off = attnmod.paged_write_indices(pos, ring_cap, block_tables,
                                           block_size, active)
@@ -338,6 +402,8 @@ def decode_step_paged(cfg: ModelConfig, params: dict, caches: list,
     """One decode step for the whole slot set: tokens (S, 1) -> (logits
     (S, V), caches).  Inactive slots run inert (embeddings zeroed, arena
     writes redirected to the null block, state rows kept)."""
+    if cfg.enc_dec:
+        raise NotImplementedError(ENC_DEC_PAGED)
     h = embed_tokens(cfg, params, tokens)
     h = torch.where(active[:, None, None], h, torch.zeros_like(h))
     for mx, lp, cache in zip(cfg.pattern, params["layers"], caches):
@@ -371,7 +437,7 @@ def layer_verify_paged(cfg: ModelConfig, lp: dict, h: torch.Tensor,
     positions = pos0[:, None] + torch.arange(w, dtype=torch.int32,
                                              device=h.device)[None, :]
     p = lp["attn"]
-    q, k, v = _attn_qkv(cfg, p, hn, positions)
+    q, k, v = _attn_qkv(cfg, p, hn, _streams(cfg, positions))
     block_size = cache["k"].shape[1]
     pb, off = attnmod.paged_multi_write_indices(positions, ring_cap,
                                                 block_tables, block_size,
@@ -408,6 +474,8 @@ def decode_verify_paged(cfg: ModelConfig, params: dict, caches: list,
     Inactive slots run inert (embeddings zeroed, writes on the null
     block).  Attention layers only: recurrent and MLA state cannot take
     back rejected tokens, so the engine bypasses speculation for them."""
+    if cfg.enc_dec:
+        raise NotImplementedError(ENC_DEC_PAGED)
     if any(mx != "attn" for mx in cfg.pattern):
         raise NotImplementedError(
             "speculative verify supports attention mixers only; recurrent "
@@ -452,7 +520,7 @@ def _attn_prefill_chunk(cfg: ModelConfig, p: dict, hn: torch.Tensor,
     b, c, _ = hn.shape
     chunk_pos = pos0.to(torch.int64) + torch.arange(c, dtype=torch.int64,
                                                     device=hn.device)
-    q, k, v = _attn_qkv(cfg, p, hn, chunk_pos[None])
+    q, k, v = _attn_qkv(cfg, p, hn, _streams(cfg, chunk_pos[None]))
     k_hist = attnmod.paged_gather_kv(cache["k"], bt_row[None])
     v_hist = attnmod.paged_gather_kv(cache["v"], bt_row[None])
     hist_pos = attnmod.paged_slot_positions(pos0[None], ring_cap[None],
@@ -529,6 +597,8 @@ def prefill_chunk_paged(cfg: ModelConfig, params: dict, caches: list,
     recurrent layers need) are 0-d int32 tensors, as the reference's
     ``_chunk`` takes ``jnp.int32`` scalars, so the chunk's shapes depend
     on C alone; ``active`` as ``layer_prefill_chunk``'s."""
+    if cfg.enc_dec:
+        raise NotImplementedError(ENC_DEC_PAGED)
     h = embed_tokens(cfg, params, tokens)
     for mx, lp, cache in zip(cfg.pattern, params["layers"], caches):
         h = layer_prefill_chunk(cfg, mx, lp, h, cache, pos0, bt_row,

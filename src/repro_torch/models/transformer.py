@@ -1,26 +1,33 @@
 """Parameter init, the sequence-mode forward and loss, and the layer blocks
 the serving path needs.
 
-Port of ``repro/models/transformer.py`` for the decoder-only families:
-``init_params`` for attention (GQA), MLA, RWKV6 and RG-LRU mixers with
-GLU/GELU, MoE (with DeepSeek-V2's shared experts) or RWKV channel-mix FFNs,
-``embed_tokens``, ``_qk_normalize``, ``_ffn_apply`` (returning the FFN
-output and the MoE aux loss), ``layer_seq`` per mixer, and the unrolled
-``forward`` / ``loss_fn`` with their ``LinearCtx`` taps (layer names
-``L{i}``, so tap names equal the reference's: ``L3.attn.wq``,
-``L3.mla.wq_a``, ``L3.tm.wr``, ``L3.rglru.wi``, ``L3.moe.swi``, ...,
-``lm_head``).  ``check_supported`` refuses the encoder-decoder (whisper)
-and mrope (qwen2-vl), which come with the next slice.
+Port of ``repro/models/transformer.py`` for every family of the
+reference's registry: ``init_params`` for attention (GQA), MLA, RWKV6 and
+RG-LRU mixers with GLU/GELU, MoE (with DeepSeek-V2's shared experts) or
+RWKV channel-mix FFNs, Whisper's encoder stack and its decoder layers'
+cross-attention (``ln_x`` / ``xattn``, no qk-norm); ``embed_tokens``,
+``_qk_normalize``, ``_ffn_apply`` (returning the FFN output and the MoE
+aux loss), ``layer_seq`` per mixer, ``encode`` (non-causal, sinusoidal
+positions, ``enc_norm``), and the unrolled ``forward`` / ``loss_fn`` with
+their ``LinearCtx`` taps (layer names ``L{i}`` and ``enc{i}``, so tap
+names equal the reference's: ``L3.attn.wq``, ``L3.xattn.wk``,
+``enc5.mlp.wi``, ``L3.mla.wq_a``, ``L3.tm.wr``, ``L3.rglru.wi``,
+``L3.moe.swi``, ..., ``lm_head``).  Positions are (B, S), or (3, B, S)
+for mrope (Qwen2-VL's temporal / height / width streams, which the vision
+stub would emit); Whisper adds a sinusoidal table to its decoder and
+encoder inputs instead.
 
 Param layout (the reference's, with the layers unrolled):
 
   params = {"embed": (V, d), "layers": [layer_0, ..., layer_{L-1}],
+            ["enc_layers": [enc_0, ..., enc_{E-1}], "enc_norm": {...},]
             "final_norm": {...}, "lm_head": (d, V)}
 
 PyTorch runs eagerly, so there is no scan and no stacked layer axis:
-``layers`` is a list of per-layer dicts in execution order, whether the
-model is fp or quantized, and layer i's mixer is ``cfg.pattern[i]``
-(``bridge.py`` unrolls the reference's stacked trees, period by period).
+``layers`` (and Whisper's ``enc_layers``) is a list of per-layer dicts in
+execution order, whether the model is fp or quantized, and layer i's mixer
+is ``cfg.pattern[i]`` (``bridge.py`` unrolls the reference's stacked
+trees, period by period).
 Weights come from a ``torch.Generator``; they differ from the reference's
 ``jax.random`` draws, so parity tests carry weights across instead.
 """
@@ -39,19 +46,21 @@ from . import mla as mlamod
 from . import moe as moemod
 from . import rglru as rglrumod
 from . import rwkv6 as rwkvmod
-from .common import (LinearCtx, apply_norm, apply_rope, cross_entropy,
-                     dense_init, linear, norm_params, rms_norm)
+from .common import (LinearCtx, apply_mrope, apply_norm, apply_rope,
+                     cross_entropy, dense_init, linear, norm_params, rms_norm,
+                     sinusoidal_positions)
 from .config import ModelConfig
 
 
-def _init_attn(cfg: ModelConfig, gen, device, dtype) -> dict:
+def _init_attn(cfg: ModelConfig, gen, device, dtype,
+               cross: bool = False) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
     p = {"wq": dense_init(gen, d, h * hd, device, dtype),
          "wk": dense_init(gen, d, kv * hd, device, dtype),
          "wv": dense_init(gen, d, kv * hd, device, dtype),
          "wo": dense_init(gen, h * hd, d, device, dtype,
                           scale=(h * hd) ** -0.5)}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
     return p
@@ -161,21 +170,12 @@ _MIXER_INIT = {"attn": ("attn", _init_attn), "mla": ("mla", _init_mla),
                "rwkv": ("tm", _init_rwkv_tm), "rglru": ("rglru", _init_rglru)}
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """The port runs every decoder-only family of the reference (attention,
-    MLA, RWKV6, RG-LRU and their mixes) with RoPE or no positions; the
-    encoder-decoder and mrope come with the next slice."""
-    if cfg.enc_dec or cfg.pos not in ("rope", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port does not run encoder-decoder models "
-            "(whisper) or mrope (qwen2-vl) yet; they come with the next "
-            "slice (ROADMAP Queue 1 item 5)")
-
-
 def init_layer(cfg: ModelConfig, generator: torch.Generator, device,
-               dtype=torch.float32, mixer: str = "attn") -> dict:
-    """One decoder layer's params for ``mixer``, drawn from ``generator``
-    on ``device``."""
+               dtype=torch.float32, mixer: str = "attn",
+               cross: bool = False) -> dict:
+    """One layer's params for ``mixer``, drawn from ``generator`` on
+    ``device``; ``cross`` adds a decoder layer's cross-attention block
+    (``ln_x``, ``xattn``)."""
     key, init = _MIXER_INIT[mixer]
     p = {"ln1": norm_params(cfg.norm, cfg.d_model, device),
          "ln2": norm_params(cfg.norm, cfg.d_model, device),
@@ -187,6 +187,9 @@ def init_layer(cfg: ModelConfig, generator: torch.Generator, device,
         p["cm"] = _init_rwkv_cm(cfg, generator, device, dtype)
     else:
         p["mlp"] = _init_ffn(cfg, generator, device, dtype)
+    if cross:
+        p["ln_x"] = norm_params(cfg.norm, cfg.d_model, device)
+        p["xattn"] = _init_attn(cfg, generator, device, dtype, cross=True)
     return p
 
 
@@ -194,12 +197,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None, dtype=torch.float32) -> dict:
     """Random-init params on ``device`` (CUDA unless ``"cpu"``), drawn from
     ``generator`` (a fresh one seeded 0 on that device if None)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    layers = [init_layer(cfg, generator, dev, dtype, mixer)
-              for mixer in cfg.pattern]
+    layers = [init_layer(cfg, generator, dev, dtype, mixer,
+                         cross=cfg.enc_dec) for mixer in cfg.pattern]
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=generator,
                         device=dev, dtype=torch.float32) * 0.02
     params: dict[str, Any] = {
@@ -208,6 +210,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         "final_norm": norm_params(cfg.norm, cfg.d_model, dev),
         "lm_head": dense_init(generator, cfg.d_model, cfg.vocab, dev, dtype),
     }
+    if cfg.enc_dec:
+        params["enc_layers"] = [init_layer(cfg, generator, dev, dtype)
+                                for _ in range(cfg.n_enc_layers)]
+        params["enc_norm"] = norm_params(cfg.norm, cfg.d_model, dev)
     return params
 
 
@@ -242,29 +248,49 @@ def _ffn_apply(cfg: ModelConfig, lp: dict, h2: torch.Tensor,
                           name=f"{name}.mlp"), 0.0
 
 
-def _attn_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
-              positions: torch.Tensor, ctx, name: str) -> torch.Tensor:
-    """Self-attention over a whole sequence x (B, S, d)."""
+def rotate_qk(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+              positions: torch.Tensor):
+    """RoPE on (B, S) positions or mrope on (3, B, S); other position
+    kinds leave q and k as they are."""
+    if cfg.pos == "rope":
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta))
+    if cfg.pos == "mrope":
+        return (apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta),
+                apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta))
+    return q, k
+
+
+def _attn_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, ctx,
+              name: str, *, causal: bool = True, window: int | None = None,
+              kv_src: torch.Tensor | None = None,
+              use_rope: bool = True) -> torch.Tensor:
+    """Attention over a whole sequence x (B, S, d): self-attention, or
+    cross-attention over ``kv_src`` (B, T, d) (non-causal, no rotation)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    src = x if kv_src is None else kv_src
+    sk = src.shape[1]
     q = linear(p["wq"], x, ctx, f"{name}.wq").reshape(b, s, h, hd)
-    k = linear(p["wk"], x, ctx, f"{name}.wk").reshape(b, s, kv, hd)
-    v = linear(p["wv"], x, ctx, f"{name}.wv").reshape(b, s, kv, hd)
+    k = linear(p["wk"], src, ctx, f"{name}.wk").reshape(b, sk, kv, hd)
+    v = linear(p["wv"], src, ctx, f"{name}.wv").reshape(b, sk, kv, hd)
     q, k = _qk_normalize(p, q, k)
-    if cfg.pos == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    out = attnmod.flash_attention(q, k, v, window=cfg.window)
+    if use_rope:
+        q, k = rotate_qk(cfg, q, k, positions)
+    out = attnmod.flash_attention(q, k, v, causal=causal, window=window)
     return linear(p["wo"], out.reshape(b, s, h * hd), ctx, f"{name}.wo")
 
 
 def layer_seq(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
-              positions: torch.Tensor, ctx=None, name: str = "layer"):
-    """One decoder layer in sequence mode (the reference's ``layer_seq``)
-    -> (h, aux_loss)."""
+              positions, ctx=None, name: str = "layer",
+              encoder_out: torch.Tensor | None = None, causal: bool = True):
+    """One layer in sequence mode (the reference's ``layer_seq``) ->
+    (h, aux_loss).  ``causal=False``: an encoder layer (no window);
+    ``encoder_out``: a decoder layer's cross-attention source."""
     hn = apply_norm(cfg.norm, h, lp["ln1"])
     if mixer == "attn":
-        mix = _attn_seq(cfg, lp["attn"], hn, positions, ctx, f"{name}.attn")
+        mix = _attn_seq(cfg, lp["attn"], hn, positions, ctx, f"{name}.attn",
+                        causal=causal, window=cfg.window if causal else None)
     elif mixer == "mla":
         mix = mlamod.mla_full(lp["mla"], hn, cfg.mla, positions, ctx,
                               f"{name}.mla")
@@ -276,6 +302,10 @@ def layer_seq(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
     else:
         raise ValueError(mixer)
     h = h + mix.to(h.dtype)
+    if encoder_out is not None:
+        hx = apply_norm(cfg.norm, h, lp["ln_x"])
+        h = h + _attn_seq(cfg, lp["xattn"], hx, None, ctx, f"{name}.xattn",
+                          causal=False, kv_src=encoder_out, use_rope=False)
     h2 = apply_norm(cfg.norm, h, lp["ln2"])
     y, aux = _ffn_apply(cfg, lp, h2, ctx, name)
     return h + y.to(h.dtype), aux
@@ -283,28 +313,64 @@ def layer_seq(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
 
 def _default_positions(cfg: ModelConfig, b: int, s: int, device,
                        offset: int = 0) -> torch.Tensor:
+    """0..S-1 from ``offset``: (B, S), or (3, B, S) for mrope (the three
+    streams equal, as text tokens' are)."""
     pos = offset + torch.arange(s, dtype=torch.int32, device=device)[None, :]
+    if cfg.pos == "mrope":
+        return pos[None].expand(3, b, s)
     return pos.expand(b, s)
 
 
+def _layer(remat: bool, *args):
+    """``layer_seq(*args)``, under ``torch.utils.checkpoint`` with
+    ``remat``."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(layer_seq, *args,
+                                                 use_reentrant=False)
+    return layer_seq(*args)
+
+
+def encode(cfg: ModelConfig, params: dict, enc_embeds: torch.Tensor,
+           ctx: Optional[LinearCtx] = None,
+           remat: bool = False) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings (B, T, d): the
+    sinusoidal table added, ``enc_layers`` non-causal (taps ``enc{i}``),
+    then ``enc_norm``."""
+    _, t, d = enc_embeds.shape
+    h = enc_embeds + sinusoidal_positions(t, d, enc_embeds.device).to(
+        enc_embeds.dtype)[None]
+    for i, lp in enumerate(params["enc_layers"]):
+        h, _ = _layer(remat, cfg, "attn", lp, h, None, ctx, f"enc{i}", None,
+                      False)
+    return apply_norm(cfg.norm, h, params["enc_norm"])
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            positions: torch.Tensor | None = None,
+            encoder_out: torch.Tensor | None = None,
+            enc_embeds: torch.Tensor | None = None,
             ctx: Optional[LinearCtx] = None, remat: bool = False):
     """Sequence-mode forward, layers unrolled -> (logits (B, S, V), aux).
 
+    ``positions``: (B, S), or (3, B, S) for mrope (default 0..S-1).  An
+    encoder-decoder model takes ``encoder_out`` or encodes ``enc_embeds``.
     ``remat``: each layer under ``torch.utils.checkpoint`` (non-reentrant),
     so its activations are recomputed in the backward instead of kept; the
     numbers do not change."""
     h = embed_tokens(cfg, params, tokens)
-    b, s, _ = h.shape
-    positions = _default_positions(cfg, b, s, h.device)
+    b, s, d = h.shape
+    if cfg.enc_dec and encoder_out is None:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} needs encoder frames (enc_embeds)")
+        encoder_out = encode(cfg, params, enc_embeds, ctx, remat)
+    if cfg.pos == "sinusoidal":
+        h = h + sinusoidal_positions(s, d, h.device).to(h.dtype)[None]
+    if positions is None:
+        positions = _default_positions(cfg, b, s, h.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, (mixer, lp) in enumerate(zip(cfg.pattern, params["layers"])):
-        if remat:
-            h, aux = torch.utils.checkpoint.checkpoint(
-                layer_seq, cfg, mixer, lp, h, positions, ctx, f"L{i}",
-                use_reentrant=False)
-        else:
-            h, aux = layer_seq(cfg, mixer, lp, h, positions, ctx, f"L{i}")
+        h, aux = _layer(remat, cfg, mixer, lp, h, positions, ctx, f"L{i}",
+                        encoder_out)
         aux_total = aux_total + aux
     h = apply_norm(cfg.norm, h, params["final_norm"])
     return linear(params["lm_head"], h, ctx, "lm_head"), aux_total
@@ -315,9 +381,16 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             remat: bool = False) -> torch.Tensor:
     """Mean next-token NLL (+ the MoE aux loss, which calibration and
     training differentiate through).  batch: tokens (B, S+1) [, mask (B,
-    S)]; ``remat`` as ``forward``'s."""
+    S), positions (B, S+1) or mrope's (3, B, S+1), cut to the inputs' S;
+    enc_embeds (B, T, d)]; ``remat`` as ``forward``'s."""
     tokens = batch["tokens"]
-    logits, aux = forward(cfg, params, tokens[:, :-1], ctx=ctx, remat=remat)
+    inputs = tokens[:, :-1]
+    positions = batch.get("positions")
+    if positions is not None:
+        positions = positions[..., :inputs.shape[1]]
+    logits, aux = forward(cfg, params, inputs, positions=positions,
+                          enc_embeds=batch.get("enc_embeds"), ctx=ctx,
+                          remat=remat)
     loss = cross_entropy(logits, tokens[:, 1:], batch.get("mask"))
     if cfg.moe is not None:
         loss = loss + cfg.moe.aux_coef * aux

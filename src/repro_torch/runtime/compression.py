@@ -11,11 +11,12 @@
 
 "One scale per tensor" means per tensor of the reference's layout, which
 stacks the decoder layers: its ``layers[0]["attn"]["wq"]`` is one (L, d, c)
-tensor, so a weight's copies in all L layers share one scale.  The port's
-layers are a list of per-layer trees, so under a ``"layers"`` list a leaf
-is quantized with the scale of it and its counterparts in the other layers
-(the max over all of them): the same codes as the reference's.  Every
-other leaf has its own scale.
+tensor, so a weight's copies in all L layers share one scale, and so does
+Whisper's encoder stack (``enc_layers[0]``).  The port's layers are lists
+of per-layer trees, so under a ``"layers"`` or ``"enc_layers"`` list a
+leaf is quantized with the scale of it and its counterparts in the list's
+other layers (the max over all of them): the same codes as the
+reference's.  Every other leaf has its own scale.
 
 The reference's ``int8_psum`` (an all-reduce of int8 payloads over a mesh
 axis) comes with tensor parallelism (ROADMAP Queue 1 item 6).
@@ -47,21 +48,27 @@ def _roundtrip(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def _map_groups(fn: Callable[[list], list], tree_):
-    """``fn`` over the groups of leaves that share a scale (a list in, a
-    list of the same length out) -> a tree of ``tree_``'s structure."""
-    layers = tree_.get("layers") if isinstance(tree_, dict) else None
-    if not (isinstance(layers, list) and layers):
-        return tree_map(lambda g: fn([g])[0], tree_)
+STACKED = ("layers", "enc_layers")   # the reference's stacked layer lists
+
+
+def _map_layers(fn: Callable[[list], list], layers: list) -> list:
+    """``fn`` over each leaf's copies in all ``layers`` together."""
     flats = [flatten(lp) for lp in layers]
     if any(td != flats[0][1] for _, td in flats):
         raise ValueError("layers of different structure")
     cols = [fn([leaf[j] for leaf, _ in flats])
             for j in range(len(flats[0][0]))]
-    out = {k: _map_groups(fn, v) for k, v in tree_.items() if k != "layers"}
-    out["layers"] = [unflatten(td, [col[i] for col in cols])
-                     for i, (_, td) in enumerate(flats)]
-    return out
+    return [unflatten(td, [col[i] for col in cols])
+            for i, (_, td) in enumerate(flats)]
+
+
+def _map_groups(fn: Callable[[list], list], tree_):
+    """``fn`` over the groups of leaves that share a scale (a list in, a
+    list of the same length out) -> a tree of ``tree_``'s structure."""
+    if not isinstance(tree_, dict):
+        return tree_map(lambda g: fn([g])[0], tree_)
+    return {k: (_map_layers(fn, v) if k in STACKED and isinstance(v, list)
+                and v else _map_groups(fn, v)) for k, v in tree_.items()}
 
 
 def _int8_group(gs: list) -> list:

@@ -43,9 +43,13 @@ def _value_and_grad(cfg: ModelConfig, params, batch: dict, remat: bool):
 
 
 def _split(batch: dict, microbatches: int) -> list[dict]:
-    """The batch's leading axis cut into ``microbatches`` equal parts."""
-    parts = {k: v.reshape(microbatches, -1, *v.shape[1:])
-             for k, v in batch.items()}
+    """The batch cut into ``microbatches`` equal parts on its batch axis:
+    the leading one, mrope's (3, B, S) ``positions`` their second."""
+    def cut(k, v):
+        if k == "positions" and v.dim() == 3:
+            return v.reshape(3, microbatches, -1, *v.shape[2:]).transpose(0, 1)
+        return v.reshape(microbatches, -1, *v.shape[1:])
+    parts = {k: cut(k, v) for k, v in batch.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(microbatches)]
 
 
@@ -56,13 +60,13 @@ def make_train_step(cfg: ModelConfig, *, microbatches: int = 1,
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics) with metrics ``loss``, ``grad_norm`` and ``lr``.
 
-    ``batch``: ``tokens`` (B, S+1) [, ``mask`` (B, S)] on the params'
-    device.  Gradient accumulation: with ``microbatches`` > 1 the batch is
-    split on its leading axis, each part runs one forward and backward, the
-    f32 gradients and the losses are summed in order and scaled by ``1 /
-    microbatches``.  The learning rate is the cosine schedule at the step
+    ``batch``: ``tokens`` (B, S+1) [, ``mask`` (B, S), ``positions``
+    (B, S+1) or mrope's (3, B, S+1), ``enc_embeds`` (B, T, d)] on the
+    params' device.  Gradient accumulation: with ``microbatches`` > 1 the
+    batch is split on its batch axis, each part runs one forward and
+    backward, the f32 gradients and the losses are summed in order and
+    scaled by ``1 / microbatches``.  The learning rate is the cosine schedule at the step
     the optimizer state holds before the update (0 for the first)."""
-    tf.check_supported(cfg)
     if grad_compression not in (None, "int8"):
         raise ValueError(f"grad_compression {grad_compression!r}: None or "
                          "'int8'")
@@ -96,25 +100,22 @@ def make_train_step(cfg: ModelConfig, *, microbatches: int = 1,
     return train_step
 
 
-def _unported_inputs(batch: dict) -> None:
-    extra = {"positions", "enc_embeds"} & set(batch)
-    if extra:
-        raise NotImplementedError(
-            f"batch keys {sorted(extra)}: mrope and encoder-decoder models "
-            "are not ported yet (ROADMAP Queue 1 item 5)")
-
-
 def make_prefill_step(cfg: ModelConfig, context: int,
                       cache_dtype=torch.bfloat16):
     """prefill_step(params, batch) -> (last position's logits (B, V), the
-    lockstep caches of ``context`` positions in ``cache_dtype``)."""
+    lockstep caches of ``context`` positions).  ``batch``: ``tokens`` (B,
+    S) [, ``positions`` (B, S) or mrope's (3, B, S), ``enc_embeds`` (B, T,
+    d) for an encoder-decoder model].  The self-attention caches are in
+    ``cache_dtype``; Whisper's cross K/V keep their linear's dtype (f32),
+    as the reference's do."""
     def prefill_step(params, batch):
-        _unported_inputs(batch)
         tokens = batch["tokens"]
         caches = decmod.init_caches(cfg, tokens.shape[0], context,
                                     dtype=cache_dtype, device=tokens.device)
-        logits, caches, _ = decmod.prefill(cfg, params, tokens,
-                                           context=context, caches=caches)
+        logits, caches, _ = decmod.prefill(
+            cfg, params, tokens, positions=batch.get("positions"),
+            enc_embeds=batch.get("enc_embeds"), context=context,
+            caches=caches)
         return logits[:, -1, :], caches
     return prefill_step
 

@@ -1,7 +1,10 @@
 """Continuous-batching LM serving engine over the paged KV-cache pool.
 
 Port of ``repro/serve/engine.py`` for every decoder family: attention
-(dense or MoE FFNs), MLA with shared experts, RWKV6 and the RG-LRU hybrid.
+(dense or MoE FFNs, RoPE or Qwen2-VL's mrope), MLA with shared experts,
+RWKV6 and the RG-LRU hybrid.  Encoder-decoder archs (Whisper) are refused,
+as the reference refuses them: they serve through the lockstep steps of
+``runtime/steps.py``.
 A sliding-window model's requests hold at most a window of blocks and
 reuse them as a ring; MLA and recurrent layers keep one row per slot in
 the pool, which a prompt chunk starts from zero (``pos0 == 0``) and a
@@ -93,7 +96,6 @@ from repro_torch.kernels.paged_attention import ops as pops
 from repro_torch.kernels.qmatmul import ops as qops
 from repro_torch.models import decode as decmod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_supported
 
 from . import graphs
 from .pool import (BlockAllocator, PoolConfig, PrefixCache, init_pool_caches,
@@ -262,7 +264,9 @@ class PagedServer:
             raise ValueError("paged_kernel=True needs the card: the "
                              "flash-decode kernel has no host version")
         self.paged_kernel = paged_kernel
-        check_supported(cfg)
+        if cfg.enc_dec:
+            raise ValueError(
+                "PagedServer does not support encoder-decoder archs")
         if speculate < 0:
             raise ValueError(f"speculate must be >= 0 (got {speculate})")
         if speculate and draft_params is None:

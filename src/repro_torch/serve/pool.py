@@ -264,7 +264,10 @@ def init_pool_caches(cfg: ModelConfig, pool: PoolConfig, device) -> list:
     ``pool.kv_dtype``, or another mixer's per-slot rows (``pool.max_slots``
     of them; an MLA row holds ``pool.max_context`` positions), in
     ``pool.kv_dtype`` but for the recurrent states, which are f32 as in
-    the reference."""
+    the reference.  Encoder-decoder archs are refused, as the reference's
+    pool refuses them."""
+    if cfg.enc_dec:
+        raise ValueError("paged pool does not support encoder-decoder archs")
     shape = (pool.resolved_num_blocks(cfg), pool.block_size, cfg.n_kv, cfg.hd)
 
     def one(mixer):

@@ -194,5 +194,7 @@ def test_batched_server_refuses_what_the_port_cannot_serve():
     np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="unknown mixer"):
         tdec.init_layer_cache(cfg, "xattn", 1, 8)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        BatchedServer(cfg.with_(pos="mrope"), params, device="cpu")
+    # Whisper has no encoder frames to pass here (nor in the reference's
+    # BatchedServer): refused at construction
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        BatchedServer(get_tiny("whisper-large-v3"), params, device="cpu")

@@ -261,7 +261,8 @@ def test_train_refuses_params_on_another_device(setups):
 def test_prefill_and_serve_steps_match_reference(setups):
     """``make_prefill_step`` / ``make_serve_step``: the last position's
     logits after a 12-token prefix, then one decode step, against the
-    reference's steps (f32 caches), within rtol 1e-4 of max |logit|."""
+    reference's steps (f32 caches), within rtol 1e-4 of max |logit|; then
+    tiny qwen2-vl's prefill step on an mrope (3, B, S) position batch."""
     jcfg, tcfg, jparams, batches = setups["llama2-7b"]
     toks = batches[0][:2, :12]
     jpre = jsteps.make_prefill_step(jcfg, 16, cache_dtype=jnp.float32)
@@ -280,6 +281,17 @@ def test_prefill_and_serve_steps_match_reference(setups):
                                            torch.from_numpy(nxt), 12)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=0,
                                atol=1e-4 * float(jnp.abs(jlog).max()))
-    with pytest.raises(NotImplementedError, match="mrope"):
-        tsteps.make_prefill_step(tcfg, 16)(
-            tparams, {"tokens": torch.from_numpy(toks), "positions": None})
+    # mrope (tiny qwen2-vl): a (3, B, S) batch whose height and width
+    # streams differ, as a vision grid's do
+    mcfg = tiny("qwen2-vl-2b")
+    mparams = _numpy_params(mcfg, seed=2)
+    pos = np.broadcast_to(np.arange(12, dtype=np.int32), (3, 2, 12)).copy()
+    pos[1, :, :4], pos[2, :, :4] = [0, 0, 1, 1], [0, 1, 0, 1]
+    jlast, _ = jsteps.make_prefill_step(mcfg, 16, cache_dtype=jnp.float32)(
+        mparams, {"tokens": jnp.asarray(toks), "positions": jnp.asarray(pos)})
+    tlast, _ = tsteps.make_prefill_step(
+        get_tiny("qwen2-vl-2b"), 16, cache_dtype=torch.float32)(
+            _to_port(mparams), {"tokens": torch.from_numpy(toks),
+                                "positions": torch.from_numpy(pos)})
+    np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast), rtol=0,
+                               atol=1e-4 * float(jnp.abs(jlast).max()))
