@@ -19,7 +19,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      sums as the fused GEMM launches it; against its host walk too; two
      calls bitwise equal; an empty kernel timed as the launch floor), the
      RaBitQ code search (two calls bitwise equal; its division held against
-     IEEE division on sampled mantissa pairs),
+     IEEE division on sampled mantissa pairs; also at
+     ``quantize_params_uniform``'s 8 candidates at qwen3-0.6b's shapes),
      paged flash-decode (R up to 35, one split and several, two calls
      bitwise equal; speculation's W = 2 and 4, Mixtral's verify over a
      wrapped ring; timed at llama2's, Mixtral's and a serving mix's
@@ -33,8 +34,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      at qwen2-vl's G = 6 (R = 6 at decode, R = 24 in a W = 4 verify), and
      the flash-attention forward at Mixtral's and llama2's shapes (also
      against its host tile walk);
-  4. quantize: llama2-7b at its published width (32 layers, d_model 4096,
-     32 heads, d_ff 11008, vocab 32000) in fp32, random weights from a
+  4. quantize: llama2-7b at its published width (d_model 4096, 32 heads,
+     d_ff 11008, vocab 32000; LLAMA2_LAYERS of its 32 layers in the whole
+     run, all 32 in the single-phase modes) in fp32, random weights from a
      seeded generator on the card; calibrated on the paper's zero-shot
      sentence (256 tokens), bit widths from AllocateBits at 4.0 average
      bits, every linear RaBitQ-H quantized with the code-search kernel, and
@@ -125,6 +127,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      model calibrated on 5 corpus batches, quantized at 4.0 bits (code
      search counted), its fp32 and quantized perplexity, and served (4
      corpus prompts) by graph and by eager kernels with the same tokens;
+     Table 1's protocol on it (``baselines_phase``): the layer Hessians
+     of the calibration batches, RTN, GPTQ and AWQ at group 128 and
+     uniform RaanA (``quantize_params_uniform``, its 168 code searches
+     counted) at 4 bits, each one's average bits, seconds and
+     perplexity; RTN, AWQ and GPTQ's row loop on L0.attn.wq on the card
+     against the host (bit for bit, GPTQ with the same factor), the
+     factor's seconds on the host and by cuSOLVER, and the codes that
+     cuSOLVER's factor would move, counted; the uniform model and GPTQ's
+     reconstruction served by graph and eagerly, tokens identical
+     (paths ``qwen3_uniform`` and ``qwen3_gptq``);
  14. qwen2-vl-2b (``qwen2_vl_phase``) at its published width and depth (28
      layers, mrope): quantized at 4.0 bits, served through the paged
      engine by graph, eagerly and unfused (a request sharing 256 prompt
@@ -156,8 +168,9 @@ held to (see ``spec_main``); ``--frontdoor`` builds every kernel and runs
 only phases 9-11, after the quantizations they need (see
 ``frontdoor_main``); ``--train`` builds every kernel and runs only phase
 13, with TRAIN_STEPS of training, the example's table of perplexities at
-4.3 / 3.3 / 2.3 bits and a 2.2-bit draft's acceptance on the trained
-weights (see ``train_main``); ``--mrope-whisper`` builds every kernel
+4.3 / 3.3 / 2.3 bits, Table 1's baselines and uniform RaanA at 2 / 3 / 4
+bits and a 2.2-bit draft's acceptance on the trained weights (see
+``train_main``); ``--mrope-whisper`` builds every kernel
 and runs only phase 14, Whisper at its full 32 + 32 layers (see
 ``mrope_whisper_main``).
 
@@ -193,6 +206,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import tree as ptree  # noqa: E402
+from repro_torch.baselines import apply as bapply  # noqa: E402
+from repro_torch.baselines import quant_baselines as qb  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import calibrate as cal  # noqa: E402
@@ -284,6 +299,13 @@ OBJ_TIE = 1e-5
 # step's largest |logit| (f32 reassociation across 32 layers).
 GAP_TOL = 1e-3
 N_CAND = 12
+# quantize_params_uniform's candidate count, checked at qwen3-0.6b's code
+# searches (no outlier split there, so d_keep = d): wq, wk / wv, the
+# attention's wo, wi and the FFN's wo
+UNIFORM_N_CAND = pipe.UNIFORM_N_CANDIDATES
+UNIFORM_SEARCH_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024),
+                         (1024, 6144), (3072, 1024)]
+UNIFORM_SEARCH_TIMED = [(1024, 2048), (3072, 1024)]   # wq, the FFN's wo
 # the default run checks the code search's division on every x mantissa
 # against every DIV_STRIDE-th delta mantissa
 DIV_STRIDE = 1024
@@ -441,15 +463,18 @@ MOE_LONG_PROMPT = 4160
 
 
 # llama2-7b's depth in the whole run: LLAMA2_LAYERS of its 32 layers
-# (published widths), to pay for the three family phases inside the
-# script's 1050 s aim.  On an H100 80GB HBM3 at 700 W its phases took 737
-# s of a 1110.4 s run at 32 layers (quantize 187.5, serve 171.0, prefix
-# 72.8, speculation 219.3, gather 39.3, front door 28.9, lockstep 16.6)
-# and 382 s of a 793.8 s run at 16 (90.2, 91.3, 37.6, 117.2, 21.1, 16.9,
-# 8.2; the three family phases 13.0 + 16.8 + 14.3).  The single-phase
-# modes (--prefix-cache, --speculation, --frontdoor, --profiles) keep all
-# 32.
-LLAMA2_LAYERS = 16
+# (published widths), to pay for the later phases inside the script's
+# 1050 s aim.  On an H100 80GB HBM3 at 700 W its phases took 737 s of a
+# 1110.4 s run at 32 layers (quantize 187.5, serve 171.0, prefix 72.8,
+# speculation 219.3, gather 39.3, front door 28.9, lockstep 16.6), 382 s
+# of a 793.8 s run at 16 (90.2, 91.3, 37.6, 117.2, 21.1, 16.9, 8.2), and
+# 473 s of a 1229.7 s run at 16 on a slower host (98.5, 117.6, 50.2,
+# 157.0, 22.7, 18.0, 8.9): there the kernels' build and the phases whose
+# code was the same as in the runs before and after it (Mixtral, the cache
+# families, Whisper, the dense configs) took 1.1-1.55 x their times.  At 8
+# (193 s) such a host still finishes near 1020 s.  The single-phase modes
+# (--prefix-cache, --speculation, --frontdoor, --profiles) keep all 32.
+LLAMA2_LAYERS = 8
 _LLAMA2_DEPTH = [32]          # main() sets LLAMA2_LAYERS for the whole run
 
 
@@ -798,14 +823,15 @@ def launch_floor_ms(dev) -> float:
 # -------------------------------------------------------------- code search
 
 
-def plain_objectives(w: torch.Tensor, bits: int) -> torch.Tensor:
+def plain_objectives(w: torch.Tensor, bits: int,
+                     n_cand: int = N_CAND) -> torch.Tensor:
     """(S, c) objectives -<w,v>^2/<v,v> of every candidate step, computed as
     the plain version computes them."""
     levels = (1 << bits) - 1
     c_b = levels / 2.0
     absmax = torch.amax(torch.abs(w), dim=0)
     delta0 = torch.clamp(absmax, min=1e-30) / torch.full_like(absmax, c_b)
-    scales = torch.from_numpy(rabitq.candidate_scales(N_CAND)).to(w.device)
+    scales = torch.from_numpy(rabitq.candidate_scales(n_cand)).to(w.device)
     errs = []
     for s in scales:
         v = torch.clamp(torch.round(w / (delta0 * s) + c_b), 0.0,
@@ -815,12 +841,12 @@ def plain_objectives(w: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.stack(errs)
 
 
-def compare_search(w, codes, rescale, choice, bits) -> dict:
+def compare_search(w, codes, rescale, choice, bits, n_cand=N_CAND) -> dict:
     """Kernel output (codes, rescale, choice) against the plain version on
     the same w: identical codes and close rescales where the choice agrees,
     a near-tie where it does not."""
-    pc, pr = rq_ops.quantize_ref(w, bits, N_CAND)
-    errs = plain_objectives(w, bits)
+    pc, pr = rq_ops.quantize_ref(w, bits, n_cand)
+    errs = plain_objectives(w, bits, n_cand)
     best = torch.argmin(errs, dim=0)
     same = choice.to(torch.int64) == best
     cols_equal = (codes == pc).all(dim=0)
@@ -859,29 +885,11 @@ def check_code_search(gen, dev) -> dict:
     scalar_div = torch.clamp(w.abs().amax(0), min=1e-30) / 7.5
     tensor_div = (torch.clamp(w.abs().amax(0), min=1e-30)
                   / torch.full((512,), 7.5, device=dev))
-    out = {"differing_columns": 0, "columns": 0, "max_objective_gap": 0.0,
-           "max_rescale_abs_err": 0.0, "max_rescale_rel_err": 0.0,
-           "scalar_vs_tensor_division_differ":
-               int((scalar_div != tensor_div).sum())}
-    for d, c in SEARCH_SHAPES:
-        # columns of different scale, as rotated weights have
-        w = (torch.randn((d, c), generator=gen, device=dev)
-             * (torch.rand((1, c), generator=gen, device=dev) + 0.1))
-        for bits in GEMM_BITS:
-            codes, rescale, choice = rq_ops.quantize_cuda(
-                w, bits, N_CAND, return_choice=True)
-            again = rq_ops.quantize_cuda(w, bits, N_CAND, return_choice=True)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(
-                (codes, rescale, choice), again)),
-                f"code search d={d} c={c} bits={bits}: two calls differ")
-            res = compare_search(w, codes, rescale, choice, bits)
-            out["differing_columns"] += res["differing_columns"]
-            out["columns"] += c
-            for k in ("max_objective_gap", "max_rescale_abs_err",
-                      "max_rescale_rel_err"):
-                out[k] = max(out[k], res[k])
-        del w
+    out = search_cases(gen, dev, SEARCH_SHAPES, N_CAND)
+    out["scalar_vs_tensor_division_differ"] = int(
+        (scalar_div != tensor_div).sum())
+    out["uniform"] = search_cases(gen, dev, UNIFORM_SEARCH_SHAPES,
+                                  UNIFORM_N_CAND)
     # the kernel's division against IEEE division: every x mantissa in
     # [1, 2) against every DIV_STRIDE-th delta mantissa (chip_smoke.py
     # --division-sweep takes all 2^23)
@@ -903,39 +911,81 @@ def check_code_search(gen, dev) -> dict:
         f"{out['max_rescale_rel_err']:.2e}; plain version identical on card "
         f"and host; absmax / 7.5 by scalar vs by tensor differ in "
         f"{out['scalar_vs_tensor_division_differ']} of 512 columns")
+    uni = out["uniform"]
+    log(f"rabitq_quant at {UNIFORM_N_CAND} candidates (quantize_params_"
+        f"uniform): {len(UNIFORM_SEARCH_SHAPES) * len(GEMM_BITS)} cases "
+        f"((d, c) {UNIFORM_SEARCH_SHAPES} x bits 1-8); two calls bitwise "
+        f"equal; codes identical where the step agrees; "
+        f"{uni['differing_columns']} of {uni['columns']} columns chose "
+        f"another step, all near-ties (max objective gap "
+        f"{uni['max_objective_gap']:.2e}); rescale max rel err "
+        f"{uni['max_rescale_rel_err']:.2e}")
     return out
 
 
-def search_bound(d, c):
+def search_cases(gen, dev, shapes, n_cand) -> dict:
+    """The code-search kernel at ``n_cand`` candidates against its plain
+    version on seeded weights of each (d, c) in ``shapes``, bits 1-8: two
+    calls bitwise equal, then ``compare_search``; the worst case's
+    numbers."""
+    out = {"n_candidates": n_cand, "cases": 0, "differing_columns": 0,
+           "columns": 0, "max_objective_gap": 0.0,
+           "max_rescale_abs_err": 0.0, "max_rescale_rel_err": 0.0}
+    for d, c in shapes:
+        # columns of different scale, as rotated weights have
+        w = (torch.randn((d, c), generator=gen, device=dev)
+             * (torch.rand((1, c), generator=gen, device=dev) + 0.1))
+        for bits in GEMM_BITS:
+            codes, rescale, choice = rq_ops.quantize_cuda(
+                w, bits, n_cand, return_choice=True)
+            again = rq_ops.quantize_cuda(w, bits, n_cand, return_choice=True)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(
+                (codes, rescale, choice), again)),
+                f"code search d={d} c={c} bits={bits} candidates={n_cand}: "
+                f"two calls differ")
+            res = compare_search(w, codes, rescale, choice, bits, n_cand)
+            out["cases"] += 1
+            out["differing_columns"] += res["differing_columns"]
+            out["columns"] += c
+            for k in ("max_objective_gap", "max_rescale_abs_err",
+                      "max_rescale_rel_err"):
+                out[k] = max(out[k], res[k])
+        del w
+    return out
+
+
+def search_bound(d, c, n_cand=N_CAND):
     """w read once, codes written once; issue slots on the CUDA cores: per
     element and candidate the division (a multiply and two fmas from the
     column's reciprocal), the add of c_b, rint, the clamp (2), the subtract
     and the two sums' fmas (10); per element absmax (1) and the chosen
     step's code (8)."""
     return bound(d * c * 4 + d * c + 4 * c,
-                 ((10 * N_CAND + 9) * d * c, SIMT_ISSUE))
+                 ((10 * n_cand + 9) * d * c, SIMT_ISSUE))
 
 
-def time_code_search(gen, dev, d, c, bits=4, plain=True) -> dict:
+def time_code_search(gen, dev, d, c, bits=4, plain=True,
+                     n_cand=N_CAND) -> dict:
     """Kernel and plain times at one weight shape (w is 67-470 MB, past
     L2): ``ms`` by CUDA-graph replay, ``call_ms`` eager calls back to
     back."""
     w = torch.randn((d, c), generator=gen, device=dev)
 
     def kernel():
-        return rq_ops.quantize_cuda(w, bits, N_CAND)
+        return rq_ops.quantize_cuda(w, bits, n_cand)
     call_ms = time_ms(kernel, iters=5, warmup=1)
     k_ms = graph_ms(kernel, iters=5)
     # one candidate: the three passes over w with almost no sweep
     one_ms = graph_ms(lambda: rq_ops.quantize_cuda(w, bits, 1), iters=5)
-    p_ms = (time_ms(lambda: rq_ops.quantize_ref(w, bits, N_CAND), iters=3,
+    p_ms = (time_ms(lambda: rq_ops.quantize_ref(w, bits, n_cand), iters=3,
                     warmup=1) if plain else None)
     del w
-    return {"d": d, "c": c, "bits": bits,
+    return {"d": d, "c": c, "bits": bits, "n_candidates": n_cand,
             "slices": rq_ops.search_plan(d), "ms": k_ms,
             "call_ms": call_ms, "one_candidate_ms": one_ms,
             "plain_ms": p_ms, "library_ms": None,
-            **search_bound(d, c)}
+            **search_bound(d, c, n_cand)}
 
 
 # ------------------------------------------------------- paged attention
@@ -1758,16 +1808,22 @@ def serve(cfg, params, dev, pool, fused=True,
 
 
 def serve_summary(engine, results, wall, cfg, params,
-                  prompt_lens=PROMPT_LENS) -> dict:
+                  prompt_lens=PROMPT_LENS, quantized=True) -> dict:
+    """A serve run's numbers; a quantized model's prefill chunks and decode
+    steps must both reach the GEMM kernel, a full-precision one's
+    neither."""
     st = engine.stats
     n_tok = sum(len(r.tokens) for r in results.values())
     check(len(results) == len(prompt_lens)
           and all(len(r.tokens) == GEN_LEN for r in results.values())
           and all(0 <= int(t) < cfg.vocab for r in results.values()
                   for t in r.tokens), "serve produced malformed output")
-    check(engine.gemms["prefill"] > 0 and engine.gemms["decode"] > 0,
+    reached = [engine.gemms[k] > 0 for k in ("prefill", "decode")]
+    check(all(reached) if quantized else not any(reached),
           f"GEMM launches {engine.gemms}: the prefill chunks and the decode "
-          f"steps must both reach the GEMM kernel")
+          f"steps must both reach the GEMM kernel"
+          if quantized else f"GEMM launches {engine.gemms} serving "
+          f"full-precision weights")
     return {"wall_s": wall, "tokens": n_tok, "tok_per_s": n_tok / wall,
             "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
             "decode_steps": st["decode_steps"],
@@ -3898,6 +3954,201 @@ def train_requests(cfg, corpus) -> list:
             for i, n in enumerate(TRAIN_PROMPT_LENS)]
 
 
+# -------------------------------------------------- Table 1's baselines
+
+BASELINE_GROUP = 128      # Table 1: RTN, GPTQ and AWQ in groups of 128 rows
+TABLE1_BITS = (2, 3, 4)   # --train: every method at each; the whole run 4
+GPTQ_CHECK = ("L0.attn.wq", 4)     # the row loop's check: weight, bits
+
+
+def uniform_avg_bits(qparams) -> float:
+    """Code bits and side information over the weights of a uniform
+    quantization, as ``QuantReport.avg_bits`` counts them."""
+    qs = list(quantized_linears(qparams).values())
+    m = sum(q.d * q.c * (q.packed.shape[0] if isinstance(q, QuantizedGrouped)
+                         else 1) for q in qs)
+    return sum(q.bits * q.d * q.c * (q.packed.shape[0] if isinstance(
+        q, QuantizedGrouped) else 1) + q.overhead_bits() for q in qs) / m
+
+
+def cusolver_factor(hessian, percdamp: float, dev) -> tuple:
+    """GPTQ's (u, dead) as ``quant_baselines._gptq_factor_host`` takes it,
+    but by ``torch.linalg`` in f64 on the card (cuSOLVER): what a card-side
+    factor would give, for the card check's comparison only."""
+    h = hessian.to(device=dev, dtype=torch.float64, copy=True)
+    diag = torch.diagonal(h)
+    dead = diag == 0
+    diag.masked_fill_(dead, 1.0)
+    diag.add_(percdamp * torch.mean(diag))
+    return torch.linalg.cholesky(torch.linalg.inv(h)).mT.contiguous(), dead
+
+
+def baseline_card_check(params, hess, norms, dev) -> dict:
+    """RTN, AWQ and GPTQ on one full-width weight (GPTQ_CHECK) on the card
+    and on the host, which must agree bit for bit: RTN's and AWQ's
+    reconstructions (and AWQ's alpha), and GPTQ's row loop with the same
+    (host LAPACK) factor, codes included, as ``gptq_quantize`` on the card.
+    Then the factor's seconds on the host and by cuSOLVER on the card, and
+    the codes that cuSOLVER's factor would move, counted."""
+    name, bits = GPTQ_CHECK
+    i, group, key = name.split(".")
+    w = params["layers"][int(i[1:])][group][key]
+    h, n = hess[name], norms[name]
+    d, c = w.shape
+    rtn = [qb.rtn_quantize(w, bits, BASELINE_GROUP, device=x)
+           for x in (dev, "cpu")]
+    awq = [qb.awq_quantize(w, n, bits, BASELINE_GROUP, device=x)
+           for x in (dev, "cpu")]
+    rtn_same = torch.equal(rtn[0][0].cpu(), rtn[1][0])
+    awq_same = (torch.equal(awq[0][0].cpu(), awq[1][0])
+                and awq[0][2] == awq[1][2])
+    t0 = time.monotonic()
+    u, dead = qb._gptq_factor_host(h, 0.01)
+    host_factor_s = time.monotonic() - t0
+    w0 = w.detach().clone()
+    w0[dead.to(dev)] = 0.0
+
+    def rows(w_in, u_in):
+        codes = torch.empty((d, c), dtype=torch.uint8, device=w_in.device)
+        t0 = time.monotonic()
+        out = qb._gptq_rows(w_in, u_in, bits, BASELINE_GROUP, codes=codes)
+        if w_in.is_cuda:
+            torch.cuda.synchronize()
+        return out, codes, time.monotonic() - t0
+    card, card_codes, card_s = rows(w0.clone(), u.to(dev))
+    host, host_codes, host_s = rows(w0.cpu(), u)
+    same = (torch.equal(card.cpu(), host)
+            and torch.equal(card_codes.cpu(), host_codes))
+    port, _ = qb.gptq_quantize(w, h, bits, BASELINE_GROUP, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    u_dev, dead_dev = cusolver_factor(h, 0.01, dev)
+    torch.cuda.synchronize()
+    card_factor_s = time.monotonic() - t0
+    own, own_codes, _ = rows(w0.clone(), u_dev)
+    code_diff = (own_codes.cpu().to(torch.int16) - host_codes.to(torch.int16))
+    out = {"weight": name, "d": d, "c": c, "bits": bits,
+           "rtn_identical": rtn_same, "awq_identical": awq_same,
+           "awq_alpha": awq[0][2], "dead_inputs": int(dead.sum()),
+           "card_s": card_s, "host_s": host_s, "identical": same,
+           "host_factor_s": host_factor_s, "cusolver_factor_s": card_factor_s,
+           "cusolver_u_rel_diff": float((u_dev.cpu() - u).abs().max()
+                                        / u.abs().max()),
+           "cusolver_codes_differ": int((code_diff != 0).sum()),
+           "cusolver_max_code_diff": int(code_diff.abs().max()),
+           "cusolver_entries_differ": int((own.cpu() != host).sum()),
+           "codes": d * c}
+    log(f"train baselines card vs host, {name} ({d} x {c}, {bits} bits, "
+        f"group {BASELINE_GROUP}): RTN identical {rtn_same}, AWQ identical "
+        f"{awq_same} (alpha {awq[0][2]}); GPTQ's row loop ("
+        f"{out['dead_inputs']} dead inputs) card {card_s:.2f} s vs host "
+        f"{host_s:.2f} s with the same factor, identical (reconstruction and "
+        f"codes): {same}; the factor {host_factor_s:.3f} s on the host, "
+        f"{card_factor_s:.3f} s by cuSOLVER (max |u - u_host| / max |u_host| "
+        f"{out['cusolver_u_rel_diff']:.2e}), whose factor would move "
+        f"{out['cusolver_codes_differ']} of {d * c} codes (by at most "
+        f"{out['cusolver_max_code_diff']}) and "
+        f"{out['cusolver_entries_differ']} entries")
+    check(rtn_same and awq_same,
+          f"RTN or AWQ on the card differs from the host ({name})")
+    check(same, f"GPTQ's row loop on the card differs from the host's with "
+          f"the same factor ({name})")
+    check(torch.equal(dead_dev.cpu(), dead) and torch.equal(port, card),
+          f"gptq_quantize on the card is not its row loop with the host's "
+          f"factor ({name})")
+    return out
+
+
+def baselines_phase(cfg, params, calib, evals, dev, extra) -> tuple:
+    """Table 1's protocol on the trained model: the layer Hessians and
+    input norms of the calibration batches (``collect_hessians``), then
+    RTN, GPTQ and AWQ in groups of BASELINE_GROUP (``apply_baseline``) and
+    uniform RaanA (``quantize_params_uniform``, its code searches counted
+    from zero) at 4 bits, or at each of TABLE1_BITS with ``extra``: each
+    one's average bits, seconds and perplexity; then the card against the
+    host (``baseline_card_check``).  Returns (summary, {"uniform": the 4-bit uniform params,
+    "gptq": GPTQ's 4-bit reconstruction}) for serving."""
+    t0 = time.monotonic()
+    hess, norms = bapply.collect_hessians(cfg, params, calib, device=dev)
+    torch.cuda.synchronize()
+    out = {"collect_s": time.monotonic() - t0, "hessians": len(hess),
+           "group": BASELINE_GROUP, "rows": {}}
+    keep = {}
+    for bits in (TABLE1_BITS if extra else (4,)):
+        for method in bapply.METHODS:
+            qp, avg, secs = bapply.apply_baseline(
+                cfg, params, method, bits, hessians=hess, x_col_norms=norms,
+                group=BASELINE_GROUP, device=dev)
+            row = {"avg_bits": avg, "s": secs,
+                   "ppl": perplexity(cfg, qp, evals)}
+            out["rows"][f"{method} {bits}"] = row
+            if (method, bits) == ("gptq", 4):
+                keep["gptq"] = qp
+            del qp
+            log(f"train {method.upper()} {bits} bits (group "
+                f"{BASELINE_GROUP}): avg_bits {avg:.4f}, {secs:.2f} s, ppl "
+                f"{row['ppl']:.4f}")
+            check(np.isfinite(row["ppl"]),
+                  f"{method} {bits}-bit perplexity is not finite")
+        zero_counts()
+        t1 = time.monotonic()
+        qp = pipe.quantize_params_uniform(
+            cfg, params, bits, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+        torch.cuda.synchronize()
+        row = {"avg_bits": uniform_avg_bits(qp), "s": time.monotonic() - t1,
+               "code_search_launches": counts()["rabitq_quant"],
+               "ppl": perplexity(cfg, qp, evals)}
+        out["rows"][f"uniform {bits}"] = row
+        log(f"train uniform RaanA {bits} bits ({UNIFORM_N_CAND} candidates):"
+            f" avg_bits {row['avg_bits']:.4f}, {row['s']:.2f} s, code-search "
+            f"launches {row['code_search_launches']}, ppl {row['ppl']:.4f}")
+        check(row["code_search_launches"] == 6 * cfg.n_layers
+              and np.isfinite(row["ppl"]),
+              f"uniform {bits} bits: {row['code_search_launches']} code "
+              f"searches, perplexity {row['ppl']}")
+        if bits == 4:
+            keep["uniform"] = qp
+        del qp
+    out["card_check"] = baseline_card_check(params, hess, norms, dev)
+    del hess, norms
+    torch.cuda.empty_cache()
+    return out, keep
+
+
+def table1(out: dict) -> dict:
+    """Table 1's rows of a train phase: fp32, RaanA at AVG_BITS (and at
+    TRAIN_TABLE_BITS with --train), uniform RaanA and the baselines: each
+    one's average bits and perplexity."""
+    q = out["quantize"]
+    rows = {"fp32": {"avg_bits": 32.0, "ppl": q["fp32_ppl"]},
+            f"RaanA {AVG_BITS}": {"avg_bits": q["avg_bits"],
+                                  "ppl": q["quantized_ppl"]}}
+    rows.update({f"RaanA {bits}": {"avg_bits": r["avg_bits"], "ppl": r["ppl"]}
+                 for bits, r in out.get("ppl_table", {}).items()})
+    rows.update({name: {"avg_bits": r["avg_bits"], "ppl": r["ppl"]}
+                 for name, r in out["baselines"]["rows"].items()})
+    return rows
+
+
+def serve_twice(cfg, params, dev, pool, reqs, quantized=True) -> tuple:
+    """``reqs`` served by graph (every count zeroed just before) and then by
+    eager kernels: (the graph run's summary with its launches and the eager
+    decode ms/step, graph results, eager results, the eager engine)."""
+    zero_counts()
+    eng, res, wall = spec_serve(cfg, params, dev, pool, reqs=reqs)
+    summ = serve_summary(eng, res, wall, cfg, params, TRAIN_PROMPT_LENS,
+                         quantized=quantized)
+    summ["launches"] = counts()
+    del eng
+    with graphs.eager():
+        eng_e, res_e, _ = spec_serve(cfg, params, dev, pool, reqs=reqs)
+    summ["eager_decode_step_ms"] = (1e3 * eng_e.stats["decode_s"]
+                                    / eng_e.stats["decode_steps"])
+    summ["request_tokens"] = token_lists(res)
+    return summ, res, res_e, eng_e
+
+
 def train_phase(dev, extra: bool = False) -> dict:
     """qwen3-0.6b at its published width and depth: trained (``train_runs``:
     an uninterrupted run, then a fault-tolerant one restored from a
@@ -3906,11 +4157,15 @@ def train_phase(dev, extra: bool = False) -> dict:
     AllocateBits, the code-search kernel, counted), its fp32 and quantized
     perplexity over EVAL_BATCHES batches of EVAL_BATCH, then the quantized
     model served by graph (counted from zero: the ``qwen3_trained`` path)
-    and by eager kernels, tokens identical but at near-ties.  ``extra``
-    (``--train``): also the example's table (TRAIN_TABLE_BITS) and a
-    DRAFT_BITS draft from ``quantize_model_dual`` speculating SPEC_K deep,
-    tokens identical to spec off, its acceptance on trained weights, and
-    TRAIN_STEPS of training where the whole run takes SMOKE_TRAIN_STEPS."""
+    and by eager kernels, tokens identical but at near-ties; Table 1's
+    protocol (``baselines_phase``) at 4 bits, and its uniform RaanA and
+    GPTQ models served by graph (counted from zero: ``qwen3_uniform``,
+    ``qwen3_gptq``) and eagerly, tokens identical.  ``extra``
+    (``--train``): also the example's table (TRAIN_TABLE_BITS), Table 1 at
+    TABLE1_BITS, a DRAFT_BITS draft from ``quantize_model_dual``
+    speculating SPEC_K deep, tokens identical to spec off, its acceptance
+    on trained weights, and TRAIN_STEPS of training where the whole run
+    takes SMOKE_TRAIN_STEPS."""
     cfg = get_config(TRAIN_ARCH)
     phase_s = {}
     t0 = time.monotonic()
@@ -3988,29 +4243,32 @@ def train_phase(dev, extra: bool = False) -> dict:
         out["dual"] = {"target_bits": trep.avg_bits,
                        "draft_bits": drep.avg_bits,
                        "draft_ppl": perplexity(cfg, draft, evals)}
-    del params, stats
-    torch.cuda.empty_cache()
+    del stats
     phase_s["quantize"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    out["baselines"], baseline_models = baselines_phase(
+        cfg, params, calib, evals, dev, extra)
+    out["table1"] = table1(out)
+    log(f"train Table 1 ({TRAIN_ARCH}, perplexity over {EVAL_BATCHES} x "
+        f"{EVAL_BATCH} x {TRAIN_SEQ}): " + "; ".join(
+            f"{k} {r['ppl']:.4f} ({r['avg_bits']:.4f} bits)"
+            for k, r in out["table1"].items()))
+    del params
+    torch.cuda.empty_cache()
+    phase_s["baselines"] = time.monotonic() - t0
 
     t0 = time.monotonic()
     pool = PoolConfig(max_slots=4, block_size=16,
                       max_context=max(TRAIN_PROMPT_LENS) + GEN_LEN,
                       prefill_chunk=64)
     reqs = train_requests(cfg, eval_corpus)
-    zero_counts()
-    eng, res, wall = spec_serve(cfg, qparams, dev, pool, reqs=reqs)
-    summ = serve_summary(eng, res, wall, cfg, qparams, TRAIN_PROMPT_LENS)
-    summ["launches"] = counts()
-    with graphs.eager():
-        eng_e, res_e, wall_e = spec_serve(cfg, qparams, dev, pool, reqs=reqs)
-    summ["eager_decode_step_ms"] = (1e3 * eng_e.stats["decode_s"]
-                                    / eng_e.stats["decode_steps"])
+    summ, res, res_e, eng_e = serve_twice(cfg, qparams, dev, pool, reqs)
     summ["divergences"] = divergences(res, res_e, eng_e)
     text = ByteTokenizer(cfg.vocab)
     summ["samples"] = {rid: {"prompt_tail": text.decode(r.prompt[-48:]),
                              "continuation": text.decode(res[rid].tokens)}
                        for rid, r in enumerate(reqs)}
-    summ["request_tokens"] = token_lists(res)
     launched = {k: v for k, v in summ["launches"].items() if v}
     log(f"train serve ({AVG_BITS}-bit trained {TRAIN_ARCH}, "
         f"{len(reqs)} corpus prompts of {TRAIN_PROMPT_LENS}, {GEN_LEN} new): "
@@ -4025,7 +4283,7 @@ def train_phase(dev, extra: bool = False) -> dict:
           and summ["launches"]["paged_attention"] > 0,
           f"the trained model's serve run missed a kernel: {launched}")
     out["serve"] = summ
-    del eng, eng_e
+    del eng_e
     if extra:
         zero_counts()
         eng, off, _ = spec_serve(cfg, target, dev, pool, reqs=reqs)
@@ -4049,6 +4307,28 @@ def train_phase(dev, extra: bool = False) -> dict:
     del qparams
     torch.cuda.empty_cache()
     phase_s["serve"] = time.monotonic() - t0
+
+    # the uniform RaanA model (rows 5, 1, 2) and GPTQ's reconstruction
+    # (full-precision weights: row 2 only)
+    t0 = time.monotonic()
+    served = {}
+    for path, key, quantized in (("qwen3_uniform", "uniform", True),
+                                 ("qwen3_gptq", "gptq", False)):
+        summ, res, res_e, _ = serve_twice(
+            cfg, baseline_models.pop(key), dev, pool, reqs, quantized)
+        same_as(f"{path} graph vs eager", token_lists(res),
+                token_lists(res_e))
+        served[path] = summ
+        launched = {k: v for k, v in summ["launches"].items() if v}
+        log(f"train serve {path} ({len(reqs)} corpus prompts, {GEN_LEN} "
+            f"new): by graph decode {summ['decode_step_ms']:.3f} ms/step, "
+            f"prefill_s {summ['prefill_s']:.4f}, eager decode "
+            f"{summ['eager_decode_step_ms']:.3f} ms/step; tokens identical "
+            f"graph / eager {len(reqs)} of {len(reqs)}; launches by graph "
+            f"{launched}")
+    out["baselines"]["serve"] = served
+    torch.cuda.empty_cache()
+    phase_s["baselines_serve"] = time.monotonic() - t0
     out["phase_s"] = phase_s
     log(f"train phase seconds: {json.dumps(phase_s)}")
     return out
@@ -4056,7 +4336,8 @@ def train_phase(dev, extra: bool = False) -> dict:
 
 def train_main(dev, smi) -> int:
     """``--train``: build every kernel, then ``train_phase`` with the
-    example's table of perplexities and the trained draft's acceptance.
+    example's table of perplexities, Table 1 at TABLE1_BITS and the
+    trained draft's acceptance.
     Prints one JSON line (also ``chiprun_out/chip_smoke_train.json``), the
     nvidia-smi line and the contract's last line."""
     _build.build()
@@ -4843,13 +5124,17 @@ def main() -> int:
     log(f"launch floor (empty kernel, graph replay): {floor_ms:.4f} ms")
     search_times = [time_code_search(gen, dev, d, c)
                     for d, c in SEARCH_TIMED]
+    uniform_search_times = [time_code_search(gen, dev, d, c,
+                                             n_cand=UNIFORM_N_CAND)
+                            for d, c in UNIFORM_SEARCH_TIMED]
     mw_times = [time_gemm(gen, dev, n, d, c, 4)
                 for n, d, c in MROPE_WHISPER_TIMED]
     mw_unfused_times = [time_gemm(gen, dev, n, d, c, 4, fused=False)
                         for n, d, c in MROPE_WHISPER_TIMED]
     for name, rows in (("rht_qmatmul", gemm_times + mw_times),
                        ("qmatmul", unfused_times + mw_unfused_times),
-                       ("rht", rht_times), ("rabitq_quant", search_times)):
+                       ("rht", rht_times),
+                       ("rabitq_quant", search_times + uniform_search_times)):
         for t in rows:
             log(f"{name} time {json.dumps(t)}")
     attn_times = time_attentions(gen, dev)
@@ -4983,10 +5268,20 @@ def main() -> int:
                        "fused": whisper_out["steps"]["fused"]["launches"],
                        "unfused": whisper_out["steps"]["unfused"]["launches"]}
     mw = ("qwen2_vl", "whisper")
-    # the trained qwen3-0.6b: its quantization and its graph serve run
+    # the trained qwen3-0.6b: its quantization and its graph serve run; the
+    # uniform RaanA model's quantization (4 bits) and graph serve run, and
+    # GPTQ's reconstruction's graph serve run
     runs["qwen3_trained"] = {
         "quantize": train_out["quantize"]["code_search_launches"],
         "fused": train_out["serve"]["launches"], "unfused": none}
+    base = train_out["baselines"]
+    runs["qwen3_uniform"] = {
+        "quantize": base["rows"]["uniform 4"]["code_search_launches"],
+        "fused": base["serve"]["qwen3_uniform"]["launches"], "unfused": none}
+    runs["qwen3_gptq"] = {"quantize": 0,
+                          "fused": base["serve"]["qwen3_gptq"]["launches"],
+                          "unfused": none}
+    qwen3 = ("qwen3_trained", "qwen3_uniform")
     dense = tuple(dense_out)
 
     def by_path(kernel, run):
@@ -5003,18 +5298,18 @@ def main() -> int:
         "rht_qmatmul": ("fused", ("llama2", "mixtral", "llama2_prefix",
                                   *spec, *dense, "llama2_gather",
                                   "frontdoor", *lockstep, *families,
-                                  *fam_lock, "qwen3_trained", *mw,
+                                  *fam_lock, *qwen3, *mw,
                                   "qwen2_vl_lockstep")),
         "paged_attention": ("fused", ("llama2", "mixtral", "llama2_prefix",
                                       *spec, *dense, "frontdoor",
-                                      "recurrentgemma", "qwen3_trained",
+                                      "recurrentgemma", *qwen3, "qwen3_gptq",
                                       "qwen2_vl")),
         "qmatmul": ("unfused", ("llama2", "mixtral", *dense, *families,
                                 "lockstep_llama2_unfused", *mw)),
         "rht": ("unfused", ("llama2", "mixtral", *dense, *families,
                             "lockstep_llama2_unfused", *mw)),
         "rabitq_quant": ("quantize", ("llama2", "mixtral", *dense,
-                                      *families, "qwen3_trained", *mw)),
+                                      *families, *qwen3, *mw)),
         "grouped_rht_qmatmul": ("fused", ("mixtral", "mixtral_spec",
                                           "lockstep_mixtral", "deepseek_v2",
                                           "lockstep_deepseek_v2")),
@@ -5022,6 +5317,9 @@ def main() -> int:
         "flash_attention": ("fused", ()),
     }
     launches = {k: by_path(k, run) for k, (run, _) in on_path.items()}
+
+    def on_path_of(path):
+        return {k for k, (_, paths) in on_path.items() if path in paths}
     for k, (_, paths) in on_path.items():
         check(all(launches[k][p] > 0 for p in paths),
               f"{k}: not launched on every path that runs it: {launches[k]}")
@@ -5039,6 +5337,12 @@ def main() -> int:
           f"the grouped GEMM launched on a path without experts: "
           f"{launches['grouped_rht_qmatmul']}, "
           f"{launches['grouped_qmatmul']}")
+    # GPTQ's reconstruction is full precision (paged attention only), and
+    # the uniform model serves fused and has no experts
+    off_path = {f"{k} on {p}": by[p] for k, by in launches.items()
+                for p in ("qwen3_gptq", "qwen3_uniform") if by[p]
+                and k not in on_path_of(p)}
+    check(not off_path, f"launched off their paths: {off_path}")
     # the GEMM kernel's launches by serve run and phase
     gemms = {path: {run: r["gemm_launches"] for run, r in (
                  ("fused", serve_r), ("unfused", serve_r["unfused"]))}
@@ -5126,6 +5430,10 @@ def main() -> int:
               differing_columns=search["differing_columns"],
               max_objective_gap=search["max_objective_gap"],
               division_mismatches=search["division_mismatches"],
+              uniform_check=search["uniform"],
+              uniform_times=[{k: t[k] for k in (
+                  "d", "c", "n_candidates", "ms", "plain_ms", "bound_ms")}
+                  for t in uniform_search_times],
               one_candidate_ms=search_t["one_candidate_ms"],
               shapes=[{k: t[k] for k in (
                   "d", "c", "slices", "ms", "one_candidate_ms", "plain_ms",
@@ -5154,6 +5462,7 @@ def main() -> int:
               "unfused_gemm_times": unfused_times, "rht_check": rht_check,
               "rht_times": rht_times, "launch_floor_ms": floor_ms,
               "code_search_times": search_times, "code_search_check": search,
+              "uniform_code_search_times": uniform_search_times,
               "attention_check": attn_check, "attention_times": attn_times,
               "quantize": quant_out,
               "serve": serve_out, "grouped_times": grouped_times,

@@ -18,6 +18,10 @@ two shapes:
     quantized MoE expert stack a dict with ``packed, rescale, signs1,
     signs2`` and ``bits, d, c``, those of ``QuantizedGrouped``.
 
+A stacked tree may hold quantized weights too, as the reference's
+``quantize_params_uniform`` makes them: such a dict's arrays carry the
+leading layer axis and its static fields (``bits, d, d_keep, c``) do not.
+
 Layer i is element i // p of position i % p, so the port's list is in
 execution order, as the reference's ``get_layer`` and ``_apply_layers``
 walk it (full periods, then the remainder).  Whisper's ``enc_layers``
@@ -36,7 +40,10 @@ dict with ``layers`` as a list of per-layer dicts on ``device``.
 ``quantize_model_dual`` pair across beside its converted target, with the
 sharing the dual quantization promises: the draft's sign tensors are the
 target's (``pipeline._alias_rotation``) and its full-precision leaves are
-the target's tensors.
+the target's tensors.  ``reference_signs`` reads every quantized weight's
+Rademacher signs out of a reference tree, under the port's names
+(``L{i}.attn.wq``, ``enc{i}.mlp.wi``), for the port's quantizers'
+``signs``.
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.pipeline import _alias_rotation
+from repro_torch.core.pipeline import SCOPES, _alias_rotation
 from repro_torch.core.qlinear import QuantizedGrouped, QuantizedLinear
 
 QL_TENSORS = ("packed", "rescale", "signs1", "signs2", "mean_col", "w_out",
@@ -80,11 +87,15 @@ def _grouped(node: dict, device) -> QuantizedGrouped:
     return QuantizedGrouped(**fields)
 
 
+def _is_quantized(node) -> bool:
+    return isinstance(node, dict) and "packed" in node and "bits" in node
+
+
 def _convert(node, device):
     if node is None:
         return None
     if isinstance(node, dict):
-        if "packed" in node and "bits" in node:
+        if _is_quantized(node):
             if "d_keep" in node:
                 return _quantized(node, device)
             return _grouped(node, device)
@@ -93,27 +104,36 @@ def _convert(node, device):
 
 
 def _take(node, i: int):
+    if _is_quantized(node):         # static fields carry no layer axis
+        return {k: v if v is None or k in QL_STATIC else np.asarray(v)[i]
+                for k, v in node.items()}
     if isinstance(node, dict):
         return {k: _take(v, i) for k, v in node.items()}
     return np.asarray(node)[i]
 
 
 def _n_stacked(node) -> int:
+    if _is_quantized(node):
+        return _n_stacked(node["packed"])
     if isinstance(node, dict):
         return _n_stacked(next(iter(node.values())))
     return int(np.asarray(node).shape[0])
 
 
-def _unrolled(positions: list, device) -> list:
-    """Per-layer dicts in execution order from the reference's per-scan-
-    position stacks (or lists)."""
+def _layer_trees(positions: list) -> list:
+    """Per-layer trees of numpy containers in execution order from the
+    reference's per-scan-position stacks (or lists)."""
     stacks = [list(st) if isinstance(st, list)
               else [_take(st, i) for i in range(_n_stacked(st))]
               for st in positions]
     period = len(stacks)
     n_layers = sum(len(st) for st in stacks)
-    return [_convert(stacks[i % period][i // period], device)
-            for i in range(n_layers)]
+    return [stacks[i % period][i // period] for i in range(n_layers)]
+
+
+def _unrolled(positions: list, device) -> list:
+    """Per-layer dicts of the port in execution order."""
+    return [_convert(lp, device) for lp in _layer_trees(positions)]
 
 
 def params_from_reference(tree: dict, device=None) -> dict:
@@ -127,6 +147,31 @@ def params_from_reference(tree: dict, device=None) -> dict:
     if "enc_layers" in tree:
         out["enc_layers"] = _unrolled(tree["enc_layers"], dev)
         out["enc_norm"] = _convert(tree["enc_norm"], dev)
+    return out
+
+
+def _quantized_nodes(node, prefix=()):
+    """(path, dict) of every quantized weight in one layer's tree."""
+    if _is_quantized(node):
+        yield prefix, node
+    elif isinstance(node, dict):
+        for k, v in node.items():
+            yield from _quantized_nodes(v, prefix + (k,))
+
+
+def reference_signs(tree: dict) -> dict:
+    """name -> (signs1, signs2 or None), CPU f32 tensors, of every quantized
+    weight in a reference tree (unrolled lists or stacks), under the port's
+    names: the ``signs`` that give the port's quantizers the reference's
+    rotations."""
+    out = {}
+    for scope, key in SCOPES:
+        for i, lp in enumerate(_layer_trees(tree.get(key, []))):
+            for path, node in _quantized_nodes(lp):
+                s2 = node["signs2"]
+                out[f"{scope}{i}." + ".".join(path)] = (
+                    _tensor(node["signs1"], "cpu"),
+                    None if s2 is None else _tensor(s2, "cpu"))
     return out
 
 

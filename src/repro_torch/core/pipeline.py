@@ -24,8 +24,10 @@ The reference passes one PRNG key to both runs so the signs come out
 equal; torch cannot replay a ``jax.random`` stream, so the port draws the
 signs once (``draw_model_signs``) and passes the same dict to both.
 
-Not ported yet: ``quantize_params_uniform`` (dry-run tooling, ROADMAP
-Queue 1 item 10).
+``quantize_params_uniform`` gives every quantizable weight the same bit
+width (no calibration, no outlier split; the paper's uniform RaanA rows
+of Table 1).  The reference keeps its stacked scan layout for the
+dry-run; the port has none and returns its per-layer lists.
 """
 from __future__ import annotations
 
@@ -44,6 +46,9 @@ from .calibrate import LayerStat
 from .qlinear import (QuantizedGrouped, QuantizedLinear, draw_signs,
                       quantize_grouped, quantize_linear)
 
+# the uniform quantizer's grid-step candidates (the reference's
+# ``_quantize_stacked_linear`` / ``_quantize_stacked_grouped``)
+UNIFORM_N_CANDIDATES = 8
 QUANTIZABLE_2D = {"wq", "wk", "wv", "wo", "wi", "swi", "swo", "ck", "cv",
                   "cr", "wr", "wg", "wq_a", "wq_b", "wkv_a"}
 GROUPED_KEYS = {"wi", "wo"}
@@ -277,3 +282,41 @@ def quantize_model_dual(cfg: ModelConfig, params: dict,
                                       signs=signs, outlier_frac=outlier_frac,
                                       device=dev, **kwargs)
     return tparams, treport, _alias_rotation(tparams, dparams), dreport
+
+
+def quantize_params_uniform(cfg: ModelConfig, params: dict, bits: int, *,
+                            signs: dict | None = None,
+                            generator: torch.Generator | None = None,
+                            device=None) -> dict:
+    """Uniform-bit RaBitQ-H on ``device`` (CUDA unless ``"cpu"``): every 2-D
+    projection of ``layers`` (and Whisper's ``enc_layers``) through
+    ``quantize_linear`` with centralization and no outliers, every MoE
+    ``wi`` / ``wo`` stack through ``quantize_grouped``, all at ``bits`` and
+    UNIFORM_N_CANDIDATES grid steps.  Signs come from ``signs`` (name ->
+    (signs1, signs2)) or are drawn from ``generator`` in entry order, as
+    ``quantize_model`` draws them.  Port of the reference's function of the
+    same name, which keeps the stacked scan layout for the dry-run; the
+    port returns its per-layer lists.  ``params`` is not modified; the
+    result shares its full-precision leaves."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    signs = draw_model_signs(params, {}, generator=generator,
+                             outlier_frac=0.0, signs=signs)
+    qparams = dict(params)
+    for _, key in SCOPES:
+        if key in params:
+            qparams[key] = [_copy_dicts(lp) for lp in params[key]]
+    for name, key, i, path, kind, _ in _entries(params):
+        target = qparams[key][i]
+        w = _get(target, path)
+        s1, s2 = signs[name]
+        if kind == "grouped":
+            q = quantize_grouped(w, bits, s1, s2,
+                                 n_candidates=UNIFORM_N_CANDIDATES, device=dev)
+        else:
+            q = quantize_linear(w, bits, s1, s2, x_col_norms=None,
+                                outlier_frac=0.0, centralize=True,
+                                n_candidates=UNIFORM_N_CANDIDATES, device=dev)
+        _set(target, path, q)
+    return qparams

@@ -18,19 +18,25 @@ from repro_torch.core.qlinear import QuantizedLinear
 
 
 class LinearCtx:
-    """Calibration collector (port of ``repro/models/common.py:LinearCtx``,
-    without the GPTQ baseline's ``collect_hessian``).
+    """Calibration collector (port of ``repro/models/common.py:LinearCtx``).
 
-    ``collect`` records per-linear taps in ``taps``.  ``perturb`` maps a
-    linear's name to an additive perturbation of its output; when
-    ``collect`` is on as well, a linear missing from ``perturb`` gets a zero
-    perturbation that requires grad, so one forward and backward yields the
-    taps and d loss / d output (``core/calibrate.py``)."""
+    ``collect`` records per-linear taps in ``taps``, each call overwriting
+    the last.  ``perturb`` maps a linear's name to an additive perturbation
+    of its output; when ``collect`` is on as well, a linear missing from
+    ``perturb`` gets a zero perturbation that requires grad, so one forward
+    and backward yields the taps and d loss / d output
+    (``core/calibrate.py``).  ``collect_hessian`` sums each plain linear's
+    layer Hessian X^T X (f32, (d, d), on the activations' device) over the
+    calls in ``hessians``; only the GPTQ baseline needs it
+    (``baselines/apply.py``)."""
 
-    def __init__(self, perturb: dict | None = None, collect: bool = False):
+    def __init__(self, perturb: dict | None = None, collect: bool = False,
+                 collect_hessian: bool = False):
         self.perturb = perturb
         self.collect = collect
+        self.collect_hessian = collect_hessian
         self.taps: dict[str, dict] = {}
+        self.hessians: dict[str, torch.Tensor] = {}
 
 
 def linear(w, x: torch.Tensor, ctx: Optional[LinearCtx] = None,
@@ -40,6 +46,12 @@ def linear(w, x: torch.Tensor, ctx: Optional[LinearCtx] = None,
         return w.apply(x)
     y = x @ w.to(x.dtype)
     if ctx is not None and name is not None:
+        if ctx.collect_hessian:
+            with torch.no_grad():
+                x2 = x.detach().to(torch.float32).reshape(-1, x.shape[-1])
+                h = x2.T @ x2
+                prev = ctx.hessians.get(name)
+                ctx.hessians[name] = h if prev is None else prev + h
         if ctx.collect:
             with torch.no_grad():
                 xf = x.detach().to(torch.float32)
