@@ -56,6 +56,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      profiled in both modes (device ms by kernel, idle share, launches per
      step); each run counts the GEMM launches of its prefill chunks and of
      its decode steps;
+ 5b. tensor parallelism (``tp_phase``): phase 4's quantization and its
+     draft saved to a temporary file under ``build/``; two ranks
+     (``launch.mesh.spawn``), both on this card with the gloo backend
+     (NCCL puts one rank on each card), each load it and slice their
+     column shard (``runtime/tp.py``: heads of wq/wk/wv and the KV arena,
+     FFN columns of wi, vocab of lm_head); rank 0 drives phase 5's
+     requests at TP=2 fused (decode and chunked prefill), unfused, and
+     speculating k = 3 deep with the 2.2-bit draft (the verify steps).
+     Each run's tokens must equal TP=1's request by request (phase 5's
+     fused and unfused runs; the speculating run phase 5's fused tokens);
+     against a TP=1 fused run eager in this process, the first 8 decode
+     steps' logits are compared
+     bit for bit (max |diff| printed) beside checks of each rank's
+     columns against the whole op: the cuBLAS products whose N the
+     sharding halves (lm_head, the outlier GEMMs: reported) and the GEMM
+     and paged-attention kernels planned from the full widths (must be
+     bit for bit) and from the slice's own (reported); each rank's GEMM
+     and paged-attention launches at shard widths are counted (paths
+     ``llama2_tp`` and ``llama2_tp_spec``), and the ranks' host ms per
+     step beside TP=1's (gloo through the host, eager, two ranks on one
+     card: no speed claim);
   6. Mixtral: mixtral-8x7b at its published width (d_model 4096, 32 heads
      over 8 KV heads, 8 experts top-2 of width 14336, capacity factor 1.25,
      window 4096, vocab 32000) with the depth cut to 4 of its 32 layers
@@ -110,7 +131,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      but at near-ties; prefill s, decode ms/step); Mixtral by graph and
      eagerly (graph = eager exactly), after phase 8;
  12. dense configs (``dense_phase``): internlm2-1.8b, llama3.2-3b,
-     qwen3-0.6b and yi-34b at their published widths, each cut to 4
+     qwen3-0.6b and yi-34b at their published widths, each cut to 2
      layers (``DENSE_LAYERS`` says why), quantized at 4.0 bits and served
      by graph, unfused and plain;
  13. training (``train_phase``): qwen3-0.6b at its published width and
@@ -137,8 +158,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      cuSOLVER's factor would move, counted; the uniform model and GPTQ's
      reconstruction served by graph and eagerly, tokens identical
      (paths ``qwen3_uniform`` and ``qwen3_gptq``);
- 14. qwen2-vl-2b (``qwen2_vl_phase``) at its published width and depth (28
-     layers, mrope): quantized at 4.0 bits, served through the paged
+ 14. qwen2-vl-2b (``qwen2_vl_phase``) at its published width, cut to
+     QWEN2_VL_LAYERS of its 28 layers (mrope): quantized at 4.0 bits,
+     served through the paged
      engine by graph, eagerly and unfused (a request sharing 256 prompt
      tokens hits the prefix cache), speculating (k = 3, draft = target),
      through ``BatchedServer`` against the paged engine, and through
@@ -172,7 +194,9 @@ only phases 9-11, after the quantizations they need (see
 bits and a 2.2-bit draft's acceptance on the trained weights (see
 ``train_main``); ``--mrope-whisper`` builds every kernel
 and runs only phase 14, Whisper at its full 32 + 32 layers (see
-``mrope_whisper_main``).
+``mrope_whisper_main``); ``--tp`` builds every kernel and runs only
+phase 5b at the whole run's depth, after the quantization and the fused
+serve run it needs (see ``tp_main``).
 
 Imports nothing of JAX or of the reference package.  Exits non-zero with no
 result when no CUDA device is present.  Details too long for the end of the
@@ -189,6 +213,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import zlib
@@ -234,9 +259,11 @@ from repro_torch.models import attention as attnmod  # noqa: E402
 from repro_torch.models import decode as decmod  # noqa: E402
 from repro_torch.models import moe as moemod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.launch.train import loader_batch, train  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.runtime import tp as tpmod  # noqa: E402
 from repro_torch.runtime.fault import FaultTolerantLoop, LoopConfig  # noqa: E402
 from repro_torch.runtime.steps import (  # noqa: E402
     make_prefill_step, make_serve_step, make_train_step)
@@ -1992,6 +2019,7 @@ def serve_four_ways(name, cfg, params, dev, pool, prompt_lens, labels=()
     unfused = serve_summary(unf, unf_results, unf_wall, cfg, params,
                             prompt_lens)
     unfused["launches"] = counts()
+    unfused["request_tokens"] = token_lists(unf_results)
     unfused["divergences"] = divergences(results, unf_results, unf)
     out["unfused"] = unfused
     log(f"{name} serve unfused (by graph): {unfused['tokens']} tokens in "
@@ -2198,6 +2226,275 @@ def serve_phase(dev, params) -> dict:
           "llama2's churn prompts hit the prefix cache")
     check(unf["rht"] > 0 and unf["qmatmul"] > 0 and unf["rht_qmatmul"] == 0,
           f"the unfused path did not run its kernels: {unf}")
+    return out
+
+
+# --------------------------------------------------------- tensor parallel
+
+TP_DEGREE = 2            # ranks of the parity run, every one on cuda:0
+TP_LOGIT_STEPS = 8       # decode steps whose logits TP=2 and TP=1 compare
+TP_RUNS = (("fused", True, False), ("unfused", False, False),
+           ("spec", True, True))     # name, fused, speculating (SPEC_K deep)
+TP_CHECK_ROWS = (8, 64)  # a decode step's and a prefill chunk's rows
+TP_THREADS = 2           # each rank's intra-op threads (8 cores, 2 ranks)
+
+
+class LogitServer(PagedServer):
+    """Keeps host copies of its first TP_LOGIT_STEPS decode steps'
+    logits."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.decode_logits: list = []
+
+    def _compiled(self, key, inert):
+        step = super()._compiled(key, inert)
+        if key[0] != "decode":
+            return step
+        kept = self.decode_logits
+
+        def call(inputs):
+            out = step(inputs)
+            if len(kept) < TP_LOGIT_STEPS:
+                kept.append(out.to(torch.float32).cpu().numpy().copy())
+            return out
+        return call
+
+
+def tp_engine(cfg, art: dict, pool, run: str, dev, group=None):
+    """A ``LogitServer`` for TP_RUNS' ``run`` over ``art`` (the target
+    and its draft), alone or as a rank of ``group``."""
+    _, fused, spec = next(r for r in TP_RUNS if r[0] == run)
+    kw = {"draft_params": art["draft"], "speculate": SPEC_K} if spec else {}
+    return LogitServer(cfg, art["target"], pool, fused=fused, device=dev,
+                       group=group, **kw)
+
+
+def tp_run(engine, reqs) -> dict:
+    """One run of ``reqs``, driven by ``engine`` (alone, or rank 0 of a TP
+    group), its launches counted from zero: tokens, the first decode
+    steps' logits, host ms per decode step, prefill chunk and speculative
+    round (ending in a synchronize, as every step reads its logits)."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    st = engine.stats
+    out = {"request_tokens": token_lists(results), "launches": counts(),
+           "wall_s": time.monotonic() - t0, "tp": st["tp"],
+           "captures": st["captures"], "logits": engine.decode_logits,
+           "prefill_chunk_ms": 1e3 * st["prefill_s"] / st["prefill_chunks"]}
+    if engine.speculate:
+        out["acceptance_rate"] = st["acceptance_rate"]
+        out["ms_per_round"] = 1e3 * st["spec_s"] / st["spec_rounds"]
+    else:
+        out["decode_step_ms"] = 1e3 * st["decode_s"] / st["decode_steps"]
+    return out
+
+
+def tp_rank(group, path: str, cfg, pool, reqs) -> dict:
+    """One rank of the TP=2 parity run: load the quantization artifact
+    onto this rank's device, then serve TP_RUNS over ``group``.  Rank 0
+    drives each run (``tp_run``) and reports its shard widths; the worker
+    mirrors it and reports its launches, counted from zero per run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.monotonic()
+    art = torch.load(path, map_location=group.device, weights_only=False)
+    out = {"load_s": time.monotonic() - t0, "runs": {}}
+    for name, _, _ in TP_RUNS:
+        engine = tp_engine(cfg, art, pool, name, group.device, group)
+        if group.rank:
+            zero_counts()
+            engine.serve_worker()
+            out["runs"][name] = {"launches": counts()}
+            continue
+        try:
+            run = tp_run(engine, reqs)
+        finally:
+            engine.close()
+        lp = engine.params["layers"][0]
+        run["shard_cols"] = {f"{g}.{k}": int(lp[g][k].rescale.shape[-1])
+                             for g, ks in (("attn", ("wq", "wk", "wv", "wo")),
+                                           ("mlp", ("wi", "wo"))) for k in ks}
+        run["shard_cols"]["lm_head"] = int(engine.params["lm_head"].shape[1])
+        run["arena_kv_heads"] = int(engine.caches[0]["k"].shape[2])
+        out["runs"][name] = run
+        del engine
+    return out
+
+
+def tp_candidate_ops(params, dev) -> dict:
+    """Whether each rank's columns (heads) come out bit for bit as in the
+    whole op, for the ops whose widths the sharding halves: the cuBLAS
+    products ``lm_head`` and the outlier GEMMs (``core/qlinear.py``'s
+    ``x_out @ w_out``) of the first quantized wq and wi with outliers; the
+    dequant GEMM kernel on those weights' slices planned from the layer's
+    c (``plan_c``, as the engine runs it) and from the slice's own c; and
+    the paged-attention kernel on half the KV heads planned from all of
+    them (``pops.plan_heads``, as the engine runs it) and from its own.
+    At a decode step's and a prefill chunk's rows (attention: W = 1 and
+    speculation's W = 4 over llama2's pool); each rank's columns are
+    ``tp._columns``."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    qls = quantized_linears(params)
+    weights = [(key, glu, next(q for n, q in qls.items() if n.endswith(key)
+                               and q.w_out is not None))
+               for key, glu in (("attn.wq", False), ("mlp.wi", True))]
+    cands = [("lm_head", params["lm_head"], False)] + [
+        (f"outlier {key}", q.w_out.to(torch.float32), glu)
+        for key, glu, q in weights]
+    out = {}
+
+    def ranks_cols(c, glu):
+        return [torch.from_numpy(tpmod._columns(c, r, TP_DEGREE, glu)).to(
+            dev) for r in range(TP_DEGREE)]
+    for name, w, glu in cands:
+        for n in TP_CHECK_ROWS:
+            x = torch.randn(n, w.shape[0], generator=gen, device=dev)
+            full = x @ w
+            out[f"{name} n={n}"] = all(
+                torch.equal(full[:, cols], x @ w[:, cols].contiguous())
+                for cols in ranks_cols(w.shape[1], glu))
+    for key, glu, q in weights:
+        for n in TP_CHECK_ROWS:
+            x = torch.randn(n, q.d_keep, generator=gen, device=dev)
+
+            def gemm(packed, rescale, plan_c=None):
+                return qops.rht_quantized_matmul(
+                    x, packed, rescale, q.signs1, q.signs2, bits=q.bits,
+                    d=q.d_keep, plan_c=plan_c)
+            full = gemm(q.packed, q.rescale)
+            for how, plan in (("layer's c", q.c), ("slice's c", None)):
+                out[f"GEMM {key} n={n}, planned from the {how}"] = all(
+                    torch.equal(full[:, cols], gemm(
+                        q.packed.index_select(1, cols).contiguous(),
+                        q.rescale.index_select(0, cols).contiguous(), plan))
+                    for cols in ranks_cols(q.c, glu))
+    cfg, pool = llama2_config(), llama2_pool()
+    mb = pool.max_context // pool.block_size
+    for w in (1, SPEC_K + 1):
+        q, k, v, bt, pos, ring = attn_inputs(
+            gen, dev, pool.max_slots, w, cfg.n_heads, cfg.n_kv, cfg.hd,
+            pool.block_size, mb, pool.max_context, torch.float32, None)
+        full = pops.paged_attention(q, k, v, bt, pos, ring)
+        hq, hk = cfg.n_heads // TP_DEGREE, cfg.n_kv // TP_DEGREE
+        for how, plan in (("all KV heads", cfg.n_kv), ("its own", None)):
+            with pops.plan_heads(plan):
+                out[f"paged attention W={w}, planned from {how}"] = all(
+                    torch.equal(full[:, :, r * hq:(r + 1) * hq],
+                                pops.paged_attention(
+                                    q[:, :, r * hq:(r + 1) * hq].contiguous(),
+                                    k[:, :, r * hk:(r + 1) * hk].contiguous(),
+                                    v[:, :, r * hk:(r + 1) * hk].contiguous(),
+                                    bt, pos, ring))
+                    for r in range(TP_DEGREE))
+    return out
+
+
+def tp_phase(dev, params, draft, serve_out) -> dict:
+    """llama2-7b's quantization (and its DRAFT_BITS draft) served at TP=2:
+    TP_DEGREE ranks, every one on cuda:0 with the gloo backend (NCCL will
+    not put two ranks on one card), each loading the artifact this process
+    saves and slicing its shard; rank 0 drives TP_RUNS over the serve
+    phase's requests (fused: decode and chunked prefill; unfused; and
+    speculating with the draft: the verify steps).  Each run's tokens
+    must equal TP=1's request by request: the serve phase's fused and
+    unfused graph runs (graph = eager, phase 5), the speculating run the
+    fused one's (greedy speculation emits plain decoding's tokens, as
+    phase 8 checks).  One TP=1 fused run here, eagerly as the ranks run,
+    gives the logits of the first TP_LOGIT_STEPS decode steps, compared
+    bit for bit, beside the candidate ops whose widths change."""
+    cfg, pool, reqs = llama2_config(), llama2_pool(), requests(llama2_config())
+    art = {"target": params, "draft": draft}
+    with graphs.eager():
+        base = tp_run(tp_engine(cfg, art, pool, "fused", dev), reqs)
+    check(base["request_tokens"] == serve_out["request_tokens"],
+          "tp: the eager TP=1 run's tokens differ from the serve phase's")
+    want_tokens = {"fused": serve_out["request_tokens"],
+                   "unfused": serve_out["unfused"]["request_tokens"],
+                   "spec": serve_out["request_tokens"]}
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="tp_artifact_", dir=ROOT / "build")
+    try:
+        path = os.path.join(tmp, "llama2.pt")
+        t0 = time.monotonic()
+        torch.save(art, path)
+        save_s = time.monotonic() - t0
+        artifact_gb = os.path.getsize(path) / 1e9
+        t0 = time.monotonic()
+        ranks = mesh.spawn(tp_rank, TP_DEGREE, path, cfg, pool, reqs,
+                           backend="gloo", device=dev, threads=TP_THREADS)
+        ranks_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lead, worker = ranks
+    out = {"degree": TP_DEGREE, "backend": "gloo", "save_s": save_s,
+           "artifact_gb": artifact_gb, "ranks_s": ranks_s,
+           "load_s": [r["load_s"] for r in ranks], "runs": {}}
+    log(f"tp: artifact {artifact_gb:.2f} GB saved in {save_s:.1f} s; "
+        f"{TP_DEGREE} ranks on one card over gloo ran {len(TP_RUNS)} runs in "
+        f"{ranks_s:.1f} s (load {out['load_s'][0]:.1f} s)")
+    out["tp1_fused"] = {k: base[k] for k in base
+                        if k not in ("logits", "request_tokens")}
+    for name, _, _ in TP_RUNS:
+        want, got = want_tokens[name], lead["runs"][name]
+        same = sum(got["request_tokens"].get(rid) == toks
+                   for rid, toks in want.items())
+        launches = {k: got["launches"][k] + worker["runs"][name][
+            "launches"][k] for k in got["launches"]}
+        row = {k: got[k] for k in got if k not in ("logits",
+                                                  "request_tokens")}
+        row.update(launches=launches,
+                   worker_launches=worker["runs"][name]["launches"],
+                   identical_requests=same)
+        out["runs"][name] = row
+        log(f"tp {name}: TP=2 tokens identical to TP=1 for {same}/"
+            f"{len(want)} requests; shard columns {got['shard_cols']}, arena "
+            f"KV heads {got['arena_kv_heads']} of {cfg.n_kv}; launches (both "
+            f"ranks) {launches}; host ms at TP=2: " + ", ".join(
+                f"{k} {got[k]:.2f}" for k in (
+                    "decode_step_ms", "prefill_chunk_ms", "ms_per_round",
+                    "acceptance_rate") if k in got)
+            + (f" (TP=1 eager: decode_step_ms {base['decode_step_ms']:.2f}, "
+               f"prefill_chunk_ms {base['prefill_chunk_ms']:.2f})"
+               if name == "fused" else ""))
+        check(same == len(want),
+              f"tp {name}: TP=2 tokens differ from TP=1's")
+        check(got["tp"] == TP_DEGREE and got["captures"] == 0,
+              f"tp {name}: the ranks' engine reported tp {got['tp']}, "
+              f"captures {got['captures']}")
+        gemm = "rht_qmatmul" if name != "unfused" else "qmatmul"
+        for rank, by in enumerate((got["launches"],
+                                   worker["runs"][name]["launches"])):
+            check(by[gemm] > 0 and by["paged_attention"] > 0
+                  and (name != "unfused" or (by["rht"] > 0
+                                             and by["rht_qmatmul"] == 0)),
+                  f"tp {name}: rank {rank} launched {by}")
+    steps = []
+    for i, (a, b) in enumerate(zip(base["logits"],
+                                   lead["runs"]["fused"]["logits"])):
+        steps.append({"step": i, "bit_identical": bool(np.array_equal(a, b)),
+                      "max_abs_diff": float(np.max(np.abs(a - b)))})
+    check(len(steps) == TP_LOGIT_STEPS,
+          f"tp: {len(steps)} decode steps' logits compared")
+    out["logit_steps"] = steps
+    out["candidate_ops"] = tp_candidate_ops(params, dev)
+    check(all(v for k, v in out["candidate_ops"].items()
+              if "planned from the layer's" in k or "from all KV" in k),
+          f"tp: a kernel planned from the full widths changed a rank's "
+          f"columns: {out['candidate_ops']}")
+    differ = [s["step"] for s in steps if not s["bit_identical"]]
+    log(f"tp logits, first {TP_LOGIT_STEPS} decode steps: bit-identical to "
+        f"TP=1 at {TP_LOGIT_STEPS - len(differ)}, max |diff| "
+        f"{max(s['max_abs_diff'] for s in steps):.3g}"
+        + (f"; differing steps {differ}" if differ else ""))
+    unequal = [k for k, v in out["candidate_ops"].items() if not v]
+    log(f"tp candidate ops (each rank's columns bit for bit as in the whole "
+        f"product): {json.dumps(out['candidate_ops'])}"
+        + (f"; candidates that differ: {', '.join(unequal) or 'none'}"
+           if differ else ""))
     return out
 
 
@@ -2513,15 +2810,16 @@ class SpecServer(GapRecordingServer):
         self._emitted: list = []
         self.cow_checked = 0
 
-    def _compiled(self, key, fn, inert):
+    def _op(self, kind):
+        fn = super()._op(kind)
         counter = self.overflow           # the closure holds no engine
-        if counter is not None and key[0] in ("decode", "chunk", "verify"):
-            inner = fn
+        if counter is None or kind not in ("decode", "chunk", "verify"):
+            return fn
 
-            def fn(**inputs):
-                with moemod.count_overflow(counter):
-                    return inner(**inputs)
-        return super()._compiled(key, fn, inert)
+        def counted(**inputs):
+            with moemod.count_overflow(counter):
+                return fn(**inputs)
+        return counted
 
     def _overflows(self, decode: bool, fn, *a):
         self._emitted = []
@@ -3074,7 +3372,10 @@ def moe_serve_phase(dev, params) -> dict:
 # ------------------------------------------------------------ dense configs
 
 DENSE_ARCHS = ("internlm2-1.8b", "llama3.2-3b", "qwen3-0.6b", "yi-34b")
-# every dense config's depth is cut to 4 layers (widths as published).
+# every dense config's depth is cut to 2 layers (widths as published; 4
+# until the tensor-parallel phase joined the script: a whole run on a
+# slow host then took 1210.2 s on an H100 80GB HBM3 at 700 W, dense 66.5 s
+# of it at 4 layers).
 # yi-34b's fp32 weights (2.2 GB a layer over 60 layers) would exceed the
 # card's 80 GB.  The three small ones fit but the time does not: with them
 # at full depth the whole script ran 1059.8 s on an H100 (80GB HBM3, 700
@@ -3082,7 +3383,7 @@ DENSE_ARCHS = ("internlm2-1.8b", "llama3.2-3b", "qwen3-0.6b", "yi-34b")
 # quantize 179.8, serve 157.6, prefix 71.8, speculation 218.8, gather
 # 41.0, front door 28.6, lockstep 16.0 + 1.9, Mixtral 24.1 + 75.8 + 22.8
 # and dense 172.0
-DENSE_LAYERS = 4
+DENSE_LAYERS = 2
 DENSE_PROMPT_LENS = [64, 200, 128, 96]
 
 
@@ -3415,12 +3716,23 @@ QWEN2_VL, WHISPER = "qwen2-vl-2b", "whisper-large-v3"
 # a 19.83 GiB calibration peak), which keeps all 64.
 WHISPER_LAYERS = 8
 _WHISPER_DEPTH = [32]          # main() sets WHISPER_LAYERS for the whole run
+# qwen2-vl-2b's depth in the whole run: QWEN2_VL_LAYERS of its 28 layers
+# (published widths).  At 28 the phase took 99.3 s of an 846.7 s whole
+# run and 158.7 s of a 1210.2 s one on a slower host, past the 1200 s
+# limit once the tensor-parallel phase joined (H100 80GB HBM3, 700 W);
+# --mrope-whisper keeps all 28.
+QWEN2_VL_LAYERS = 14
+_QWEN2_VL_DEPTH = [28]         # main() sets QWEN2_VL_LAYERS for the whole run
 WHISPER_BATCH = 4              # decoder prompts, each over its own clip
 WHISPER_PROMPT = 64            # decoder prompt tokens before GEN_LEN new
 # the mrope steps' batch: MROPE_BATCH prompts of MROPE_PROMPT tokens, a
 # GRID_SIDE x GRID_SIDE vision grid (temporal 0, height i // side, width
 # i % side) and then text from the grid's largest position + 1
 MROPE_BATCH, MROPE_PROMPT, GRID_SIDE = 4, 128, 8
+
+
+def qwen2_vl_config():
+    return get_config(QWEN2_VL).with_(n_layers=_QWEN2_VL_DEPTH[0])
 
 
 def whisper_config():
@@ -3516,9 +3828,9 @@ def steps_three_ways(what: str, cfg, params, batch, n_tokens,
 
 
 def qwen2_vl_phase(dev) -> dict:
-    """qwen2-vl-2b at its published width and depth (28 layers, d_model
-    1536, 12 heads over 2 KV heads of 128, d_ff 8960, vocab 151936, mrope
-    sections (16, 24, 24)): quantized (``family_quantize``, AVG_BITS), then
+    """qwen2-vl-2b at its published width (d_model 1536, 12 heads over 2
+    KV heads of 128, d_ff 8960, vocab 151936, mrope sections (16, 24,
+    24)), at this run's depth (``qwen2_vl_config``): quantized (``family_quantize``, AVG_BITS), then
     the paged engine over 8 slots serves the churn workload by graph,
     eagerly (tokens and launches identical) and unfused by graph (tokens
     equal but at near-ties), each followed on the same engine by one
@@ -3530,7 +3842,7 @@ def qwen2_vl_phase(dev) -> dict:
     engine; then ``make_prefill_step`` / ``make_serve_step`` on a
     (3, B, S) vision-grid batch, fused and unfused."""
     t_phase = time.monotonic()
-    cfg = get_config(QWEN2_VL)
+    cfg = qwen2_vl_config()
     out, params = family_quantize(QWEN2_VL, dev, cfg=cfg)
     pool = llama2_pool()
     lens = PROMPT_LENS
@@ -4451,10 +4763,10 @@ class DriverServer(GapRecordingServer):
         self.capture_threads: dict = {}
         self.step_events: list = []
 
-    def _compiled(self, key, fn, inert):
+    def _compiled(self, key, inert):
         if key not in self.graphs.steps and not graphs.eager_enabled():
             self.capture_threads[key] = threading.current_thread().name
-        step = super()._compiled(key, fn, inert)
+        step = super()._compiled(key, inert)
         events = self.step_events
 
         def timed(inputs):
@@ -4926,6 +5238,32 @@ def prefix_main(dev, smi) -> int:
     return 0
 
 
+def tp_main(dev, smi) -> int:
+    """``--tp``: build every kernel, quantize llama2-7b with its
+    DRAFT_BITS draft (without the plain code-search comparison), serve the
+    churn workload by graph fused and unfused (the tokens TP=2 is held
+    to), then
+    ``tp_phase``, at the whole run's depth (LLAMA2_LAYERS).  Prints one
+    JSON line (also ``chiprun_out/chip_smoke_tp.json``)."""
+    _LLAMA2_DEPTH[0] = LLAMA2_LAYERS
+    _build.build()
+    quant, qparams, draft = quantize_phase(dev, compare=False,
+                                           draft_bits=DRAFT_BITS)
+    _, res, _ = serve(llama2_config(), qparams, dev, llama2_pool())
+    _, unf, _ = serve(llama2_config(), qparams, dev, llama2_pool(),
+                      fused=False)
+    t0 = time.monotonic()
+    out = {"gpu": smi, "quantize": quant,
+           "tp": tp_phase(dev, qparams, draft, {
+               "request_tokens": token_lists(res),
+               "unfused": {"request_tokens": token_lists(unf)}})}
+    out["tp_s"] = time.monotonic() - t0
+    (OUT_DIR / "chip_smoke_tp.json").write_text(json.dumps(out, indent=1))
+    log(json.dumps(compact(out)))
+    log(smi)
+    return 0
+
+
 def ptxas_lines(logs: dict) -> dict:
     """Each source's ptxas register and spill lines from its build log."""
     return {name: [ln.strip() for ln in lg.splitlines()
@@ -5088,12 +5426,15 @@ def main() -> int:
         return families_main(dev, smi)
     if sys.argv[1:] == ["--mrope-whisper"]:
         return mrope_whisper_main(dev, smi)
+    if sys.argv[1:] == ["--tp"]:
+        return tp_main(dev, smi)
     if modes:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
 
     _LLAMA2_DEPTH[0] = LLAMA2_LAYERS
     _WHISPER_DEPTH[0] = WHISPER_LAYERS
+    _QWEN2_VL_DEPTH[0] = QWEN2_VL_LAYERS
     t_build = time.monotonic()
     logs = _build.build()
     build_s = time.monotonic() - t_build
@@ -5167,6 +5508,7 @@ def main() -> int:
     quant_out, qparams, draft = timed("quantize", quantize_phase, dev, True,
                                       DRAFT_BITS)
     serve_out = timed("serve", serve_phase, dev, qparams)
+    tp_out = timed("tp", tp_phase, dev, qparams, draft, serve_out)
     prefix_out = timed("prefix", prefix_phase, dev, qparams)
     spec_out = timed("speculation", spec_phase, dev, qparams, draft,
                      serve_out["request_tokens"],
@@ -5207,8 +5549,10 @@ def main() -> int:
     # (llama2, Mixtral; their quantizations are counted with the targets')
     # and the bf16-arena path llama2's spec-off graph run; the gather path
     # is llama2's paged_kernel=False run by graph, the front door its first
-    # pass, the lockstep paths each mode's first call; each dense config
-    # counts its own quantization, fused and unfused runs
+    # pass, the lockstep paths each mode's first call; the TP paths are the
+    # TP=2 runs at shard widths, fused and unfused (llama2_tp) and
+    # speculating (llama2_tp_spec), each run's launches on both ranks; each
+    # dense config counts its own quantization, fused and unfused runs
     none = dict.fromkeys(counts(), 0)
     runs = {"llama2": {"quantize": quant_out["code_search_launches"],
                        "fused": serve_out["launches"],
@@ -5222,6 +5566,12 @@ def main() -> int:
             "llama2_spec": {"quantize": 0,
                             "fused": spec_out["draft"]["launches"],
                             "unfused": none},
+            "llama2_tp": {"quantize": 0,
+                          "fused": tp_out["runs"]["fused"]["launches"],
+                          "unfused": tp_out["runs"]["unfused"]["launches"]},
+            "llama2_tp_spec": {"quantize": 0,
+                               "fused": tp_out["runs"]["spec"]["launches"],
+                               "unfused": none},
             "llama2_bf16": {"quantize": 0,
                             "fused": spec_out["bf16"]["off graph"][
                                 "launches"], "unfused": none},
@@ -5292,22 +5642,23 @@ def main() -> int:
                     for path, r in runs.items()}
         return {path: r[run][kernel] for path, r in runs.items()}
     spec = ("llama2_spec", "llama2_bf16", "mixtral_spec")
+    tp_paths = ("llama2_tp", "llama2_tp_spec")
     lockstep = ("lockstep_llama2", "lockstep_mixtral")
     fam_lock = tuple(f"lockstep_{p}" for p in families)
     on_path = {  # kernel -> (run that counts it, paths that must launch it)
         "rht_qmatmul": ("fused", ("llama2", "mixtral", "llama2_prefix",
-                                  *spec, *dense, "llama2_gather",
+                                  *spec, *tp_paths, *dense, "llama2_gather",
                                   "frontdoor", *lockstep, *families,
                                   *fam_lock, *qwen3, *mw,
                                   "qwen2_vl_lockstep")),
         "paged_attention": ("fused", ("llama2", "mixtral", "llama2_prefix",
-                                      *spec, *dense, "frontdoor",
+                                      *spec, *tp_paths, *dense, "frontdoor",
                                       "recurrentgemma", *qwen3, "qwen3_gptq",
                                       "qwen2_vl")),
-        "qmatmul": ("unfused", ("llama2", "mixtral", *dense, *families,
-                                "lockstep_llama2_unfused", *mw)),
-        "rht": ("unfused", ("llama2", "mixtral", *dense, *families,
-                            "lockstep_llama2_unfused", *mw)),
+        "qmatmul": ("unfused", ("llama2", "mixtral", "llama2_tp", *dense,
+                                *families, "lockstep_llama2_unfused", *mw)),
+        "rht": ("unfused", ("llama2", "mixtral", "llama2_tp", *dense,
+                            *families, "lockstep_llama2_unfused", *mw)),
         "rabitq_quant": ("quantize", ("llama2", "mixtral", *dense,
                                       *families, *qwen3, *mw)),
         "grouped_rht_qmatmul": ("fused", ("mixtral", "mixtral_spec",
@@ -5385,6 +5736,7 @@ def main() -> int:
                   "n", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms")},
               gemm_launches_by_run_and_phase=gemms,
+              tp_shard_cols=tp_out["runs"]["fused"]["shard_cols"],
               mrope_whisper=[{k: t[k] for k in (
                   "n", "d", "c", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms")} for t in mw_times],
@@ -5400,7 +5752,8 @@ def main() -> int:
                   "library_ms")} for t in attn_times[1:]],
               decode_profile={path: serve_r["decode_profile"][
                   "paged_attention"] for path, serve_r in (
-                      ("llama2", serve_out), ("mixtral", moe_serve))}),
+                      ("llama2", serve_out), ("mixtral", moe_serve))},
+              tp_arena_kv_heads=tp_out["runs"]["fused"]["arena_kv_heads"]),
         entry("qmatmul", "src/repro_torch/csrc/rht_qmatmul.cu",
               "src/repro/kernels/qmatmul/qmatmul.py:66", unfused_err,
               decode_unfused, ("n", "d", "c", "bits"),
@@ -5465,7 +5818,8 @@ def main() -> int:
               "uniform_code_search_times": uniform_search_times,
               "attention_check": attn_check, "attention_times": attn_times,
               "quantize": quant_out,
-              "serve": serve_out, "grouped_times": grouped_times,
+              "serve": serve_out, "tp": tp_out,
+              "grouped_times": grouped_times,
               "grouped_unfused_times": grouped_unfused_times,
               "flash_times": flash_times,
               "gemm_check": gemm_worst, "grouped_check": grouped_check,

@@ -13,6 +13,10 @@ signs, and ``draw_signs`` draws fresh ones from a ``torch.Generator``.  Its
 code search goes through ``kernels/rabitq_quant/ops.quantize`` (the CUDA
 kernel on the card, ``core/rabitq.quantize`` for CPU tensors).
 
+Under tensor parallelism a rank holds a column slice of ``packed``,
+``rescale`` and ``w_out`` with the static ``c`` of the whole layer
+(``runtime/tp.py``), which the GEMM dispatch plans its reduction from.
+
 ``QuantizedGrouped`` is the stacked per-expert form for MoE weights (E, d,
 c): signs shared across the experts of a layer, a rescale per (expert,
 column), no outliers and no centralization (as in the reference); its
@@ -66,7 +70,11 @@ class QuantizedLinear:
         return int(n)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """Estimate x @ W for x of shape (..., d) — Alg. 3 + corrections."""
+        """Estimate x @ W for x of shape (..., d) — Alg. 3 + corrections.
+        The output width is ``rescale``'s, not the static ``c``: a
+        tensor-parallel rank holds a column slice whose static ``c`` stays
+        the whole layer's (``runtime/tp.prepare_params``), which the GEMM
+        plans from, and every column's estimate is independent."""
         from repro_torch.kernels.qmatmul import ops as qops  # late: no cycle
         lead = x.shape[:-1]
         c = self.rescale.shape[-1]
@@ -78,7 +86,8 @@ class QuantizedLinear:
             x_out, x_rest = None, x2
         y = qops.rht_quantized_matmul(x_rest, self.packed, self.rescale,
                                       self.signs1, self.signs2,
-                                      bits=self.bits, d=self.d_keep)
+                                      bits=self.bits, d=self.d_keep,
+                                      plan_c=self.c)
         if self.mean_col is not None:
             y = (x_rest @ self.mean_col.to(torch.float32))[:, None] + y
         if x_out is not None:
@@ -172,7 +181,7 @@ class QuantizedGrouped:
         from repro_torch.kernels.qmatmul import ops as qops  # late: no cycle
         return qops.grouped_rht_quantized_matmul(
             xbuf, self.packed, self.rescale, self.signs1, self.signs2,
-            bits=self.bits, d=self.d)
+            bits=self.bits, d=self.d, plan_c=self.c)
 
 
 def quantize_grouped(w: torch.Tensor, bits: int, signs1: torch.Tensor,

@@ -42,6 +42,11 @@ only) merges the others' partials in split order, so results repeat bit
 for bit. ``ref.paged_attention_plan_walk`` walks the same plan on the
 host. The kernel takes head_dim 64, 128 or 256 (``HEAD_DIMS``) and raises
 for others.
+
+``plan_heads(kv)`` names the KV-head count S is planned from (default: the
+arena's).  A tensor-parallel rank's arena holds n_kv / tp heads; the engine
+names the whole model's n_kv, so every request splits its keys as at TP=1
+and each head's merge runs in the same order (``runtime/tp.py``).
 """
 from __future__ import annotations
 
@@ -58,6 +63,8 @@ from .ref import (MIN_SPLIT_KEYS, TILE_KEYS, paged_attention_gather,
 _FORCE_PATH: str | None = None  # "kernel" | "ref" | None — tests poke this
 _USE_KERNEL: contextvars.ContextVar[bool | None] = contextvars.ContextVar(
     "repro_torch_paged_attention_kernel", default=None)
+_PLAN_KV: contextvars.ContextVar[int | None] = contextvars.ContextVar(
+    "repro_torch_paged_attention_plan_kv", default=None)
 launches = 0                    # kernel launches (one per wrapper call)
 CTAS_PER_SM = 2                 # resident split CTAs per SM (f32 ring 96 KB
 #                                 at hd 128; see ctas_per_sm)
@@ -84,6 +91,17 @@ def paged_kernel(enabled: bool | None):
         yield
     finally:
         _USE_KERNEL.reset(token)
+
+
+@contextlib.contextmanager
+def plan_heads(kv: int | None):
+    """Scoped: the KV-head count the kernel's split plan counts (None: the
+    arena's own).  Nests and unwinds."""
+    token = _PLAN_KV.set(kv)
+    try:
+        yield
+    finally:
+        _PLAN_KV.reset(token)
 
 
 def kernel_enabled() -> bool:
@@ -205,7 +223,8 @@ def paged_attention_cuda(q, k_arena, v_arena, block_table, pos, ring_cap, *,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    splits = kv_splits(b, kv, mb, bs, _sm_count(dev.index),
+    plan_kv = _PLAN_KV.get() or kv          # see plan_heads
+    splits = kv_splits(b, plan_kv, mb, bs, _sm_count(dev.index),
                        ctas_per_sm(hd, k_arena.dtype == torch.bfloat16))
     scratch = ()                # per-split partials, for the combine launch
     if splits > 1:

@@ -56,6 +56,13 @@ with an expert axis: the signs are shared by the experts, so the rotation
 axis of its grid, offsetting the packed codes by e*pr*c and x_rot by
 e*C*x_ld; the epilogue reads rescale[e].  At decode C is 2 (one n-tile),
 at a 64-token prefill chunk 20 (three).
+
+Planning width: every entry takes ``plan_c``, the width the split of d is
+planned from (default: the packed codes' own c).  Under tensor
+parallelism a rank holds a column slice of a layer and passes the whole
+layer's c (``QuantizedLinear.c``), so each column sums the same splits in
+the same order as at TP=1 and greedy tokens do not depend on the degree
+(``runtime/tp.py``).
 """
 from __future__ import annotations
 
@@ -128,14 +135,14 @@ def fused_enabled() -> bool:
 
 
 def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
-                     rescale: torch.Tensor, *, bits: int,
-                     d: int) -> torch.Tensor:
+                     rescale: torch.Tensor, *, bits: int, d: int,
+                     plan_c: int | None = None) -> torch.Tensor:
     """Estimate X @ (r * (codes - c_b)) for an already-rotated X (..., d)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if _use_kernel(x2):
         y = quantized_matmul_cuda(x2.to(torch.float32).contiguous(), packed,
-                                  rescale, bits=bits, d=d)
+                                  rescale, bits=bits, d=d, plan_c=plan_c)
     else:
         y = quantized_matmul_ref(x2, packed, rescale, bits=bits, d=d)
     return y.reshape(*lead, y.shape[-1])
@@ -144,7 +151,7 @@ def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
 def rht_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
                          rescale: torch.Tensor, signs1: torch.Tensor,
                          signs2: torch.Tensor | None, *, bits: int,
-                         d: int) -> torch.Tensor:
+                         d: int, plan_c: int | None = None) -> torch.Tensor:
     """Estimate practical_rht(X) @ (r * (codes - c_b)) for X (..., d): one
     fused dispatch, or under ``fusion(False)`` the RHT kernel then
     ``quantized_matmul``."""
@@ -153,11 +160,11 @@ def rht_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
     if not _FUSE_RHT.get():
         from repro_torch.kernels.hadamard import ops as hops  # late: no cycle
         xr = hops.practical_rht(x2.to(torch.float32), signs1, signs2)
-        return quantized_matmul(xr, packed, rescale, bits=bits,
-                                d=d).reshape(*lead, -1)
+        return quantized_matmul(xr, packed, rescale, bits=bits, d=d,
+                                plan_c=plan_c).reshape(*lead, -1)
     if _use_kernel(x2):
         y = rht_quantized_matmul_cuda(x2, packed, rescale, signs1, signs2,
-                                      bits=bits, d=d)
+                                      bits=bits, d=d, plan_c=plan_c)
     else:
         y = rht_quantized_matmul_ref(x2, packed, rescale, signs1, signs2,
                                      bits=bits, d=d)
@@ -165,20 +172,22 @@ def rht_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
 
 
 def grouped_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
-                             rescale: torch.Tensor, *, bits: int,
-                             d: int) -> torch.Tensor:
+                             rescale: torch.Tensor, *, bits: int, d: int,
+                             plan_c: int | None = None) -> torch.Tensor:
     """Per-expert ``quantized_matmul`` on an already-rotated x (E, C, d),
     packed (E, pr, c), rescale (E, c) -> (E, C, c)."""
     if _use_kernel(x):
         return grouped_quantized_matmul_cuda(
-            x.to(torch.float32).contiguous(), packed, rescale, bits=bits, d=d)
+            x.to(torch.float32).contiguous(), packed, rescale, bits=bits, d=d,
+            plan_c=plan_c)
     return grouped_quantized_matmul_ref(x, packed, rescale, bits=bits, d=d)
 
 
 def grouped_rht_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
                                  rescale: torch.Tensor, signs1: torch.Tensor,
                                  signs2: torch.Tensor | None, *, bits: int,
-                                 d: int) -> torch.Tensor:
+                                 d: int,
+                                 plan_c: int | None = None) -> torch.Tensor:
     """Per-expert fused estimate: x (E, C, d), packed (E, pr, c), rescale
     (E, c) -> (E, C, c), the signs shared by the experts.  Under
     ``fusion(False)``, as the reference's vmap does, the RHT runs first
@@ -189,10 +198,12 @@ def grouped_rht_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
         from repro_torch.kernels.hadamard import ops as hops  # late: no cycle
         xr = hops.practical_rht(x.reshape(e * cap, d), signs1, signs2)
         return grouped_quantized_matmul(xr.reshape(e, cap, d), packed,
-                                        rescale, bits=bits, d=d)
+                                        rescale, bits=bits, d=d,
+                                        plan_c=plan_c)
     if _use_kernel(x):
         return grouped_rht_quantized_matmul_cuda(
-            x, packed, rescale, signs1, signs2, bits=bits, d=d)
+            x, packed, rescale, signs1, signs2, bits=bits, d=d,
+            plan_c=plan_c)
     return grouped_rht_quantized_matmul_ref(x, packed, rescale, signs1,
                                             signs2, bits=bits, d=d)
 
@@ -219,9 +230,7 @@ def split_plan(n: int, d: int, c: int, n_sm: int, groups: int = 1):
     are added until about ``CTAS_PER_SM`` CTAs per SM, and until no split
     covers more than ``MAX_CHUNKS_PER_SPLIT`` chunks.  The kernel reads
     code rows in 16-byte chunks, so c must be a multiple of 16."""
-    if c % 16:
-        raise ValueError(f"c={c}: the GEMM reads code rows in 16-byte chunks, "
-                         f"so c must be a multiple of 16")
+    _check_cols(c)
     rows = min(n, 8 * N_TILES[-1])
     nt = next(t for t in N_TILES if 8 * t >= rows)
     chunks = -(-d // K_CHUNK)
@@ -231,6 +240,12 @@ def split_plan(n: int, d: int, c: int, n_sm: int, groups: int = 1):
                  -(-chunks // MAX_CHUNKS_PER_SPLIT))
     cps = -(-chunks // splits)
     return nt, cps, -(-chunks // cps)
+
+
+def _check_cols(c: int) -> None:
+    if c % 16:
+        raise ValueError(f"c={c}: the GEMM reads code rows in 16-byte chunks, "
+                         f"so c must be a multiple of 16")
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -243,12 +258,15 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 def _launch(x: torch.Tensor, packed: torch.Tensor, rescale: torch.Tensor,
             signs1: torch.Tensor | None, signs2: torch.Tensor | None, *,
-            bits: int, d: int, groups: int) -> torch.Tensor:
+            bits: int, d: int, groups: int,
+            plan_c: int | None = None) -> torch.Tensor:
     """One launch of the GEMM kernels for ``groups`` experts of n rows each
     (groups 1: a plain linear).  x (groups*n, d) f32; packed (groups, pr, c)
     uint8; rescale (groups, c) f16.  With ``signs1`` the fused entry
     (rotation inside), without it the unfused entry (x already rotated).
-    Returns (groups*n, c) f32."""
+    The split of d is planned for ``plan_c`` columns where that is wider
+    than c (a tensor-parallel slice of a wider layer).  Returns
+    (groups*n, c) f32."""
     if not 1 <= bits <= 8:
         raise ValueError(f"bits must be in [1, 8], got {bits}")
     dev = x.device
@@ -280,7 +298,9 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, rescale: torch.Tensor,
     if rows == 0 or c == 0:
         return out
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_tiles, cps, splits = split_plan(n, d, c, n_sm, groups)   # checks c
+    _check_cols(c)
+    n_tiles, cps, splits = split_plan(n, d, max(c, plan_c or 0), n_sm,
+                                      groups)
     x_ld = -(-d // K_CHUNK) * K_CHUNK           # zero-padded rows
     xrot = torch.empty((rows, x_ld), dtype=torch.float32, device=dev)
     rowsum = torch.empty((rows,), dtype=torch.float32, device=dev)
@@ -309,24 +329,25 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, rescale: torch.Tensor,
 def rht_quantized_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
                               rescale: torch.Tensor, signs1: torch.Tensor,
                               signs2: torch.Tensor | None, *, bits: int,
-                              d: int) -> torch.Tensor:
+                              d: int,
+                              plan_c: int | None = None) -> torch.Tensor:
     """The kernel on the card: x (n, d) f32, packed (packed_rows(d), c)
     uint8, rescale (c,) f16, signs (d_hat,) f32 -> (n, c) f32."""
     global launches
     out = _launch(x, packed[None], rescale[None], signs1, signs2, bits=bits,
-                  d=d, groups=1)
+                  d=d, groups=1, plan_c=plan_c)
     launches += 1
     return out
 
 
 def quantized_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
-                          rescale: torch.Tensor, *, bits: int,
-                          d: int) -> torch.Tensor:
+                          rescale: torch.Tensor, *, bits: int, d: int,
+                          plan_c: int | None = None) -> torch.Tensor:
     """The unfused kernel on the card: an already-rotated x (n, d) f32,
     packed (packed_rows(d), c) uint8, rescale (c,) f16 -> (n, c) f32."""
     global unfused_launches
     out = _launch(x, packed[None], rescale[None], None, None, bits=bits, d=d,
-                  groups=1)
+                  groups=1, plan_c=plan_c)
     unfused_launches += 1
     return out
 
@@ -335,7 +356,9 @@ def grouped_rht_quantized_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
                                       rescale: torch.Tensor,
                                       signs1: torch.Tensor,
                                       signs2: torch.Tensor | None, *,
-                                      bits: int, d: int) -> torch.Tensor:
+                                      bits: int, d: int,
+                                      plan_c: int | None = None
+                                      ) -> torch.Tensor:
     """The grouped kernel on the card: x (E, C, d) f32, packed (E, pr, c)
     uint8, rescale (E, c) f16, shared signs (d_hat,) f32 -> (E, C, c)."""
     global grouped_launches
@@ -343,14 +366,14 @@ def grouped_rht_quantized_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"x must be (E, C, d), got {tuple(x.shape)}")
     e, cap, _ = x.shape
     out = _launch(x.reshape(e * cap, -1), packed, rescale, signs1, signs2,
-                  bits=bits, d=d, groups=e)
+                  bits=bits, d=d, groups=e, plan_c=plan_c)
     grouped_launches += 1
     return out.reshape(e, cap, -1)
 
 
 def grouped_quantized_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
-                                  rescale: torch.Tensor, *, bits: int,
-                                  d: int) -> torch.Tensor:
+                                  rescale: torch.Tensor, *, bits: int, d: int,
+                                  plan_c: int | None = None) -> torch.Tensor:
     """The grouped unfused kernel on the card: an already-rotated x (E, C,
     d) f32, packed (E, pr, c) uint8, rescale (E, c) f16 -> (E, C, c)."""
     global grouped_unfused_launches
@@ -358,6 +381,6 @@ def grouped_quantized_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"x must be (E, C, d), got {tuple(x.shape)}")
     e, cap, _ = x.shape
     out = _launch(x.reshape(e * cap, -1), packed, rescale, None, None,
-                  bits=bits, d=d, groups=e)
+                  bits=bits, d=d, groups=e, plan_c=plan_c)
     grouped_unfused_launches += 1
     return out.reshape(e, cap, -1)

@@ -12,6 +12,7 @@
         --avg-bits 3.3          # also deepseek-v2-236b, recurrentgemma-2b,
                                 # qwen2-vl-2b
     python -m repro_torch.launch.serve --device cpu --tiny --serve --port 8080
+    python -m repro_torch.launch.serve --device cpu --tiny --tp 2
 
 Random weights from a seeded generator; with ``--avg-bits`` the model is
 calibrated on the paper's zero-shot sentence, bit widths are allocated
@@ -61,11 +62,18 @@ none either, so it fails there too); the port's refuses at construction.
 Whisper serves through ``runtime/steps.make_prefill_step`` /
 ``make_serve_step`` with ``enc_embeds`` in the batch.
 
-Not ported yet: ``--tp`` above 1 (ROADMAP Queue 1 item 6).
+``--tp N`` serves tensor-parallel over N ranks, one process each
+(``launch/mesh.spawn``; gloo on the host, NCCL with one card per rank,
+which refuses a host with fewer cards): the model is built and quantized
+here, each rank takes its column shard (``runtime/tp.py``), rank 0 drives
+the engine (``serve_rank``) and its run is printed with ``tp=N``.  Greedy
+tokens equal ``--tp 1``'s.  TP steps run eagerly (no CUDA graphs);
+``--serve`` with ``--tp`` above 1 is refused (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import time
 
@@ -79,6 +87,7 @@ from repro_torch.core import pipeline as pipe
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.kernels.paged_attention import ops as pops
 from repro_torch.kernels.qmatmul import ops as qops
+from repro_torch.launch import mesh
 from repro_torch.models import decode as decmod
 from repro_torch.models import transformer as tf
 from repro_torch.serve import PagedServer, PoolConfig, Request, graphs
@@ -199,6 +208,56 @@ class BatchedServer:
         return tokens
 
 
+def _to_device(node, dev):
+    """A param tree with every tensor, quantized weights' too, on ``dev``
+    (shared where it is already there)."""
+    if isinstance(node, dict):
+        return {k: _to_device(v, dev) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to_device(v, dev) for v in node]
+    if isinstance(node, torch.Tensor):
+        return node.to(dev)
+    if dataclasses.is_dataclass(node):
+        return dataclasses.replace(node, **{
+            f.name: _to_device(getattr(node, f.name), dev)
+            for f in dataclasses.fields(node)
+            if isinstance(getattr(node, f.name), torch.Tensor)})
+    return node
+
+
+def serve_rank(group, jobs: list) -> list | None:
+    """One rank's part of a tensor-parallel run (``launch.mesh.spawn``):
+    each job, a dict of ``cfg``, ``params`` (the full tree, on any
+    device), ``pool``, ``requests`` and ``engine`` (``PagedServer``
+    keyword arguments, ``draft_params`` among them), is served by a
+    ``PagedServer`` over ``group``.  Rank 0 drives and returns per job the
+    tokens by rid, the engine's stats and the run's seconds; the other
+    ranks mirror its device ops and return None."""
+    out = []
+    for job in jobs:
+        kw = dict(job.get("engine", {}))
+        if kw.get("draft_params") is not None:
+            kw["draft_params"] = _to_device(kw["draft_params"], group.device)
+        engine = PagedServer(job["cfg"],
+                             _to_device(job["params"], group.device),
+                             job["pool"], device=group.device, group=group,
+                             **kw)
+        if group.rank:
+            engine.serve_worker()
+            continue
+        try:
+            t0 = time.monotonic()
+            results = engine.run(list(job["requests"]))
+            _sync(group.device)
+            seconds = time.monotonic() - t0
+        finally:
+            engine.close()
+        out.append({"tokens": {rid: r.tokens.tolist()
+                               for rid, r in results.items()},
+                    "stats": engine.stats, "seconds": seconds})
+    return None if group.rank else out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama2-7b")
@@ -237,7 +296,9 @@ def main(argv=None):
                     help="average bit budget of the speculative draft "
                          "(used when --speculate > 0)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (not ported yet: only 1)")
+                    help="tensor-parallel degree: N ranks, one process "
+                         "each (gloo on the host, one card per rank over "
+                         "NCCL); greedy tokens equal --tp 1's")
     ap.add_argument("--serve", action="store_true",
                     help="boot the streaming HTTP/SSE front door on --port "
                          "instead of the one-shot run (POST /v1/generate, "
@@ -263,14 +324,18 @@ def main(argv=None):
         ap.error("--tp needs the paged engine (drop --lockstep)")
     if args.serve and args.lockstep:
         ap.error("--serve needs the paged engine (drop --lockstep)")
-    if args.tp != 1:
-        ap.error("--tp: tensor-parallel serving is not ported yet (ROADMAP "
-                 "Queue 1 item 6)")
+    if args.tp > 1 and args.serve:
+        ap.error("--serve with --tp > 1: the front door under tensor "
+                 "parallelism is not ported yet (ROADMAP Queue 1 item 9)")
     if args.paged_kernel and torch.device(args.device).type != "cuda":
         ap.error("--paged-kernel needs the card: the flash-decode kernel "
                  "has no host version (drop it, or --device cpu)")
 
     dev = resolve_device(args.device)
+    try:
+        mesh.resolve_backend(args.tp, None, dev)
+    except ValueError as e:
+        ap.error(f"--tp {args.tp}: {e}")
     cfg = get_tiny(args.arch) if args.tiny else get_config(args.arch)
     if cfg.enc_dec:
         ap.error(f"{cfg.name}: "
@@ -342,40 +407,52 @@ def main(argv=None):
                       prefix_cache=args.prefix_cache,
                       kv_dtype=(torch.bfloat16 if args.kv_dtype == "bf16"
                                 else torch.float32))
-    engine = PagedServer(cfg, params, pool, fused=not args.unfused,
-                         paged_kernel=args.paged_kernel,
-                         draft_params=draft_params, speculate=args.speculate,
-                         device=dev)
-    if args.serve:
-        from repro_torch.serve.frontdoor import FrontDoor, SchedConfig
-        FrontDoor(engine, SchedConfig(slo_p95_ms=args.slo_p95_ms,
-                                      max_tenant_share=args.max_tenant_share),
-                  port=args.port).serve_forever()
-        return
-    t0 = time.monotonic()
-    results = engine.run([Request(rid=i, prompt=np.asarray(prompt),
-                                  max_new=args.gen)
-                          for i in range(args.requests)])
-    _sync(dev)
-    dt = time.monotonic() - t0
-    stats = engine.stats                # finalized by run()
-    sample = results[0].tokens
+    engine_kw = dict(fused=not args.unfused, paged_kernel=args.paged_kernel,
+                     draft_params=draft_params, speculate=args.speculate)
+    reqs = [Request(rid=i, prompt=np.asarray(prompt), max_new=args.gen)
+            for i in range(args.requests)]
+    if args.tp > 1:
+        # the ranks take host copies; each moves its shard to its device
+        host = torch.device("cpu")
+        engine_kw["draft_params"] = _to_device(draft_params, host)
+        job = {"cfg": cfg, "params": _to_device(params, host), "pool": pool,
+               "requests": reqs, "engine": engine_kw}
+        run = mesh.spawn(serve_rank, args.tp, [job], device=dev)[0][0]
+        sample = np.asarray(run["tokens"][0])
+        stats, dt = run["stats"], run["seconds"]
+    else:
+        engine = PagedServer(cfg, params, pool, device=dev, **engine_kw)
+        if args.serve:
+            from repro_torch.serve.frontdoor import FrontDoor, SchedConfig
+            FrontDoor(engine, SchedConfig(
+                slo_p95_ms=args.slo_p95_ms,
+                max_tenant_share=args.max_tenant_share),
+                port=args.port).serve_forever()
+            return
+        t0 = time.monotonic()
+        results = engine.run(reqs)
+        _sync(dev)
+        dt = time.monotonic() - t0
+        stats = engine.stats                # finalized by run()
+        sample = results[0].tokens
     with pops.paged_kernel(args.paged_kernel):
         attn = "kernel" if pops.kernel_enabled() else "gather"
     prefix = "prefix_cache=off"
-    if engine.prefix_cache is not None:
+    if "prefix_hit_rate" in stats:          # the engine's cache is on
         prefix = (f"prefix_cache=on, prefix_hit_rate="
                   f"{stats['prefix_hit_rate']:.2f}, prefill_tokens_saved="
                   f"{stats.get('prefill_tokens_saved', 0)}")
-    if engine.speculate:
-        prefix += (f", speculate={engine.speculate}, acceptance_rate="
+    if "acceptance_rate" in stats:          # the engine speculates
+        prefix += (f", speculate={args.speculate}, acceptance_rate="
                    f"{stats['acceptance_rate']:.2f}, spec_rounds="
                    f"{stats.get('spec_rounds', 0)}")
+    steps = (f"captures={stats['captures']} in {stats['capture_s']:.2f}s"
+             if args.tp == 1 else f"steps={stats['tp_steps']}")
     print(f"served {args.requests} requests x {args.gen} tokens in {dt:.2f}s "
           f"({args.requests * args.gen / dt:.1f} tok/s, {path} decode path, "
-          f"paged, occupancy={stats['mean_occupancy']:.2f}, "
-          f"captures={stats['captures']} in {stats['capture_s']:.2f}s, "
-          f"device={dev.type}, kv={args.kv_dtype}, attn={attn}, {prefix})")
+          f"paged, occupancy={stats['mean_occupancy']:.2f}, {steps}, "
+          f"device={dev.type}, tp={stats['tp']}, kv={args.kv_dtype}, "
+          f"attn={attn}, {prefix})")
     print("sample:", tok.decode(np.asarray(sample))[:80])
 
 

@@ -39,6 +39,11 @@ dispatches through ``common.linear``, so quantized layers run the fused
 RHT + dequant GEMM, and the decode read runs the paged flash-decode
 kernel.
 
+Tensor parallelism (``runtime/tp.py``): the paged steps gather the
+ranks' head slices before ``wo`` (``gather_heads``) and the vocab slices
+of the logits (``gather_cols``), at the reference's places; both are
+shape-driven no-ops at full width, so TP=1 runs the same code.
+
 The reference's jitted steps donate their caches so XLA aliases them in
 and out; here every cache is updated in place (``index_put_``,
 ``index_copy_``, ``copy_``) and the steps return the same cache objects.
@@ -59,6 +64,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels.paged_attention import ops as pops
+from repro_torch.runtime import tp as tpmod
 
 from . import attention as attnmod
 from . import mla as mlamod
@@ -351,6 +357,7 @@ def _attn_decode_paged(cfg: ModelConfig, p: dict, hn: torch.Tensor,
     out = attnmod.paged_decode_attention(q, cache["k"], cache["v"],
                                          block_tables, pos + 1, ring_cap,
                                          window=cfg.window)
+    out = tpmod.gather_heads(out, cfg.n_heads)
     return linear(p["wo"], out.reshape(b, 1, -1))
 
 
@@ -410,7 +417,7 @@ def decode_step_paged(cfg: ModelConfig, params: dict, caches: list,
         h = layer_decode_paged(cfg, mx, lp, h, cache, pos, active,
                                block_tables, ring_cap)
     h = apply_norm(cfg.norm, h, params["final_norm"])
-    logits = linear(params["lm_head"], h)
+    logits = tpmod.gather_cols(linear(params["lm_head"], h), cfg.vocab)
     return logits[:, 0], caches
 
 
@@ -458,6 +465,7 @@ def layer_verify_paged(cfg: ModelConfig, lp: dict, h: torch.Tensor,
         out = attnmod.paged_decode_attention(q, cache["k"], cache["v"],
                                              block_tables, pos0 + w, ring_cap,
                                              window=cfg.window)
+    out = tpmod.gather_heads(out, cfg.n_heads)
     h = h + linear(p["wo"], out.reshape(b, w, -1)).to(h.dtype)
     h2 = apply_norm(cfg.norm, h, lp["ln2"])
     y, _ = _ffn_apply(cfg, lp, h2)          # MoE routes all S * W tokens
@@ -487,7 +495,7 @@ def decode_verify_paged(cfg: ModelConfig, params: dict, caches: list,
         h = layer_verify_paged(cfg, lp, h, cache, pos0, active,
                                block_tables, ring_cap, wmask)
     h = apply_norm(cfg.norm, h, params["final_norm"])
-    return linear(params["lm_head"], h), caches
+    return tpmod.gather_cols(linear(params["lm_head"], h), cfg.vocab), caches
 
 
 def _slot_state(state, pos0: torch.Tensor, one: torch.Tensor):
@@ -527,6 +535,7 @@ def _attn_prefill_chunk(cfg: ModelConfig, p: dict, hn: torch.Tensor,
                                             k_hist.shape[1])
     out = attnmod.paged_prefill_attention(q, k_hist, v_hist, hist_pos, k, v,
                                           chunk_pos[None], window=cfg.window)
+    out = tpmod.gather_heads(out, cfg.n_heads)
     mix = linear(p["wo"], out.reshape(b, c, -1))
     block_size = cache["k"].shape[1]
     pb, off = attnmod.paged_write_indices(chunk_pos, ring_cap, bt_row,
@@ -604,4 +613,5 @@ def prefill_chunk_paged(cfg: ModelConfig, params: dict, caches: list,
         h = layer_prefill_chunk(cfg, mx, lp, h, cache, pos0, bt_row,
                                 ring_cap, slot, active)
     h = apply_norm(cfg.norm, h, params["final_norm"])
-    return linear(params["lm_head"], h[:, -1]), caches
+    logits = tpmod.gather_cols(linear(params["lm_head"], h[:, -1]), cfg.vocab)
+    return logits, caches

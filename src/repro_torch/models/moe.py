@@ -23,8 +23,10 @@ Where a loose port would diverge from the reference:
     run, and a graph replay and an eager run of one step could then
     differ in the last bit.
 
-The tensor-parallel column gather of the reference is an identity at TP = 1
-and comes with the TP slice (ROADMAP).
+Under tensor-parallel serving (``runtime/tp.py``) the expert ``wi`` and
+the shared experts' ``swi`` arrive sliced by column and ``wo`` / ``swo``
+replicated; ``gather_cols`` reassembles the full hidden width before each
+down-projection, a no-op at TP = 1, as in the reference.
 
 ``count_overflow(counter)`` is a measuring aid with no counterpart in the
 reference: every ``moe_ffn`` call run (or captured) inside it adds the
@@ -40,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.qlinear import QuantizedGrouped
+from repro_torch.runtime.tp import gather_cols, in_dim
 
 from .common import LinearCtx, linear
 from .ffn import _gelu
@@ -151,6 +154,7 @@ def moe_ffn(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     gu = _expert_matmul(p["wi"], xbuf, ctx, f"{name}.wi")
     gate_h, up = torch.chunk(gu, 2, dim=-1)
     h = (F.silu(gate_h) if act == "silu" else _gelu(gate_h)) * up
+    h = gather_cols(h, p["wo"].shape[1])                             # TP
     ybuf = _expert_matmul(p["wo"], h, ctx, f"{name}.wo")             # (E, C, d)
 
     # --- combine, in dispatch order per token (see the module note) ---
@@ -171,5 +175,6 @@ def moe_ffn(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         gu_s = linear(p["swi"], xf, ctx, f"{name}.swi")
         gsh, ush = torch.chunk(gu_s, 2, dim=-1)
         hs = (F.silu(gsh) if act == "silu" else _gelu(gsh)) * ush
+        hs = gather_cols(hs, in_dim(p["swo"]))
         y = y + linear(p["swo"], hs, ctx, f"{name}.swo")
     return y.reshape(b, s, d), aux

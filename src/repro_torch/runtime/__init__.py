@@ -1,3 +1,4 @@
-"""Training runtime: step builders, microbatching, gradient compression,
-fault tolerance (port of ``repro/runtime``; the sharding rules and the
-tensor-parallel plan come with tensor parallelism, ROADMAP Queue 1)."""
+"""Runtime: step builders, microbatching, gradient compression, fault
+tolerance and tensor-parallel serving (``tp``) (port of ``repro/runtime``;
+the sharding rules of ``sharding.py`` / ``actsharding.py`` are ROADMAP
+Queue 1 item 8)."""

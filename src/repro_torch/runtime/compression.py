@@ -7,7 +7,9 @@
     models the quality impact of an int8 all-reduce, which is what
     convergence tests need;
   * ``ErrorFeedback`` -- residual accumulation, so each step's quantization
-    error is re-injected into the next (EF-SGD style).
+    error is re-injected into the next (EF-SGD style);
+  * ``int8_psum`` -- an all-reduce of int8-quantized payloads over a
+    ``torch.distributed`` group, the wire format the first item models.
 
 "One scale per tensor" means per tensor of the reference's layout, which
 stacks the decoder layers: its ``layers[0]["attn"]["wq"]`` is one (L, d, c)
@@ -18,8 +20,11 @@ leaf is quantized with the scale of it and its counterparts in the list's
 other layers (the max over all of them): the same codes as the
 reference's.  Every other leaf has its own scale.
 
-The reference's ``int8_psum`` (an all-reduce of int8 payloads over a mesh
-axis) comes with tensor parallelism (ROADMAP Queue 1 item 6).
+``int8_psum`` is the reference's (``repro/runtime/compression.py:61``),
+with a process group in place of a mesh axis name: each rank quantizes its
+tensor, the ranks agree on the largest scale (an all-reduce MAX), every
+rank re-quantizes against that shared scale so the integer sum is
+coherent, the codes are summed in int32 (an all-reduce SUM) and rescaled.
 """
 from __future__ import annotations
 
@@ -85,6 +90,20 @@ def compress_decompress_grads(grads):
     deq = _map_groups(_int8_group, grads)
     return tree_map(lambda d, g: d.to(g.dtype) if _is_float(g) else g,
                     deq, grads)
+
+
+def int8_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over ``group``'s ranks (a ``torch.distributed`` process
+    group; None: the default group) of every rank's ``x``, each sent as
+    int8 codes against the ranks' largest scale; f32 out.  Unbiased up to
+    the shared-scale rounding, as the reference's."""
+    import torch.distributed as dist
+    xf = x.to(torch.float32)
+    scale = _scale([xf])
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int32)
+    dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
+    return q.to(torch.float32) * scale
 
 
 class ErrorFeedback:

@@ -77,7 +77,22 @@ others, keyed ``("catchup", fused, S)``, ``("draft", fused, S)``,
 ``("verify", fused, S, k + 1)`` and ``("draft_chunk", fused, C)``, and the
 copy-on-write clone copies the block in both arenas.
 
-Not ported yet: tensor parallelism (ROADMAP Queue 1 item 6).
+Tensor parallelism (``group``, a ``runtime.tp.TPGroup`` of ``tp`` ranks,
+one process each; ``launch/mesh.py`` builds it): every rank constructs
+the engine on its own device, and its params and draft become its column
+shard (``tp.prepare_params``) and its arenas hold its share of the KV
+heads.  Rank 0 drives: it runs the scheduler and keeps every piece of host
+state (allocator, prefix cache, sampling, ``decode_gaps``), and before each
+device op (a step, the copy-on-write clone) it broadcasts the op's key and
+host inputs; the other ranks run ``serve_worker``, which runs each
+announced op on their shard and takes part in its gathers, until rank 0's
+``close``.  The scheduler is not replicated: decisions that read the clock
+would diverge between ranks and deadlock a collective.  Under ``tp > 1``
+the steps run op by op, captured nothing (gloo collectives cannot be
+captured in a CUDA graph; capturing NCCL collectives waits for a host with
+several cards), and ``stats`` says so (``tp``, ``tp_steps``).  Greedy
+tokens at TP=2 equal TP=1's: each column and head is computed by one rank
+with the single-device ops, planned from the full layer's widths.
 """
 from __future__ import annotations
 
@@ -96,6 +111,7 @@ from repro_torch.kernels.paged_attention import ops as pops
 from repro_torch.kernels.qmatmul import ops as qops
 from repro_torch.models import decode as decmod
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import tp as tpmod
 
 from . import graphs
 from .pool import (BlockAllocator, PoolConfig, PrefixCache, init_pool_caches,
@@ -105,6 +121,16 @@ from .pool import (BlockAllocator, PoolConfig, PrefixCache, init_pool_caches,
 def _logits(step_fn, cfg: ModelConfig, params: dict, caches: list,
             **inputs) -> torch.Tensor:
     return step_fn(cfg, params, caches, **inputs)[0]
+
+
+# a step's kind (its key's first entry) -> (the ``decmod`` step, whether it
+# runs on the draft's model and arenas); "cow" is the block clone
+_STEPS = {"decode": (decmod.decode_step_paged, False),
+          "chunk": (decmod.prefill_chunk_paged, False),
+          "verify": (decmod.decode_verify_paged, False),
+          "draft": (decmod.decode_step_paged, True),
+          "catchup": (decmod.decode_verify_paged, True),
+          "draft_chunk": (decmod.prefill_chunk_paged, True)}
 
 
 @dataclasses.dataclass
@@ -250,14 +276,17 @@ class PagedServer:
     drains a workload to completion.  Each step is captured once per key
     and replayed (see the module docstring).  ``prefix_cache`` is the
     engine's ``PrefixCache``, or None where the pool turns it off or the
-    arch bypasses it."""
+    arch bypasses it.  ``group`` (a ``runtime.tp.TPGroup`` whose device is
+    ``device``) serves tensor-parallel: rank 0 drives and the other ranks
+    call ``serve_worker`` (the module docstring); ``params`` and
+    ``draft_params`` are the full trees, which each rank slices."""
 
     def __init__(self, cfg: ModelConfig, params: dict,
                  pool: PoolConfig | None = None, *, fused: bool = True,
                  paged_kernel: bool | None = None,
                  temperature: float = 0.0, seed: int = 0,
                  draft_params: dict | None = None, speculate: int = 0,
-                 device=None):
+                 device=None, group: tpmod.TPGroup | None = None):
         self.device = resolve_device(device)
         self.fused = fused
         if paged_kernel and self.device.type != "cuda":
@@ -276,8 +305,16 @@ class PagedServer:
             if p is not None and p["embed"].device != self.device:
                 raise ValueError(f"{what} live on {p['embed'].device}, the "
                                  f"engine runs on {self.device}")
+        if group is not None and group.device != self.device:
+            raise ValueError(f"TP rank {group.rank} runs on {group.device}, "
+                             f"the engine on {self.device}")
+        self.group = group
+        self.tp = group.size if group is not None else 1
+        self.tp_plan = tpmod.plan_for(cfg, self.tp)
+        self._closed = False
+        rank = group.rank if group is not None else 0
         self.cfg = cfg
-        self.params = params
+        self.params = tpmod.prepare_params(cfg, params, rank, self.tp)
         self.pool = pool or PoolConfig()
         self.temperature = temperature
         self.seed = seed
@@ -287,13 +324,17 @@ class PagedServer:
         self.speculating = bool(speculate) and all(
             mx == "attn" for mx in cfg.pattern)
         self.speculate = speculate if self.speculating else 0
-        self.draft_params = draft_params if self.speculating else None
+        self.draft_params = (tpmod.prepare_params(cfg, draft_params, rank,
+                                                  self.tp)
+                             if self.speculating else None)
         if self.speculating and self.pool.lookahead < speculate:
             # verify writes reach k positions past the accepted frontier
             self.pool = dataclasses.replace(self.pool, lookahead=speculate)
-        self.caches = init_pool_caches(cfg, self.pool, self.device)
+        n_kv = tpmod.local_kv_heads(cfg, self.tp_plan)
+        self.caches = init_pool_caches(cfg, self.pool, self.device, n_kv)
         # the draft's own arenas, under the same block tables
-        self.draft_caches = (init_pool_caches(cfg, self.pool, self.device)
+        self.draft_caches = (init_pool_caches(cfg, self.pool, self.device,
+                                              n_kv)
                              if self.speculating else None)
         # the cache needs blocks that are immutable once written: a window's
         # ring reuses its blocks in place, and per-slot state lives in rows
@@ -326,9 +367,12 @@ class PagedServer:
     @contextlib.contextmanager
     def _kernel_scope(self):
         """The engine's fixed settings, entered inside every step: fusion,
-        the paged attention read, and no autograd (grad mode is per
-        thread, and the front door steps the engine from its own)."""
+        the paged attention read (planned from the model's KV heads, which
+        a TP rank's arena holds a share of), the TP group the gathers run
+        over, and no autograd (grad mode is per thread, and the front door
+        steps the engine from its own)."""
         with qops.fusion(self.fused), pops.paged_kernel(self.paged_kernel), \
+                pops.plan_heads(self.cfg.n_kv), tpmod.scope(self.group), \
                 torch.no_grad():
             yield
 
@@ -376,36 +420,70 @@ class PagedServer:
         """Draft prompt-chunk captures: one per chunk length."""
         return self.graphs.captures["draft_chunk"]
 
-    def _compiled(self, key: tuple, fn, inert):
-        """``inputs -> fn(**inputs)``: the step captured for ``key`` (made
-        on ``inert()``'s inputs at first use), or under ``graphs.eager()``
-        and with a kernel forced onto its plain version on the card, ``fn``
-        op by op on fresh tensors.  ``fn`` holds the model and the arenas,
-        not the engine, so an engine and its graphs are freed when it is
-        dropped."""
-        if graphs.eager_enabled() or (self.device.type == "cuda"
-                                      and kernels.plain_forced()):
-            return graphs.eager_call(fn, self.device)
-        return self.graphs.get(key, fn, inert)
-
-    def _step_fn(self, step_fn, draft: bool = False):
-        """``step_fn`` (a ``decmod`` step) on this engine's target model and
-        arenas, or with ``draft`` on the draft's, returning the logits."""
+    def _op(self, kind: str):
+        """The device op of step kind ``kind``: its ``decmod`` step on this
+        engine's target model and arenas (or the draft's) returning the
+        logits, or for "cow" the block clone over every arena.  It holds
+        the model and the arenas, not the engine, so an engine and its
+        graphs are freed when it is dropped."""
+        if kind == "cow":
+            return functools.partial(graphs.clone_block,
+                                     self.caches + (self.draft_caches or []))
+        step_fn, draft = _STEPS[kind]
         if draft:
             return functools.partial(_logits, step_fn, self.cfg,
                                      self.draft_params, self.draft_caches)
         return functools.partial(_logits, step_fn, self.cfg, self.params,
                                  self.caches)
 
+    def _compiled(self, key: tuple, inert):
+        """``inputs -> op(**inputs)`` for the op of kind ``key[0]``: the
+        step captured for ``key`` (made on ``inert()``'s inputs at first
+        use), or under ``graphs.eager()`` and with a kernel forced onto its
+        plain version on the card, the op run eagerly on fresh tensors.
+        Under ``tp > 1`` it runs eagerly after broadcasting ``key`` and the
+        inputs to the workers, which run it on their shards."""
+        fn = self._op(key[0])
+        if self.tp > 1:
+            eager = graphs.eager_call(fn, self.device)
+
+            def call(inputs: dict):
+                if self._closed:
+                    raise RuntimeError("the TP workers were stopped (close)")
+                tpmod.send_op(self.group, key, inputs)
+                return eager(inputs)
+            return call
+        if graphs.eager_enabled() or (self.device.type == "cuda"
+                                      and kernels.plain_forced()):
+            return graphs.eager_call(fn, self.device)
+        return self.graphs.get(key, fn, inert)
+
+    def serve_worker(self) -> None:
+        """A TP worker's loop (rank > 0): run each device op that rank 0
+        announces, on this rank's shard, until rank 0's ``close``."""
+        if self.group is None or self.group.rank == 0:
+            raise RuntimeError("serve_worker runs on TP ranks other than 0")
+        with self._kernel_scope():
+            while True:
+                key, inputs = tpmod.recv_op(self.group)
+                if key is None:
+                    return
+                graphs.eager_call(self._op(key[0]), self.device)(inputs)
+
+    def close(self) -> None:
+        """On rank 0 of a TP group, stop the workers' loops; the engine
+        runs no device op after it (idempotent; nothing to do at TP=1)."""
+        if self.tp > 1 and self.group.rank == 0 and not self._closed:
+            tpmod.send_op(self.group, None, None)
+        self._closed = True
+
     def _cow(self, src: int, dst: int) -> None:
         """Clone physical block ``src`` into ``dst`` in every layer's arena,
         the draft's too (the reference's jitted ``_cow``): one captured
         clone, its blocks through static one-element buffers."""
-        arenas = self.caches + (self.draft_caches or [])
         clone = self._compiled(
-            ("cow",), functools.partial(graphs.clone_block, arenas),
-            lambda: {"src": np.zeros(1, np.int64),
-                     "dst": np.zeros(1, np.int64)})
+            ("cow",), lambda: {"src": np.zeros(1, np.int64),
+                               "dst": np.zeros(1, np.int64)})
         clone({"src": np.array([src], np.int64),
                "dst": np.array([dst], np.int64)})
 
@@ -610,7 +688,6 @@ class PagedServer:
             c = min(c, st.ring_cap)   # scatter uniqueness within a chunk
         step = self._compiled(
             ("chunk", qops.fused_enabled(), c),
-            self._step_fn(decmod.prefill_chunk_paged),
             lambda: self._chunk_inputs(np.zeros(c, np.int32), 0,
                                        np.zeros(self.table_width, np.int32), 1,
                                        0, False))
@@ -622,7 +699,6 @@ class PagedServer:
             # the draft's arena holds the prompt too; its logits are unused
             self._compiled(
                 ("draft_chunk", qops.fused_enabled(), c),
-                self._step_fn(decmod.prefill_chunk_paged, draft=True),
                 lambda: self._chunk_inputs(
                     np.zeros(c, np.int32), 0,
                     np.zeros(self.table_width, np.int32), 1, 0,
@@ -650,7 +726,6 @@ class PagedServer:
                      results: dict[int, RequestResult]) -> None:
         step = self._compiled(
             ("decode", qops.fused_enabled(), self.pool.max_slots),
-            self._step_fn(decmod.decode_step_paged),
             lambda: self._decode_inputs({}))
         inputs = self._decode_inputs(self._active)
         t_start = time.monotonic()
@@ -722,10 +797,8 @@ class PagedServer:
         wmask = np.ones((s, 2), bool)
         wmask[:, 0] = hole
         t_start = time.monotonic()
-        catchup = self._compiled(
-            ("catchup", fused, s),
-            self._step_fn(decmod.decode_verify_paged, draft=True),
-            lambda: self._span_inert(2))
+        catchup = self._compiled(("catchup", fused, s),
+                                 lambda: self._span_inert(2))
         dl = catchup(self._span_inputs(catch, pos - 1, active, bts, ring,
                                        wmask))
         dl = dl[:, 1].to(torch.float32).cpu().numpy()    # logits at p
@@ -739,16 +812,12 @@ class PagedServer:
                 draft_tokens[slot, i] = d
                 toks[slot, 0] = d
             if i < k - 1:
-                draft = self._compiled(
-                    ("draft", fused, s),
-                    self._step_fn(decmod.decode_step_paged, draft=True),
-                    lambda: self._decode_inputs({}))
+                draft = self._compiled(("draft", fused, s),
+                                       lambda: self._decode_inputs({}))
                 dl = draft(dict(base, tokens=toks, pos=pos + 1 + i))
                 dl = dl.to(torch.float32).cpu().numpy()
-        verify = self._compiled(
-            ("verify", fused, s, k + 1),
-            self._step_fn(decmod.decode_verify_paged),
-            lambda: self._span_inert(k + 1))
+        verify = self._compiled(("verify", fused, s, k + 1),
+                                lambda: self._span_inert(k + 1))
         tokens = np.concatenate([catch[:, 1:2], draft_tokens], axis=1)
         tlog = verify(self._span_inputs(tokens, pos, active, bts, ring,
                                         np.ones((s, k + 1), bool)))
@@ -906,6 +975,9 @@ class PagedServer:
             prop = self.stats.get("spec_proposed", 0)
             self.stats["acceptance_rate"] = (
                 self.stats.get("spec_accepted", 0) / prop if prop else 0.0)
+        self.stats["tp"] = self.tp
+        if self.tp > 1:
+            self.stats["tp_steps"] = "eager"     # see the module docstring
         self.stats["captures"] = sum(self.graphs.captures.values())
         self.stats["capture_s"] = self.graphs.capture_s
         self.stats["graph_pool_bytes"] = self.graphs.pool_bytes

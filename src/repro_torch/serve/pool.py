@@ -258,17 +258,21 @@ class BlockAllocator:
             self.decref(b)
 
 
-def init_pool_caches(cfg: ModelConfig, pool: PoolConfig, device) -> list:
+def init_pool_caches(cfg: ModelConfig, pool: PoolConfig, device,
+                     n_kv: int | None = None) -> list:
     """One cache per layer on ``device``: an attention layer's {"k", "v"}
     arenas, each (num_blocks, block_size, KV, hd) zeros of
     ``pool.kv_dtype``, or another mixer's per-slot rows (``pool.max_slots``
     of them; an MLA row holds ``pool.max_context`` positions), in
     ``pool.kv_dtype`` but for the recurrent states, which are f32 as in
-    the reference.  Encoder-decoder archs are refused, as the reference's
-    pool refuses them."""
+    the reference.  KV is ``n_kv`` (default ``cfg.n_kv``): a
+    tensor-parallel rank's share of the heads (``runtime/tp.
+    local_kv_heads``).  Encoder-decoder archs are refused, as the
+    reference's pool refuses them."""
     if cfg.enc_dec:
         raise ValueError("paged pool does not support encoder-decoder archs")
-    shape = (pool.resolved_num_blocks(cfg), pool.block_size, cfg.n_kv, cfg.hd)
+    shape = (pool.resolved_num_blocks(cfg), pool.block_size,
+             cfg.n_kv if n_kv is None else n_kv, cfg.hd)
 
     def one(mixer):
         if mixer == "attn":

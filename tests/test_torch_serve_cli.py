@@ -8,7 +8,8 @@ emits only the target's argmax tokens), so the ``sample:`` lines must be
 byte-identical.  ``--kv-dtype bf16`` serves from bf16 arenas.  With fp32
 weights (no quantizing run), the lockstep server (``--lockstep``) and the
 dense gather (``--no-paged-kernel``) print the paged engine's sample, and
-the flags the port refuses fail before any work.  Without
+the flags the port refuses fail before any work.  ``--tp 2`` (two gloo
+ranks) prints the one-process run's sample.  Without
 ``--device cpu`` the CLI runs on the card, so on a host with no card it
 must refuse with ``resolve_device``'s message."""
 import functools
@@ -88,6 +89,17 @@ def test_mixtral_fused_and_unfused_samples_identical():
     assert "served 2 requests x 8 tokens" in out
 
 
+def test_tp2_sample_identical_to_tp1():
+    """``--tp 2`` spawns two gloo ranks; rank 0 drives, eagerly, and the
+    greedy sample is the one-process run's."""
+    one = _run_once("--device", "cpu")
+    two = _run("--device", "cpu", "--tp", "2")
+    assert _sample(two) == _sample(one)
+    out = two.stdout.decode(errors="replace")
+    assert "steps=eager, device=cpu, tp=2" in out
+    assert "tp=1" in one.stdout.decode(errors="replace")
+
+
 def test_speculation_sample_identical_to_spec_off():
     off = _run_once("--device", "cpu")
     spec = _run("--device", "cpu", "--speculate", "2", "--draft-bits", "2.2")
@@ -142,7 +154,7 @@ def test_lockstep_and_gather_samples_equal_the_paged_fp32_sample(capsys):
     (["--lockstep", "--serve"], "--serve needs the paged engine"),
     (["--lockstep", "--speculate", "2"], "--speculate needs the paged"),
     (["--lockstep", "--tp", "2"], "--tp needs the paged engine"),
-    (["--tp", "2"], "ROADMAP Queue 1 item 6"),
+    (["--serve", "--tp", "2"], "ROADMAP Queue 1 item 9"),
     (["--paged-kernel", "--device", "cpu"], "--paged-kernel needs the card"),
 ])
 def test_refused_flag_combinations(argv, message, capsys):
