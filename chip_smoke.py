@@ -56,16 +56,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      profiled in both modes (device ms by kernel, idle share, launches per
      step); each run counts the GEMM launches of its prefill chunks and of
      its decode steps;
+ 5a. the dry-run (``dryrun_phase``): ``launch/dryrun.py``'s cells
+     DRYRUN_CELLS (llama2-7b decode_32k bf16 and 4-bit, mixtral-8x7b
+     prefill_32k, rwkv6-3b long_500k, deepseek-v2-236b decode_32k at 4
+     bits) counted on fake CUDA tensors at full width on the H100 mesh
+     32x8 (CUDA memory may grow by less than DRYRUN_MEM); phase 4's model
+     counted for one paged decode step with the GEMM and paged-attention
+     kernels launching, equal to the same step on fake tensors, its bytes
+     over the HBM rate beside ``decode_step_bound_ms`` and phase 5's graph
+     ms a step; the kernels' ``cost(...)`` against PERF.md section 6's
+     bound column (PERF6_BOUNDS);
  5b. tensor parallelism (``tp_phase``): phase 4's quantization and its
      draft saved to a temporary file under ``build/``; two ranks
      (``launch.mesh.spawn``), both on this card with the gloo backend
      (NCCL puts one rank on each card), each load it and slice their
      column shard (``runtime/tp.py``: heads of wq/wk/wv and the KV arena,
-     FFN columns of wi, vocab of lm_head); rank 0 drives phase 5's
-     requests at TP=2 fused (decode and chunked prefill), unfused, and
-     speculating k = 3 deep with the 2.2-bit draft (the verify steps).
-     Each run's tokens must equal TP=1's request by request (phase 5's
-     fused and unfused runs; the speculating run phase 5's fused tokens);
+     FFN columns of wi, vocab of lm_head); rank 0 drives phase 5's first
+     TP_REQUESTS requests (TP_GEN new tokens each) at TP=2 fused (decode
+     and chunked prefill), unfused, and speculating k = 3 deep with the
+     2.2-bit draft (the verify steps).  Each run's tokens must equal
+     TP=1's request by request (the first TP_GEN of phase 5's fused and
+     unfused runs' tokens; the speculating run phase 5's fused tokens);
      against a TP=1 fused run eager in this process, the first 8 decode
      steps' logits are compared
      bit for bit (max |diff| printed) beside checks of each rank's
@@ -136,7 +147,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      by graph, unfused and plain;
  13. training (``train_phase``): qwen3-0.6b at its published width and
      depth (28 layers, d_model 1024, 16/8 heads at hd 128, d_ff 3072,
-     vocab 151936; 0.75 B fp32 params) trained from a seeded init on the
+     vocab 151936; 0.75 B fp32 params; TRAIN_LAYERS of the 28 in the
+     whole run, all of them with ``--train``) trained from a seeded init on the
      synthetic corpus (batch 8 x 256, lr 2e-3, warmup 20,
      SMOKE_TRAIN_STEPS steps through ``launch.train.train``: losses,
      ms/step, tokens/s, peak memory), then the same run through
@@ -196,7 +208,9 @@ bits and a 2.2-bit draft's acceptance on the trained weights (see
 and runs only phase 14, Whisper at its full 32 + 32 layers (see
 ``mrope_whisper_main``); ``--tp`` builds every kernel and runs only
 phase 5b at the whole run's depth, after the quantization and the fused
-serve run it needs (see ``tp_main``).
+serve run it needs (see ``tp_main``); ``--dryrun`` builds every kernel
+and runs phase 5a after phases 4 (without the plain comparison) and 5 at
+the whole run's depth (see ``dryrun_main``).
 
 Imports nothing of JAX or of the reference package.  Exits non-zero with no
 result when no CUDA device is present.  Details too long for the end of the
@@ -259,7 +273,12 @@ from repro_torch.models import attention as attnmod  # noqa: E402
 from repro_torch.models import decode as decmod  # noqa: E402
 from repro_torch.models import moe as moemod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
-from repro_torch.launch import mesh  # noqa: E402
+from repro_torch.launch import dryrun as dryrunmod  # noqa: E402
+from repro_torch.launch import hlocost, mesh  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    QUANT_TENSORS, RATES, SIMT, cost_bound, decode_step_bound_ms, quant_bytes,
+    quantized_linears)
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.launch.train import loader_batch, train  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
@@ -270,27 +289,8 @@ from repro_torch.runtime.steps import (  # noqa: E402
 from repro_torch.serve import PagedServer, PoolConfig, Request, graphs  # noqa: E402
 from repro_torch.serve.frontdoor import FrontDoor, SchedConfig  # noqa: E402
 from repro_torch.serve.frontdoor.client import stream_generate  # noqa: E402
-from repro_torch.serve.pool import request_blocks  # noqa: E402
+from repro_torch.serve.pool import init_pool_caches, request_blocks  # noqa: E402
 
-# H100 SXM published dense peaks at 700 W (NVIDIA data sheet): the HBM rate
-# and, for a bound's operations, the rate for what their operands are.
-HBM_BYTES_PER_S = 3.35e12
-RATES = {
-    # bf16 x bf16 on the tensor cores
-    "bf16 989 TFLOP/s": 989e12,
-    # f32 x RaBitQ codes (or x +-1 signs): the codes are integers 0-255,
-    # exact in bf16, and three bf16 terms hold an f32 significand
-    "f32 x codes 3 x bf16 330 TFLOP/s": 989e12 / 3,
-    # f32 x f32: three TF32 products per product
-    "f32 3 x TF32 165 TFLOP/s": 495e12 / 3,
-    # f32 element-wise work with no product to put on the tensor cores
-    "f32 CUDA cores 67 TFLOP/s": 67e12,
-    # f32 instructions issued on the CUDA cores, each counted once (the
-    # 67 TFLOP/s peak counts an fma as two operations): the code search's
-    # candidate sweep, whose division, rounding and clamps are not fmas
-    "f32 CUDA-core instructions 33.5 T/s": 67e12 / 2,
-}
-BF16, CODES, F32, SIMT, SIMT_ISSUE = RATES
 # f32 results of two summation orders (split-K and butterfly vs Kronecker
 # matmuls for the GEMMs; warp-shuffle vs cuBLAS dots for attention):
 # |kernel - plain| <= RTOL * max|plain|.  bf16 arenas are read as the same
@@ -584,18 +584,6 @@ def cycler(items):
     return call
 
 
-def bound(nbytes: float, *work: tuple[float, str]) -> dict:
-    """The least time the card could take: the larger of the bytes over the
-    HBM rate and the operations over the peak rate for their operands
-    (``work``: (operations, rate name) pairs, their times summed)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = sum(ops / RATES[rate] for ops, rate in work)
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_rate": " + ".join(dict.fromkeys(
-                rate for ops, rate in work if ops))}
-
-
 def err_and_scale(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return float((got - want).abs().max()), float(want.abs().max())
 
@@ -616,12 +604,7 @@ def gemm_inputs(gen, dev, n, d, c, bits):
 
 
 def gemm_bound(n, d, c, bits, fused=True):
-    dh = hadamard.largest_pow2_leq(d)
-    passes = (1 if dh == d else 2) if fused else 0
-    nbytes = (n * d * 4 + packing.packed_rows(d, bits) * c + 2 * c
-              + passes * dh * 4 + n * c * 4)
-    return bound(nbytes, (2 * n * d * c, CODES),
-                 (passes * n * dh * (dh.bit_length() - 1), CODES))
+    return cost_bound(qops.cost(n, d, c, bits, fused))
 
 
 def exact_gemm(x, packed, rescale, s1, s2, bits, d) -> torch.Tensor:
@@ -832,13 +815,7 @@ def time_rht(gen, dev, n, d, full=True) -> dict:
 
 
 def rht_bound(n, d) -> dict:
-    """Each row read and written once and the signs read once; the
-    butterflies' adds (each of the two blocks' log2 d_hat stages) as
-    products with +-1 signs on the tensor cores' f32 x codes rate."""
-    dh = hadamard.largest_pow2_leq(d)
-    passes = 1 if dh == d else 2
-    return bound(2 * n * d * 4 + passes * dh * 4,
-                 (passes * n * dh * (dh.bit_length() - 1), CODES))
+    return cost_bound(hops.cost(n, d))
 
 
 def launch_floor_ms(dev) -> float:
@@ -983,13 +960,7 @@ def search_cases(gen, dev, shapes, n_cand) -> dict:
 
 
 def search_bound(d, c, n_cand=N_CAND):
-    """w read once, codes written once; issue slots on the CUDA cores: per
-    element and candidate the division (a multiply and two fmas from the
-    column's reciprocal), the add of c_b, rint, the clamp (2), the subtract
-    and the two sums' fmas (10); per element absmax (1) and the chosen
-    step's code (8)."""
-    return bound(d * c * 4 + d * c + 4 * c,
-                 ((10 * n_cand + 9) * d * c, SIMT_ISSUE))
+    return cost_bound(rq_ops.cost(d, c, n_cand))
 
 
 def time_code_search(gen, dev, d, c, bits=4, plain=True,
@@ -1254,14 +1225,13 @@ def time_attention(gen, dev, name, w, h, kv, dtype, window, ring_blocks, mb,
     # the keys the kernel reads: each request's nblk whole blocks
     live = torch.minimum(pos.clamp(min=1), ring.clamp(min=1))
     keys = int((((live + bs - 1) // bs).clamp(1, mb) * bs).sum())
-    nbytes = (keys * kv * hd * k_arena.element_size() * 2
-              + 2 * q.numel() * 4 + bt.numel() * 4)
     return {"case": name, "b": b, "w": w, "h": h, "kv": kv, "hd": hd,
             "dtype": str(dtype), "window": window, "context": ctx,
             "context_lo": ctx_lo, "keys_read": keys,
             "splits": attn_splits(args), "ms": k_ms, "call_ms": call_ms,
             "plain_ms": p_ms, "library_ms": l_ms,
-            **bound(nbytes, (4 * keys * (h // kv) * w * kv * hd, SIMT))}
+            **cost_bound(pops.cost(b, w, h, kv, hd, keys,
+                                   k_arena.element_size(), bt.numel()))}
 
 
 def time_attentions(gen, dev) -> list:
@@ -1290,12 +1260,7 @@ def grouped_inputs(gen, dev, e, cap, d, c, bits):
 
 
 def grouped_bound(e, cap, d, c, bits, fused=True):
-    dh = hadamard.largest_pow2_leq(d)
-    passes = (1 if dh == d else 2) if fused else 0
-    nbytes = (e * cap * d * 4 + e * packing.packed_rows(d, bits) * c
-              + e * c * 2 + passes * dh * 4 + e * cap * c * 4)
-    return bound(nbytes, (2 * e * cap * d * c, CODES),
-                 (passes * e * cap * dh * (dh.bit_length() - 1), CODES))
+    return cost_bound(qops.cost(cap, d, c, bits, fused, groups=e))
 
 
 def check_grouped(gen, dev) -> dict:
@@ -1394,14 +1359,6 @@ def flash_inputs(gen, dev, b, s, h, kv, hd, dtype):
                  for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
 
 
-def flash_pairs(s, causal, window) -> int:
-    """Unmasked (query, key) pairs of one head: the work this call needs."""
-    q = np.arange(s)
-    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
-    hi = q + 1 if causal else np.full_like(q, s)
-    return int(np.sum(hi - lo))
-
-
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """The spacing of bf16 values at |x| (8 significand bits); 0 at 0."""
     _, e = torch.frexp(x.abs())
@@ -1485,10 +1442,9 @@ def time_flash(gen, dev, name, b, s, h, kv, hd, causal, window, dtype) -> dict:
     p_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal,
                                          window=window), iters=2, warmup=1)
     l_ms = graph_ms(lambda: sdpa(q, k, v, causal, window), iters=5)
-    pairs = flash_pairs(s, causal, window)
-    work = bound((q.numel() * 2 + k.numel() * 2) * q.element_size(),
-                 (4 * hd * pairs * h * b,
-                  BF16 if dtype == torch.bfloat16 else F32))
+    pairs = fops.pairs(s, s, causal, window)
+    work = cost_bound(fops.cost(b, s, s, h, kv, hd, causal, window,
+                                q.element_size()))
     del q, k, v
     return {"case": name, "b": b, "s": s, "h": h, "kv": kv, "hd": hd,
             "causal": causal, "window": window, "dtype": str(dtype),
@@ -1497,26 +1453,6 @@ def time_flash(gen, dev, name, b, s, h, kv, hd, causal, window, dtype) -> dict:
 
 
 # ---------------------------------------------------------------- quantize
-
-
-def quantized_linears(params) -> dict:
-    """name -> QuantizedLinear (or QuantizedGrouped), under the pipeline's
-    names (``L3.attn.wq``, ``L0.mla.wq_a``, ``L1.tm.wr``, ``L2.moe.wi``,
-    ``L1.xattn.wk``, and Whisper's encoder ``enc5.mlp.wo``)."""
-    return {f"{scope}{i}.{g}.{k}": sub[k]
-            for scope, key in pipe.SCOPES
-            for i, lp in enumerate(params.get(key, ()))
-            for g, sub in lp.items() if isinstance(sub, dict) for k in sub
-            if hasattr(sub[k], "packed")}
-
-
-QUANT_TENSORS = ("packed", "rescale", "signs1", "signs2", "mean_col", "w_out",
-                 "out_idx", "keep_idx")
-
-
-def quant_bytes(q, names=QUANT_TENSORS) -> int:
-    return sum(t.numel() * t.element_size()
-               for t in (getattr(q, n, None) for n in names) if t is not None)
 
 
 def rotated_weight(fp_params, name, q) -> torch.Tensor:
@@ -1786,33 +1722,6 @@ class GapRecordingServer(PagedServer):
 
 PROMPT_LENS = [64, 512, 128, 384, 96, 256, 448, 192]
 GEN_LEN = 32
-
-
-def decode_step_bound_ms(cfg, params, tokens_in_arena: float,
-                         slots: int = 8) -> float:
-    """Least time of one decode step: every weight byte (packed codes, side
-    info, every expert's codes, the layers' full-precision leaves: norms,
-    MoE routers, MLA's wkv_b, RWKV's LoRAs, RG-LRU's gates; the f32
-    lm_head, the embedding rows read), every live K/V byte (an attention
-    layer's K and V, an MLA layer's latent and rotary key, per token in
-    the arena) and each slot's recurrent state (read and written) once,
-    over the HBM rate."""
-    nbytes = params["lm_head"].numel() * 4 + slots * cfg.d_model * 4
-    nbytes += sum(quant_bytes(q) for q in quantized_linears(params).values())
-    nbytes += sum(t.numel() * t.element_size() for lp in params["layers"]
-                  for t in ptree.leaves(lp) if isinstance(t, torch.Tensor))
-    per_token, state = 0, 0
-    for mixer in cfg.pattern:
-        if mixer == "attn":
-            per_token += 2 * cfg.n_kv * cfg.hd * 4
-        elif mixer == "mla":
-            per_token += (cfg.mla.kv_lora + cfg.mla.qk_rope) * 4
-        elif mixer == "rwkv":
-            state += 2 * (cfg.n_heads * cfg.hd * cfg.hd + 2 * cfg.d_model) * 4
-        elif mixer == "rglru":
-            state += 2 * 4 * (cfg.rglru_width or cfg.d_model) * 4
-    nbytes += slots * state
-    return (nbytes + tokens_in_arena * per_token) / HBM_BYTES_PER_S * 1e3
 
 
 def requests(cfg, prompt_lens=PROMPT_LENS) -> list:
@@ -2236,6 +2145,12 @@ TP_LOGIT_STEPS = 8       # decode steps whose logits TP=2 and TP=1 compare
 TP_RUNS = (("fused", True, False), ("unfused", False, False),
            ("spec", True, True))     # name, fused, speculating (SPEC_K deep)
 TP_CHECK_ROWS = (8, 64)  # a decode step's and a prefill chunk's rows
+# the serve phase's first TP_REQUESTS requests (prompts 64, 512, 128, 384:
+# one and several prefill chunks) with TP_GEN of their GEN_LEN new tokens:
+# the ranks' eager steps over gloo run 2-3x slower on some hosts, which
+# took the whole run past its limit at all eight requests and 32 tokens
+TP_REQUESTS = 4
+TP_GEN = 16
 TP_THREADS = 2           # each rank's intra-op threads (8 cores, 2 ranks)
 
 
@@ -2398,23 +2313,29 @@ def tp_phase(dev, params, draft, serve_out) -> dict:
     TP_DEGREE ranks, every one on cuda:0 with the gloo backend (NCCL will
     not put two ranks on one card), each loading the artifact this process
     saves and slicing its shard; rank 0 drives TP_RUNS over the serve
-    phase's requests (fused: decode and chunked prefill; unfused; and
-    speculating with the draft: the verify steps).  Each run's tokens
-    must equal TP=1's request by request: the serve phase's fused and
-    unfused graph runs (graph = eager, phase 5), the speculating run the
-    fused one's (greedy speculation emits plain decoding's tokens, as
-    phase 8 checks).  One TP=1 fused run here, eagerly as the ranks run,
+    phase's first TP_REQUESTS requests, TP_GEN new tokens each (fused:
+    decode and chunked prefill; unfused; and speculating with the draft:
+    the verify steps).  Each run's tokens must equal TP=1's request by
+    request: the first TP_GEN of the serve phase's fused and unfused graph
+    runs (graph = eager, phase 5), the speculating run the fused one's
+    (greedy speculation emits plain decoding's tokens, as phase 8
+    checks).  One TP=1 fused run here, eagerly as the ranks run,
     gives the logits of the first TP_LOGIT_STEPS decode steps, compared
     bit for bit, beside the candidate ops whose widths change."""
-    cfg, pool, reqs = llama2_config(), llama2_pool(), requests(llama2_config())
+    cfg, pool = llama2_config(), llama2_pool()
+    reqs = [dataclasses.replace(r, max_new=TP_GEN)
+            for r in requests(cfg)[:TP_REQUESTS]]
+
+    def head(tokens):           # greedy: a prefix of the serve phase's
+        return {r.rid: tokens[r.rid][:TP_GEN] for r in reqs}
     art = {"target": params, "draft": draft}
     with graphs.eager():
         base = tp_run(tp_engine(cfg, art, pool, "fused", dev), reqs)
-    check(base["request_tokens"] == serve_out["request_tokens"],
+    check(base["request_tokens"] == head(serve_out["request_tokens"]),
           "tp: the eager TP=1 run's tokens differ from the serve phase's")
-    want_tokens = {"fused": serve_out["request_tokens"],
-                   "unfused": serve_out["unfused"]["request_tokens"],
-                   "spec": serve_out["request_tokens"]}
+    want_tokens = {"fused": head(serve_out["request_tokens"]),
+                   "unfused": head(serve_out["unfused"]["request_tokens"]),
+                   "spec": head(serve_out["request_tokens"])}
     (ROOT / "build").mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="tp_artifact_", dir=ROOT / "build")
     try:
@@ -4032,6 +3953,12 @@ TRAIN_ARCH = "qwen3-0.6b"
 # of it), and at 60 the whole script took 1123.2 s
 TRAIN_STEPS = 100
 SMOKE_TRAIN_STEPS = 30
+# the whole run also cuts qwen3-0.6b to TRAIN_LAYERS of its 28 layers
+# (published widths): at 28 its phase took 321.4 and 344.8 s of whole runs
+# of 1225.6 and 1173.4 s on slow hosts (H100 80GB HBM3, 700 W), past or
+# at the 1200 s limit; --train keeps all 28
+TRAIN_LAYERS = 14
+_TRAIN_DEPTH = [28]            # main() sets TRAIN_LAYERS for the whole run
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, TRAIN_WARMUP = 8, 256, 2e-3, 20
 TRAIN_LOG = 10
 # the fault-tolerant run checkpoints TRAIN_TAIL steps before its end,
@@ -4122,7 +4049,7 @@ def train_runs(cfg, dev, corpus, n_steps: int) -> tuple:
             arch=TRAIN_ARCH, tiny=False, steps=n_steps,
             batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
             warmup=TRAIN_WARMUP, seed=SEED, log_every=TRAIN_LOG,
-            corpus=corpus, device=dev,
+            corpus=corpus, device=dev, depth=cfg.n_layers,
             on_step=lambda s, m, dt: steps_a.append(
                 (float(m["grad_norm"]), float(m["lr"]), dt)))
     run_a_s = time.monotonic() - t0
@@ -4478,7 +4405,7 @@ def train_phase(dev, extra: bool = False) -> dict:
     speculating SPEC_K deep, tokens identical to spec off, its acceptance
     on trained weights, and TRAIN_STEPS of training where the whole run
     takes SMOKE_TRAIN_STEPS."""
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH).with_(n_layers=_TRAIN_DEPTH[0])
     phase_s = {}
     t0 = time.monotonic()
     corpus = make_corpus_tokens(cfg.vocab, 20000, seed=SEED)
@@ -5264,6 +5191,220 @@ def tp_main(dev, smi) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- dry-run
+
+# the dry-run's cells on the card (fake CUDA tensors, mesh 32x8): arch,
+# shape, --quant
+DRYRUN_CELLS = [("llama2-7b", "decode_32k", None),
+                ("llama2-7b", "decode_32k", 4),
+                ("mixtral-8x7b", "prefill_32k", 4),
+                ("rwkv6-3b", "long_500k", 4),
+                ("deepseek-v2-236b", "decode_32k", 4)]
+DRYRUN_MEM = 64 * 2 ** 20       # what the fake cells may add to CUDA memory
+# the kernels' bounds as PERF.md section 6 printed them (the formulas this
+# script held before they moved into the wrappers' cost(...)): kernel, cost
+# keywords, the printed bound in ms
+PERF6_BOUNDS = [
+    *[("rht_qmatmul", dict(n=n, d=d, c=c, bits=4), v) for n, d, c, v in (
+        (1, 4083, 4096, "0.0025"), (8, 4083, 4096, "0.0026"),
+        (8, 4083, 22016, "0.0137"), (8, 10974, 4096, "0.0069"),
+        (64, 4083, 4096, "0.0065"), (16, 4083, 4096, "0.0027"),
+        (32, 4083, 4096, "0.0033"), (2048, 4083, 4096, "0.2081"),
+        (8, 1531, 1536, "0.00038"), (8, 1531, 256, "0.00008"),
+        (8, 8933, 1536, "0.00217"), (4, 1276, 1280, "0.00026"),
+        (6000, 1276, 1280, "0.0598"), (6000, 5104, 1280, "0.2396"))],
+    *[("qmatmul", dict(n=n, d=d, c=c, bits=4), v) for n, d, c, v in (
+        (1, 4083, 4096, "0.0025"), (8, 4083, 4096, "0.0026"),
+        (8, 1531, 1536, "0.00038"), (8, 1531, 256, "0.00008"),
+        (8, 8933, 1536, "0.00215"), (4, 1276, 1280, "0.00026"),
+        (6000, 1276, 1280, "0.0595"), (6000, 5104, 1280, "0.2378"))],
+    *[("rht", dict(n=n, d=d), v) for n, d, v in (
+        (8, 4083, "0.00008"), (8, 10974, "0.00023"), (16, 4096, "0.00016"),
+        (160, 4096, "0.0016"), (16, 14336, "0.00057"),
+        (160, 14336, "0.0055"), (8, 1531, "0.00003"), (8, 8933, "0.00019"),
+        (4, 1276, "0.00001"), (6000, 1276, "0.0183"),
+        (6000, 5104, "0.0731"))],
+    *[("rabitq_quant", dict(d=d, c=c, n_cand=s), v) for d, c, s, v in (
+        (4083, 4096, 12, "0.0644"), (4083, 22016, 12, "0.346"),
+        (10974, 4096, 12, "0.173"), (1024, 2048, 8, "0.00557"),
+        (3072, 1024, 8, "0.00836"))],
+    *[("grouped_rht_qmatmul", dict(n=cap, d=d, c=c, bits=4, groups=e), v)
+      for e, cap, d, c, v in (
+          (8, 2, 4096, 28672, "0.141"), (8, 2, 14336, 4096, "0.0705"),
+          (160, 6, 5120, 3072, "0.3853"), (160, 6, 1536, 5120, "0.1959"))],
+    # every request of the llama2 and qwen2-vl cases at context 1024: 64
+    # blocks of 16 keys each
+    *[("paged_attention", dict(b=8, w=1, h=h, kv=kv, hd=128, keys=8 * 1024,
+                               elem_bytes=e, table=8 * 64), v)
+      for h, kv, e, v in ((32, 32, 4, "0.0802"), (32, 32, 2, "0.0401"),
+                          (12, 2, 4, "0.00504"), (12, 2, 2, "0.00253"))],
+    *[("flash_attention", dict(b=1, sq=s, sk=s, h=32, kv=kv, hd=128,
+                               causal=True, window=w, elem_bytes=e), v)
+      for s, kv, w, e, v in ((4608, 8, 4096, 4, "1.041"),
+                             (2048, 32, None, 4, "0.208"),
+                             (2048, 32, None, 2, "0.0348"))],
+]
+
+
+def bound_column_check() -> dict:
+    """Each PERF6_BOUNDS entry from its wrapper's ``cost(...)``: equal to
+    the printed bound to the printed digits."""
+    worst, bad = 0.0, []
+    for kernel, shape, printed in PERF6_BOUNDS:
+        got = cost_bound(kernels.kernel_cost(kernel, **shape))["bound_ms"]
+        digits = len(printed.split(".")[1])
+        off = abs(got - float(printed)) / (0.5 * 10 ** -digits)
+        worst = max(worst, off)
+        if off > 1 + 1e-9:
+            bad.append((kernel, shape, printed, got))
+    return {"entries": len(PERF6_BOUNDS), "disagree": bad,
+            "worst_half_ulps": worst}
+
+
+def fake_copy(node, mode):
+    """``node`` with every tensor replaced by a fake one of its shape,
+    dtype and device (dataclasses rebuilt field by field)."""
+    if isinstance(node, torch.Tensor):
+        return mode.from_tensor(node)
+    if isinstance(node, dict):
+        return {k: fake_copy(v, mode) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(fake_copy(v, mode) for v in node)
+    if dataclasses.is_dataclass(node):
+        return dataclasses.replace(node, **{
+            f.name: fake_copy(getattr(node, f.name), mode)
+            for f in dataclasses.fields(node)
+            if isinstance(getattr(node, f.name), torch.Tensor)})
+    return node
+
+
+def counted_decode_step(cfg, params, dev) -> dict:
+    """One paged decode step of ``params`` (8 slots at contexts 130-151,
+    the kernels launching) under the cost counter, and the same step on
+    fake CUDA tensors of the same shapes: flops, bytes and per-kernel
+    credits must agree."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    pool = llama2_pool()
+    b, bs = pool.max_slots, pool.block_size
+    mb = -(-pool.max_context // bs)
+    caches = init_pool_caches(cfg, pool, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    args = (torch.randint(0, cfg.vocab, (b, 1), generator=gen, device=dev,
+                          dtype=torch.int32),
+            torch.arange(130, 130 + 3 * b, 3, dtype=torch.int32, device=dev),
+            torch.ones(b, dtype=torch.bool, device=dev),
+            torch.arange(1, 1 + b * mb, dtype=torch.int32,
+                         device=dev).reshape(b, mb),
+            torch.full((b,), mb * bs, dtype=torch.int32, device=dev))
+    before = kernels.launch_counts()
+    with torch.no_grad(), hlocost.CostCounter() as real:
+        decmod.decode_step_paged(cfg, params, caches, *args)
+    torch.cuda.synchronize()
+    launched = kernels.launches_since(before)
+    with FakeTensorMode() as mode, torch.no_grad():
+        fparams, fcaches, fargs = fake_copy((params, caches, args), mode)
+        with hlocost.CostCounter() as fake:
+            decmod.decode_step_paged(cfg, fparams, fcaches, *fargs)
+    del caches
+    tokens = float(args[1].sum())
+    return {"real": real.totals(), "fake": fake.totals(),
+            "launched": {k: n for k, n in launched.items() if n},
+            "tokens_in_arena": tokens,
+            "bytes_over_hbm_ms": real.bytes / roofline.HBM_BW * 1e3,
+            "flops_over_peak_ms": real.flops / roofline.PEAK_FLOPS * 1e3,
+            "decode_step_bound_ms": decode_step_bound_ms(cfg, params,
+                                                         tokens)}
+
+
+def dryrun_phase(dev, params, serve_out) -> dict:
+    """(a) ``launch/dryrun.py``'s cells DRYRUN_CELLS on fake CUDA tensors
+    on mesh 32x8, records in chiprun_out/dryrun/ (CUDA memory may grow by
+    less than DRYRUN_MEM); (b) phase 4's quantized llama2 counted for one
+    paged decode step with kernels 1 and 2 launching, equal to the same
+    step on fake tensors, its bytes over the HBM rate beside
+    ``decode_step_bound_ms`` and phase 5's graph ms a step; (c) the
+    wrappers' ``cost(...)`` against PERF.md section 6's bound column."""
+    t0 = time.monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    cells = []
+    for arch, shape, quant in DRYRUN_CELLS:
+        rec = dryrunmod.run_cell(arch, shape, quant=quant, force=True,
+                                 device=dev, art_dir=str(OUT_DIR / "dryrun"))
+        check(rec["status"] == "ok", f"dry-run {arch} {shape} q{quant}: "
+              f"{rec.get('error')}")
+        rl = roofline.analyze(rec, get_config(arch))
+        row = {"arch": arch, "shape": shape, "quant": quant,
+               "batch": rec["batch"], "flops": rec["flops"],
+               "bytes": rec["hlo_bytes"], "coll_bytes": rec["coll_bytes"],
+               "argument_gib": rec["memory"]["argument"] / 2 ** 30,
+               "argument_specs_gib": rec["argument_specs"] / 2 ** 30,
+               "peak_gib": rec["memory"]["peak"] / 2 ** 30,
+               "fits_80gb": rec["fits"], "dominant": rl.dominant,
+               "roofline_frac": rl.roofline_frac,
+               "t_ms": {"compute": rl.t_compute * 1e3,
+                        "memory": rl.t_memory * 1e3,
+                        "collective": rl.t_collective * 1e3},
+               "build_s": rec["build_s"], "count_s": rec["count_s"]}
+        cells.append(row)
+        log(f"dryrun {arch} {shape} q{quant}: flops {row['flops']:.4e} "
+            f"bytes {row['bytes']:.4e} coll {row['coll_bytes']:.4e}; "
+            f"argument {row['argument_gib']:.2f} GiB/chip (GSPMD rules "
+            f"{row['argument_specs_gib']:.2f}), peak {row['peak_gib']:.2f} "
+            f"GiB, fits 80 GB: {row['fits_80gb']}; {rl.dominant}-bound, "
+            f"roofline fraction {rl.roofline_frac:.4f}; build "
+            f"{row['build_s']} s, count {row['count_s']} s")
+    grew = torch.cuda.max_memory_allocated(dev) - base
+    check(grew < DRYRUN_MEM, f"the fake dry-run cells grew CUDA memory by "
+          f"{grew} bytes (limit {DRYRUN_MEM})")
+    cells_s = time.monotonic() - t0
+    step = counted_decode_step(llama2_config(), params, dev)
+    real, fake = step["real"], step["fake"]
+    check(all(step["launched"].get(k) for k in ("rht_qmatmul",
+                                                "paged_attention")),
+          f"the counted step did not launch kernels 1 and 2: "
+          f"{step['launched']}")
+    check(real == fake, f"the counted step differs real / fake: {real} / "
+          f"{fake}")
+    graph_ms = float(np.median(serve_out["repeats"]["decode_step_ms"]))
+    log(f"dryrun counted decode step (llama2-7b, {llama2_config().n_layers} "
+        f"layers, 8 slots): flops {real['flops']:.4e}, bytes "
+        f"{real['bytes']:.4e} = {step['bytes_over_hbm_ms']:.4f} ms at "
+        f"{roofline.HBM_BW:.3g} B/s, beside decode_step_bound_ms "
+        f"{step['decode_step_bound_ms']:.4f} and phase 5's graph "
+        f"{graph_ms:.3f} ms a step (share {step['bytes_over_hbm_ms'] / graph_ms:.3f}); "
+        f"credits {json.dumps(real['kernel_credits'])}; real = fake")
+    col = bound_column_check()
+    check(not col["disagree"], f"cost(...) against PERF.md's bound column: "
+          f"{col['disagree']}")
+    log(f"dryrun bound column: {col['entries']} kernel shapes agree with "
+        f"PERF.md section 6 to the printed digits (worst "
+        f"{col['worst_half_ulps']:.3f} half-units of the last digit)")
+    out = {"cells": cells, "cuda_memory_growth_bytes": int(grew),
+           "cells_s": cells_s, "counted_step": step,
+           "graph_decode_step_ms": graph_ms, "bound_column": col,
+           "seconds": time.monotonic() - t0}
+    log(f"dryrun phase: {out['seconds']:.1f} s (cells {cells_s:.1f} s)")
+    return out
+
+
+def dryrun_main(dev, smi) -> int:
+    """``--dryrun``: build every kernel, quantize llama2-7b at the whole
+    run's depth (without the plain comparison), serve it (phase 5), then
+    ``dryrun_phase``.  Prints one JSON line (also
+    ``chiprun_out/chip_smoke_dryrun.json``)."""
+    _LLAMA2_DEPTH[0] = LLAMA2_LAYERS
+    _build.build()
+    _, qparams, _ = quantize_phase(dev, compare=False)
+    serve_out = serve_phase(dev, qparams)
+    out = {"gpu": smi, "dryrun": dryrun_phase(dev, qparams, serve_out)}
+    (OUT_DIR / "chip_smoke_dryrun.json").write_text(json.dumps(out, indent=1))
+    log(json.dumps(compact(out)))
+    log(smi)
+    return 0
+
+
 def ptxas_lines(logs: dict) -> dict:
     """Each source's ptxas register and spill lines from its build log."""
     return {name: [ln.strip() for ln in lg.splitlines()
@@ -5428,6 +5569,8 @@ def main() -> int:
         return mrope_whisper_main(dev, smi)
     if sys.argv[1:] == ["--tp"]:
         return tp_main(dev, smi)
+    if sys.argv[1:] == ["--dryrun"]:
+        return dryrun_main(dev, smi)
     if modes:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -5435,6 +5578,7 @@ def main() -> int:
     _LLAMA2_DEPTH[0] = LLAMA2_LAYERS
     _WHISPER_DEPTH[0] = WHISPER_LAYERS
     _QWEN2_VL_DEPTH[0] = QWEN2_VL_LAYERS
+    _TRAIN_DEPTH[0] = TRAIN_LAYERS
     t_build = time.monotonic()
     logs = _build.build()
     build_s = time.monotonic() - t_build
@@ -5508,6 +5652,7 @@ def main() -> int:
     quant_out, qparams, draft = timed("quantize", quantize_phase, dev, True,
                                       DRAFT_BITS)
     serve_out = timed("serve", serve_phase, dev, qparams)
+    dryrun_out = timed("dryrun", dryrun_phase, dev, qparams, serve_out)
     tp_out = timed("tp", tp_phase, dev, qparams, draft, serve_out)
     prefix_out = timed("prefix", prefix_phase, dev, qparams)
     spec_out = timed("speculation", spec_phase, dev, qparams, draft,
@@ -5818,7 +5963,7 @@ def main() -> int:
               "uniform_code_search_times": uniform_search_times,
               "attention_check": attn_check, "attention_times": attn_times,
               "quantize": quant_out,
-              "serve": serve_out, "tp": tp_out,
+              "serve": serve_out, "dryrun": dryrun_out, "tp": tp_out,
               "grouped_times": grouped_times,
               "grouped_unfused_times": grouped_unfused_times,
               "flash_times": flash_times,

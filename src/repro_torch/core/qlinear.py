@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import kernels, resolve_device
 from repro_torch.kernels.rabitq_quant import ops as rq_ops
 
 from . import hadamard, packing, tricks
@@ -114,7 +114,9 @@ def quantize_linear(w: torch.Tensor, bits: int, signs1: torch.Tensor,
     """Alg. 2 (+ App. C.3 tricks) for one weight matrix (d, c).
 
     ``signs1``/``signs2`` are the practical-RHT signs for the kept width
-    (see ``draw_signs``).  Runs on ``device`` (CUDA unless ``"cpu"``)."""
+    (see ``draw_signs``).  Runs on ``device`` (CUDA unless ``"cpu"``).
+    Fake ``w`` (the dry-run) gives a shape-only result, its code search
+    credited to the cost counters."""
     dev = resolve_device(device)
     d, c = w.shape
     w = w.to(device=dev, dtype=torch.float32)
@@ -133,12 +135,27 @@ def quantize_linear(w: torch.Tensor, bits: int, signs1: torch.Tensor,
     d_hat = hadamard.largest_pow2_leq(d_keep)
     if signs1.shape != (d_hat,) or (signs2 is None) != (d_hat == d_keep):
         raise ValueError(f"signs do not fit d_keep={d_keep} (d_hat={d_hat})")
-    mean_col = None
-    if centralize:
-        w_rest, mean_col = tricks.centralize(w_rest)
     s1 = signs1.to(device=dev, dtype=torch.float32)
     s2 = (signs2.to(device=dev, dtype=torch.float32)
           if signs2 is not None else None)
+    if kernels.is_fake(w):          # shape-only: the code search's cost
+        with kernels.credited("rabitq_quant", d=d_keep, c=c,
+                              n_cand=n_candidates):
+            pass
+        f16 = torch.float16
+        return QuantizedLinear(
+            packed=w.new_empty((packing.packed_rows(d_keep, bits), c),
+                               dtype=torch.uint8),
+            rescale=w.new_empty((c,), dtype=f16), signs1=s1, signs2=s2,
+            mean_col=w.new_empty((d_keep,), dtype=f16) if centralize
+            else None,
+            w_out=w_out.to(f16) if w_out is not None else None,
+            out_idx=out_idx if has_out else None,
+            keep_idx=keep_idx if has_out else None,
+            bits=bits, d=d, d_keep=d_keep, c=c)
+    mean_col = None
+    if centralize:
+        w_rest, mean_col = tricks.centralize(w_rest)
     w_rot = hadamard.practical_rht(w_rest, s1, s2, axis=0)
     q = rq_ops.quantize(w_rot, bits, n_candidates=n_candidates)
     packed = packing.pack_codes(q.codes, bits)
@@ -190,7 +207,9 @@ def quantize_grouped(w: torch.Tensor, bits: int, signs1: torch.Tensor,
     """Quantize stacked expert weights (E, d, c) with shared RHT signs (see
     ``draw_signs(d)``) on ``device`` (CUDA unless ``"cpu"``).  Each expert
     is rotated and code-searched on its own, one kernel launch per expert,
-    so only one expert's f32 rotation is held at a time."""
+    so only one expert's f32 rotation is held at a time.  Fake ``w``
+    (the dry-run) gives a shape-only result, each expert's code search
+    credited to the cost counters."""
     dev = resolve_device(device)
     e, d, c = w.shape
     d_hat = hadamard.largest_pow2_leq(d)
@@ -202,6 +221,13 @@ def quantize_grouped(w: torch.Tensor, bits: int, signs1: torch.Tensor,
     packed = torch.empty((e, packing.packed_rows(d, bits), c),
                          dtype=torch.uint8, device=dev)
     rescale = torch.empty((e, c), dtype=torch.float16, device=dev)
+    if kernels.is_fake(w):          # shape-only: the E code searches' cost
+        for _ in range(e):
+            with kernels.credited("rabitq_quant", d=d, c=c,
+                                  n_cand=n_candidates):
+                pass
+        return QuantizedGrouped(packed=packed, rescale=rescale, signs1=s1,
+                                signs2=s2, bits=bits, d=d, c=c)
     for i in range(e):
         w_rot = hadamard.practical_rht(
             w[i].to(device=dev, dtype=torch.float32), s1, s2, axis=0)

@@ -15,9 +15,22 @@ plain version for CPU tensors; ``_build`` compiles the sources in
 launch counter where it launches; the helpers below read, set and credit
 those counters by kernel name (a replayed CUDA graph launches without the
 wrappers, ``serve/graphs.py``).
+
+Cost accounting (``launch/hlocost.py``): each wrapper's dispatcher runs
+its call inside ``credited(kernel, **shape)``, which credits the kernel's
+own work (its ``cost(...)``: the operations and compulsory bytes of its
+bound) to every active cost counter and hides the ops the call dispatches
+beneath it (the plain version's, or the output's allocation) from them.
+The credit depends on shapes only, so it is the same whether the kernel
+launches, its plain version runs or the inputs are fake.  A wrapper given
+fake tensors (``is_fake``) returns an empty output of the right shape and
+dtype after the kernel's own shape checks and runs neither version.  TP
+gathers report their bytes through ``collective``; a model loop run once
+for all its equal-shaped trips on fake inputs through ``repeated``.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 
 # kernel -> (wrapper module, its launch counter)
@@ -31,6 +44,20 @@ _COUNTERS = {
     "flash_attention": ("flash_attention", "launches"),
     "rabitq_quant": ("rabitq_quant", "launches"),
 }
+
+
+# kernel -> (wrapper module, the keywords its cost(...) adds)
+_COSTS = {
+    "rht_qmatmul": ("qmatmul", {"fused": True}),
+    "qmatmul": ("qmatmul", {"fused": False}),
+    "grouped_rht_qmatmul": ("qmatmul", {"fused": True}),
+    "grouped_qmatmul": ("qmatmul", {"fused": False}),
+    "rht": ("hadamard", {}),
+    "paged_attention": ("paged_attention", {}),
+    "flash_attention": ("flash_attention", {}),
+    "rabitq_quant": ("rabitq_quant", {}),
+}
+_SINKS: list = []        # the active cost counters, innermost last
 
 
 def _ops(module: str):
@@ -71,3 +98,55 @@ def plain_forced() -> bool:
     captured like the kernel."""
     return any(_ops(m)._FORCE_PATH == "ref"
                for m in ("qmatmul", "hadamard", "paged_attention"))
+
+
+def kernel_cost(kernel: str, **shape) -> dict:
+    """``kernel``'s work at ``shape`` (its wrapper module's ``cost``):
+    ``flops`` (its operations), ``bytes`` (each input read once, each
+    output written once) and ``work``, [operations, rate name] pairs."""
+    module, extra = _COSTS[kernel]
+    return _ops(module).cost(**shape, **extra)
+
+
+@contextlib.contextmanager
+def credited(kernel: str, **shape):
+    """One wrapper call: ``kernel``'s cost at ``shape`` credited to every
+    active counter, and the ops dispatched inside hidden from them."""
+    if not _SINKS:
+        yield
+        return
+    sinks = list(_SINKS)
+    for s in sinks:
+        s.enter_kernel(kernel, shape)
+    try:
+        yield
+    finally:
+        for s in sinks:
+            s.exit_kernel()
+
+
+@contextlib.contextmanager
+def repeated(trips: int):
+    """One trip of a loop whose trips all have one shape, run on fake
+    inputs, counted ``trips`` times by every active counter (the
+    reference's cost multiplies a while body by its trip count)."""
+    sinks = list(_SINKS)
+    for s in sinks:
+        s.enter_repeat(trips)
+    try:
+        yield
+    finally:
+        for s in sinks:
+            s.exit_repeat()
+
+
+def collective(kind: str, nbytes: int) -> None:
+    """A collective's bytes on the wire (``runtime/tp.py``'s gathers)."""
+    for s in _SINKS:
+        s.add_collective(kind, nbytes)
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (shapes and dtypes, no storage)."""
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+    return _is_fake(t)

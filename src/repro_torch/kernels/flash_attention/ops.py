@@ -30,7 +30,10 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+
+from repro_torch import kernels
 
 from .ref import attention_ref
 
@@ -61,9 +64,39 @@ def _use_kernel(q: torch.Tensor) -> bool:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,S,KV,hd), H = KV*G -> (B,S,H,hd) in q's dtype."""
-    if _use_kernel(q):
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
-    return attention_ref(q, k, v, causal=causal, window=window)
+    b, s, h, hd = q.shape
+    with kernels.credited("flash_attention", b=b, sq=s, sk=k.shape[1], h=h,
+                          kv=k.shape[2], hd=hd, causal=causal, window=window,
+                          elem_bytes=q.element_size()):
+        if kernels.is_fake(q):
+            if hd not in HEAD_DIMS:
+                raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+            return torch.empty_like(q)
+        if _use_kernel(q):
+            return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window)
+
+
+def pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
+    """Unmasked (query, key) pairs of one head: the work a call needs
+    (query i at position i, as the kernel's masks place it)."""
+    q = np.arange(sq)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    hi = np.minimum(q + 1, sk) if causal else np.full_like(q, sk)
+    return int(np.sum(np.maximum(hi - lo, 0)))
+
+
+def cost(b: int, sq: int, sk: int, h: int, kv: int, hd: int, causal: bool,
+         window: int | None, elem_bytes: int) -> dict:
+    """The work of one call: q, k and v read once and the output written
+    once; the two products, 4 flops per unmasked pair and head element, on
+    the tensor cores at bf16's rate (bf16 inputs) or three TF32 products'
+    (f32)."""
+    from repro_torch.launch import roofline as rl
+    rate = rl.BF16 if elem_bytes == 2 else rl.F32
+    work = [[4 * hd * pairs(sq, sk, causal, window) * h * b, rate]]
+    nbytes = (2 * b * sq * h * hd + 2 * b * sk * kv * hd) * elem_bytes
+    return {"flops": work[0][0], "bytes": nbytes, "work": work}
 
 
 def _lib():

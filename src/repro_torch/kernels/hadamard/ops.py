@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import hadamard as hcore
 
 from .ref import practical_rht_ref
@@ -83,11 +84,28 @@ def practical_rht(x: torch.Tensor, signs1: torch.Tensor,
     lead = x.shape[:-1]
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
-    if _use_kernel(x2):
-        y = rht_cuda(x2.contiguous(), signs1, signs2)
-    else:
-        y = practical_rht_ref(x2, signs1, signs2)
+    with kernels.credited("rht", n=x2.shape[0], d=d):
+        if kernels.is_fake(x2):
+            rotate_plan(d)                      # the kernel's widths
+            y = torch.empty_like(x2)
+        elif _use_kernel(x2):
+            y = rht_cuda(x2.contiguous(), signs1, signs2)
+        else:
+            y = practical_rht_ref(x2, signs1, signs2)
     return y.reshape(*lead, d)
+
+
+def cost(n: int, d: int) -> dict:
+    """The work of one call: each row read and written once and the signs
+    read once per block; the butterflies' adds (each of the two blocks'
+    log2 d_hat stages) as products with +-1 signs at the f32 x codes
+    rate."""
+    from repro_torch.launch import roofline as rl
+    dh = hcore.largest_pow2_leq(d)
+    passes = 1 if dh == d else 2
+    work = [[passes * n * dh * (dh.bit_length() - 1), rl.CODES]]
+    return {"flops": work[0][0], "bytes": 2 * n * d * 4 + passes * dh * 4,
+            "work": work}
 
 
 def _lib():

@@ -57,6 +57,8 @@ import functools
 
 import torch
 
+from repro_torch import kernels
+
 from .ref import (MIN_SPLIT_KEYS, TILE_KEYS, paged_attention_gather,
                   paged_attention_ref)
 
@@ -134,13 +136,45 @@ def paged_attention(q, k_arena, v_arena, block_table, pos, ring_cap, *,
     (B,) -> (B, W, H, hd).  ``window`` is None or at least 1."""
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
-    path = _resolve(q)
-    if path == "kernel":
-        return paged_attention_cuda(q, k_arena, v_arena, block_table, pos,
-                                    ring_cap, window=window)
-    plain = paged_attention_gather if path == "gather" else paged_attention_ref
-    return plain(q, k_arena, v_arena, block_table, pos, ring_cap,
-                 window=window)
+    if kernels.is_fake(q):
+        path = "gather" if _USE_KERNEL.get() is False and (
+            _FORCE_PATH is None) else "fake"
+    else:
+        path = _resolve(q)
+    if path == "gather":        # plain torch ops, counted as they run
+        return paged_attention_gather(q, k_arena, v_arena, block_table, pos,
+                                      ring_cap, window=window)
+    b, w, h, hd = q.shape
+    with kernels.credited("paged_attention", b=b, w=w, h=h,
+                          kv=k_arena.shape[2], hd=hd,
+                          keys=b * block_table.shape[1] * k_arena.shape[1],
+                          elem_bytes=k_arena.element_size(),
+                          table=block_table.numel()):
+        if path == "fake":
+            if hd not in HEAD_DIMS:
+                raise ValueError(f"head_dim {hd} is not one the kernel is "
+                                 f"compiled for {HEAD_DIMS}")
+            return torch.empty_like(q)
+        if path == "kernel":
+            return paged_attention_cuda(q, k_arena, v_arena, block_table,
+                                        pos, ring_cap, window=window)
+        return paged_attention_ref(q, k_arena, v_arena, block_table, pos,
+                                   ring_cap, window=window)
+
+
+def cost(b: int, w: int, h: int, kv: int, hd: int, keys: int,
+         elem_bytes: int, table: int) -> dict:
+    """The work of one call reading ``keys`` keys of each KV head (a
+    wrapper call credits the whole block table, b x MB x block size: what
+    its requests hold is data, which the step does not read back): the
+    keys' K and V rows read, q read and the output written in f32, the
+    block table read; 4 flops per query row, key and head element (the
+    two dots) on the CUDA cores."""
+    from repro_torch.launch import roofline as rl
+    work = [[4 * keys * (h // kv) * w * kv * hd, rl.SIMT]]
+    nbytes = keys * kv * hd * elem_bytes * 2 + 2 * b * w * h * hd * 4 \
+        + table * 4
+    return {"flops": work[0][0], "bytes": nbytes, "work": work}
 
 
 def _lib():

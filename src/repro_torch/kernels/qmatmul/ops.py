@@ -72,6 +72,7 @@ import ctypes
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import hadamard, packing
 
 from .ref import (grouped_quantized_matmul_ref,
@@ -140,11 +141,16 @@ def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
     """Estimate X @ (r * (codes - c_b)) for an already-rotated X (..., d)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if _use_kernel(x2):
-        y = quantized_matmul_cuda(x2.to(torch.float32).contiguous(), packed,
-                                  rescale, bits=bits, d=d, plan_c=plan_c)
-    else:
-        y = quantized_matmul_ref(x2, packed, rescale, bits=bits, d=d)
+    with kernels.credited("qmatmul", n=x2.shape[0], d=d,
+                          c=packed.shape[-1], bits=bits):
+        if kernels.is_fake(x2):
+            y = _shape_only(x2, packed, plan_c)
+        elif _use_kernel(x2):
+            y = quantized_matmul_cuda(x2.to(torch.float32).contiguous(),
+                                      packed, rescale, bits=bits, d=d,
+                                      plan_c=plan_c)
+        else:
+            y = quantized_matmul_ref(x2, packed, rescale, bits=bits, d=d)
     return y.reshape(*lead, y.shape[-1])
 
 
@@ -162,12 +168,17 @@ def rht_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
         xr = hops.practical_rht(x2.to(torch.float32), signs1, signs2)
         return quantized_matmul(xr, packed, rescale, bits=bits, d=d,
                                 plan_c=plan_c).reshape(*lead, -1)
-    if _use_kernel(x2):
-        y = rht_quantized_matmul_cuda(x2, packed, rescale, signs1, signs2,
-                                      bits=bits, d=d, plan_c=plan_c)
-    else:
-        y = rht_quantized_matmul_ref(x2, packed, rescale, signs1, signs2,
-                                     bits=bits, d=d)
+    with kernels.credited("rht_qmatmul", n=x2.shape[0], d=d,
+                          c=packed.shape[-1], bits=bits):
+        if kernels.is_fake(x2):
+            y = _shape_only(x2, packed, plan_c, rotated_d=d)
+        elif _use_kernel(x2):
+            y = rht_quantized_matmul_cuda(x2, packed, rescale, signs1,
+                                          signs2, bits=bits, d=d,
+                                          plan_c=plan_c)
+        else:
+            y = rht_quantized_matmul_ref(x2, packed, rescale, signs1, signs2,
+                                         bits=bits, d=d)
     return y.reshape(*lead, y.shape[-1])
 
 
@@ -176,11 +187,18 @@ def grouped_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
                              plan_c: int | None = None) -> torch.Tensor:
     """Per-expert ``quantized_matmul`` on an already-rotated x (E, C, d),
     packed (E, pr, c), rescale (E, c) -> (E, C, c)."""
-    if _use_kernel(x):
-        return grouped_quantized_matmul_cuda(
-            x.to(torch.float32).contiguous(), packed, rescale, bits=bits, d=d,
-            plan_c=plan_c)
-    return grouped_quantized_matmul_ref(x, packed, rescale, bits=bits, d=d)
+    e, cap, _ = x.shape
+    with kernels.credited("grouped_qmatmul", n=cap, d=d, c=packed.shape[-1],
+                          bits=bits, groups=e):
+        if kernels.is_fake(x):
+            return _shape_only(x.reshape(e * cap, -1), packed, plan_c
+                               ).reshape(e, cap, -1)
+        if _use_kernel(x):
+            return grouped_quantized_matmul_cuda(
+                x.to(torch.float32).contiguous(), packed, rescale, bits=bits,
+                d=d, plan_c=plan_c)
+        return grouped_quantized_matmul_ref(x, packed, rescale, bits=bits,
+                                            d=d)
 
 
 def grouped_rht_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
@@ -200,12 +218,47 @@ def grouped_rht_quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
         return grouped_quantized_matmul(xr.reshape(e, cap, d), packed,
                                         rescale, bits=bits, d=d,
                                         plan_c=plan_c)
-    if _use_kernel(x):
-        return grouped_rht_quantized_matmul_cuda(
-            x, packed, rescale, signs1, signs2, bits=bits, d=d,
-            plan_c=plan_c)
-    return grouped_rht_quantized_matmul_ref(x, packed, rescale, signs1,
-                                            signs2, bits=bits, d=d)
+    with kernels.credited("grouped_rht_qmatmul", n=cap, d=d,
+                          c=packed.shape[-1], bits=bits, groups=e):
+        if kernels.is_fake(x):
+            return _shape_only(x.reshape(e * cap, d), packed, plan_c,
+                               rotated_d=d).reshape(e, cap, -1)
+        if _use_kernel(x):
+            return grouped_rht_quantized_matmul_cuda(
+                x, packed, rescale, signs1, signs2, bits=bits, d=d,
+                plan_c=plan_c)
+        return grouped_rht_quantized_matmul_ref(x, packed, rescale, signs1,
+                                                signs2, bits=bits, d=d)
+
+
+def _shape_only(x2: torch.Tensor, packed: torch.Tensor, plan_c: int | None,
+                rotated_d: int | None = None) -> torch.Tensor:
+    """A fake call's (rows, c) f32 output, after the kernel's shape checks
+    (c a multiple of 16; with ``rotated_d`` the rotation's widths)."""
+    c = packed.shape[-1]
+    _check_cols(c)
+    if rotated_d is not None:
+        from repro_torch.kernels.hadamard import ops as hops  # late: no cycle
+        hops.rotate_plan(rotated_d)
+    return x2.new_empty((x2.shape[0], c), dtype=torch.float32)
+
+
+def cost(n: int, d: int, c: int, bits: int, fused: bool = True,
+         groups: int = 1) -> dict:
+    """The work of one call over ``groups`` experts of n rows: x read, the
+    packed codes and rescales read, the signs read once per rotation block
+    (fused), the f32 output written; the code products 2 n d c and the
+    rotation's butterflies (each block's log2 d_hat stages), both at the
+    f32 x codes rate.  The bound column of PERF.md §6 is this cost's."""
+    from repro_torch.launch import roofline as rl
+    dh = hadamard.largest_pow2_leq(d)
+    passes = (1 if dh == d else 2) if fused else 0
+    rows = groups * n
+    nbytes = (rows * d * 4 + groups * packing.packed_rows(d, bits) * c
+              + groups * c * 2 + passes * dh * 4 + rows * c * 4)
+    work = [[2 * rows * d * c, rl.CODES],
+            [passes * rows * dh * (dh.bit_length() - 1), rl.CODES]]
+    return {"flops": sum(w[0] for w in work), "bytes": nbytes, "work": work}
 
 
 def _lib():

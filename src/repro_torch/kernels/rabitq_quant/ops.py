@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.core.rabitq import RabitqCodes, candidate_scales
 
 from .ref import quantize_ref
@@ -65,12 +66,38 @@ def _use_kernel(w: torch.Tensor) -> bool:
 
 def quantize(w: torch.Tensor, bits: int, n_candidates: int = 12) -> RabitqCodes:
     """Quantize columns of ``w`` (d, c) to ``bits``-bit codes + rescale."""
-    if _use_kernel(w):
-        codes, rescale = quantize_cuda(w.to(torch.float32).contiguous(), bits,
-                                       n_candidates)
-    else:
-        codes, rescale = quantize_ref(w, bits, n_candidates)
+    d, c = w.shape
+    with kernels.credited("rabitq_quant", d=d, c=c, n_cand=n_candidates):
+        if kernels.is_fake(w):
+            _check_args(bits, n_candidates)
+            codes = w.new_empty((d, c), dtype=torch.uint8)
+            rescale = w.new_empty((c,), dtype=torch.float32)
+        elif _use_kernel(w):
+            codes, rescale = quantize_cuda(w.to(torch.float32).contiguous(),
+                                           bits, n_candidates)
+        else:
+            codes, rescale = quantize_ref(w, bits, n_candidates)
     return RabitqCodes(codes=codes, rescale=rescale, bits=bits)
+
+
+def cost(d: int, c: int, n_cand: int = 12) -> dict:
+    """The work of one call: w read once, codes and rescales written once;
+    issue slots on the CUDA cores: per element and candidate the division
+    (a multiply and two fmas from the column's reciprocal), the add of
+    c_b, rint, the clamp (2), the subtract and the two sums' fmas (10); per
+    element absmax (1) and the chosen step's code (8)."""
+    from repro_torch.launch import roofline as rl
+    work = [[(10 * n_cand + 9) * d * c, rl.SIMT_ISSUE]]
+    return {"flops": work[0][0], "bytes": d * c * 4 + d * c + 4 * c,
+            "work": work}
+
+
+def _check_args(bits: int, n_candidates: int) -> None:
+    if not 1 <= bits <= 8:
+        raise ValueError(f"bits must be in [1, 8], got {bits}")
+    if not 1 <= n_candidates <= MAX_CANDIDATES:
+        raise ValueError(f"the kernel searches 1 to {MAX_CANDIDATES} "
+                         f"candidate steps, got {n_candidates}")
 
 
 def search_plan(d: int) -> int:
@@ -109,11 +136,7 @@ def quantize_cuda(w: torch.Tensor, bits: int, n_candidates: int = 12, *,
     (c,) f32, and with ``return_choice`` the chosen candidate per column
     (c,) int32."""
     global launches
-    if not 1 <= bits <= 8:
-        raise ValueError(f"bits must be in [1, 8], got {bits}")
-    if not 1 <= n_candidates <= MAX_CANDIDATES:
-        raise ValueError(f"the kernel searches 1 to {MAX_CANDIDATES} "
-                         f"candidate steps, got {n_candidates}")
+    _check_args(bits, n_candidates)
     dev = w.device
     if dev.type != "cuda":
         raise ValueError("quantize_cuda needs CUDA tensors")

@@ -13,11 +13,21 @@ A caller may name the backend: the one-card parity run puts every rank on
 and joins them through a ``file://`` rendezvous in a fresh temporary
 directory, so concurrent runs (parallel test workers) never share a port.
 
-The reference's ``make_production_mesh`` (16 x 16 TPU pods) has no
-counterpart yet (ROADMAP Queue 1 item 8).
+``make_production_mesh`` is the dry-run's mesh (``launch/dryrun.py``): an
+abstract ``ProductionMesh`` of axis names and sizes that touches no device
+and joins no process, the attributes the sharding rules read
+(``runtime/sharding.py``).  The reference's is a 16 x 16 TPU pod (256
+chips; 2 x 16 x 16 for two pods), whose model axis of 16 runs over the
+pod's torus.  An H100 node joins 8 GPUs all to all over NVLink and nodes
+over InfiniBand, so the port keeps the reference's 256 and 512 chips but
+lays them out as (data 32, model 8) and (pod 2, data 32, model 8): 32 or
+64 eight-GPU nodes, with the tensor-parallel model axis inside one node's
+NVLink domain.  A model axis of 16 would put every TP gather across
+InfiniBand, about a ninth of NVLink's rate (``launch/roofline.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import queue
 import tempfile
@@ -26,6 +36,7 @@ import traceback
 from pathlib import Path
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -33,6 +44,36 @@ from repro_torch.runtime.tp import TPGroup
 
 BACKENDS = ("gloo", "nccl")
 TIMEOUT_S = 600.0        # a collective's wait, and a spawned run's
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductionMesh:
+    """An abstract device mesh: ``axis_names`` in order, ``shape`` each
+    axis's size (the fields of a ``jax.sharding.Mesh`` the rules read).
+    ``name`` is its label in the dry-run's records, ``size`` its chips."""
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.sizes))
+
+    @property
+    def name(self) -> str:
+        return "x".join(str(n) for n in self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """(data 32, model 8): 256 H100s as 32 NVLink nodes of 8; with
+    ``multi_pod`` (pod 2, data 32, model 8): 512 (see the module
+    docstring for why not the reference's 16 x 16)."""
+    if multi_pod:
+        return ProductionMesh(("pod", "data", "model"), (2, 32, 8))
+    return ProductionMesh(("data", "model"), (32, 8))
 
 
 def resolve_backend(tp: int, backend: str | None, device) -> str | None:

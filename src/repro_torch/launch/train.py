@@ -48,8 +48,11 @@ def train(arch: str = "llama2-7b", tiny: bool = True, steps: int = 200,
           ckpt_dir: str | None = None, ckpt_every: int = 100,
           grad_compression: str | None = None, log_every: int = 20,
           params=None, corpus=None, inject_failure=None, device=None,
-          on_step: Optional[Callable] = None):
+          on_step: Optional[Callable] = None, depth: int | None = None):
     """Train ``arch`` for ``steps`` steps -> (cfg, params, losses).
+
+    ``depth``: the config cut to its first ``depth`` layers (published
+    widths, fewer layers: a smoke run's cut); all of them when None.
 
     ``params``: the port's params on ``device`` (e.g. bridged from the
     reference); default ``init_params`` from a generator seeded ``seed``.
@@ -58,6 +61,9 @@ def train(arch: str = "llama2-7b", tiny: bool = True, steps: int = 200,
     device tensors; seconds end in a sync on the card)."""
     dev = resolve_device(device)
     cfg = get_tiny(arch) if tiny else get_config(arch)
+    if depth is not None:
+        cfg = cfg.with_(n_layers=depth,
+                        mixer_pattern=cfg.mixer_pattern[:depth])
     if cfg.enc_dec:
         raise ValueError(f"{cfg.name}: the training loop feeds token batches "
                          "only and has no encoder frames for an "

@@ -39,10 +39,11 @@ dispatches through ``common.linear``, so quantized layers run the fused
 RHT + dequant GEMM, and the decode read runs the paged flash-decode
 kernel.
 
-Tensor parallelism (``runtime/tp.py``): the paged steps gather the
-ranks' head slices before ``wo`` (``gather_heads``) and the vocab slices
-of the logits (``gather_cols``), at the reference's places; both are
-shape-driven no-ops at full width, so TP=1 runs the same code.
+Tensor parallelism (``runtime/tp.py``): the paged and the lockstep steps
+gather the ranks' head slices before ``wo`` (``gather_heads``) and the
+vocab slices of the logits (``gather_cols``), at the reference's places;
+both are shape-driven no-ops at full width, so TP=1 runs the same code.
+A rank's lockstep caches hold its KV heads (``init_caches(kv_heads=)``).
 
 The reference's jitted steps donate their caches so XLA aliases them in
 and out; here every cache is updated in place (``index_put_``,
@@ -86,13 +87,17 @@ def attn_capacity(cfg: ModelConfig, context: int) -> int:
 
 
 def init_layer_cache(cfg: ModelConfig, mixer: str, b: int, context: int,
-                     dtype=torch.float32, device=None) -> dict:
+                     dtype=torch.float32, device=None,
+                     kv_heads: int | None = None) -> dict:
     """One layer's lockstep cache (recurrent state is f32 whatever
     ``dtype``, as the reference's).  An encoder-decoder layer's ``xk`` /
-    ``xv`` join it in ``prefill``."""
+    ``xv`` join it in ``prefill``.  ``kv_heads``: an attention ring's KV
+    heads (a tensor-parallel rank's ``runtime/tp.local_kv_heads``;
+    default all ``cfg.n_kv``)."""
     if mixer == "attn":
         return {"kv": attnmod.KVCache.init(b, attn_capacity(cfg, context),
-                                           cfg.n_kv, cfg.hd, dtype, device)}
+                                           kv_heads or cfg.n_kv, cfg.hd,
+                                           dtype, device)}
     if mixer == "mla":
         return {"mla": mlamod.MLACache.init(b, context, cfg.mla.kv_lora,
                                             cfg.mla.qk_rope, dtype, device)}
@@ -106,9 +111,9 @@ def init_layer_cache(cfg: ModelConfig, mixer: str, b: int, context: int,
 
 
 def init_caches(cfg: ModelConfig, b: int, context: int, dtype=torch.float32,
-                device=None) -> list:
+                device=None, kv_heads: int | None = None) -> list:
     """One cache per layer (the layers are unrolled, as ``params``'s are)."""
-    return [init_layer_cache(cfg, mx, b, context, dtype, device)
+    return [init_layer_cache(cfg, mx, b, context, dtype, device, kv_heads)
             for mx in cfg.pattern]
 
 
@@ -169,13 +174,13 @@ def layer_prefill(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
         q, k, v = _attn_qkv(cfg, p, hn, positions)
         out = attnmod.flash_attention(q, k, v, causal=True,
                                       window=cfg.window)
+        out = tpmod.gather_heads(out, cfg.n_heads)
         mix = linear(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.hd))
         _ring_fill(cache["kv"], k, v)
     elif mixer == "mla":
         m, p = cfg.mla, lp["mla"]
-        mix = mlamod.mla_full(p, hn, m, positions)
-        c_kv, k_rope = mlamod._project_kv_latent(p, hn, m, positions, None,
-                                                 "")
+        mix, (c_kv, k_rope) = mlamod.mla_full(p, hn, m, positions,
+                                              return_latent=True)
         mc = cache["mla"]
         mc.c_kv[:, :s] = c_kv.to(mc.c_kv.dtype)
         mc.k_rope[:, :s] = k_rope.to(mc.k_rope.dtype)
@@ -234,7 +239,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     for mx, lp, cache in zip(cfg.pattern, params["layers"], caches):
         h, _, _ = layer_prefill(cfg, mx, lp, h, positions, cache)
     h = apply_norm(cfg.norm, h, params["final_norm"])
-    return linear(params["lm_head"], h), caches, s
+    return tpmod.gather_cols(linear(params["lm_head"], h), cfg.vocab), \
+        caches, s
 
 
 def layer_decode(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
@@ -250,6 +256,7 @@ def layer_decode(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
         q, k, v = _attn_qkv(cfg, p, hn, posb)
         kvc = attnmod.cache_insert(cache["kv"], k, v, pos)
         out = attnmod.decode_attention(q, kvc, pos + 1)
+        out = tpmod.gather_heads(out, cfg.n_heads)
         mix = linear(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.hd))
     elif mixer == "mla":
         mix, _ = mlamod.mla_decode(lp["mla"], hn, cfg.mla, cache["mla"], pos)
@@ -301,7 +308,8 @@ def decode_step(cfg: ModelConfig, params: dict, caches: list,
     for mx, lp, cache in zip(cfg.pattern, params["layers"], caches):
         h = layer_decode(cfg, mx, lp, h, cache, pos)
     h = apply_norm(cfg.norm, h, params["final_norm"])
-    return linear(params["lm_head"], h)[:, 0], caches
+    return tpmod.gather_cols(linear(params["lm_head"], h)[:, 0],
+                             cfg.vocab), caches
 
 
 def caches_context(caches: list, cfg: ModelConfig) -> int:

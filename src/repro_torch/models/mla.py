@@ -63,8 +63,13 @@ def _project_kv_latent(p: dict, x: torch.Tensor, mcfg, positions, ctx, name):
 
 
 def mla_full(p: dict, x: torch.Tensor, mcfg, positions: torch.Tensor,
-             ctx: LinearCtx | None = None, name: str = "mla") -> torch.Tensor:
-    """Calibration / prefill path: expand K, V, causal attention."""
+             ctx: LinearCtx | None = None, name: str = "mla",
+             return_latent: bool = False):
+    """Calibration / prefill path: expand K, V, causal attention.  With
+    ``return_latent`` -> (out, (c_kv, k_rope)): the latent rows a prefill
+    caches, from the same ``wkv_a`` projection (the reference projects
+    twice and XLA merges the two; run eagerly, that would be a second
+    GEMM)."""
     b, s, _ = x.shape
     h, dn, dr, dv = mcfg.n_heads, mcfg.qk_nope, mcfg.qk_rope, mcfg.v_head
     q_nope, q_rope = _project_q(p, x, mcfg, positions, ctx, name)
@@ -76,8 +81,8 @@ def mla_full(p: dict, x: torch.Tensor, mcfg, positions: torch.Tensor,
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
                   dim=-1)
     out = attn.flash_attention(q, k, v, causal=True)
-    out = out.reshape(b, s, h * dv)
-    return linear(p["wo"], out, ctx, f"{name}.wo")
+    out = linear(p["wo"], out.reshape(b, s, h * dv), ctx, f"{name}.wo")
+    return (out, (c_kv, k_rope)) if return_latent else out
 
 
 def _f32(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -20,6 +20,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch import kernels
+
 from .common import LinearCtx, linear
 
 LORA_R = 32      # token-shift ddlerp LoRA rank
@@ -45,24 +47,30 @@ class RWKVState:
             x_prev_cm=torch.zeros((b, d), dtype=dtype, device=device))
 
 
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in the operands' promoted dtype, as ``jnp.einsum``
+    promotes (bf16 LoRA weights against f32 mixes)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
 def _ddlerp(p: dict, x: torch.Tensor, xx: torch.Tensor):
     """Data-dependent lerp mixes for (r, k, v, w, g): RWKV6 token shift."""
     d = x.shape[-1]
     base = x + xx * p["mu_x"]
-    low = torch.tanh(torch.einsum("...d,dr->...r", base,
-                                  p["tm_w1"].reshape(d, 5 * LORA_R)))
+    low = torch.tanh(_einsum("...d,dr->...r", base,
+                             p["tm_w1"].reshape(d, 5 * LORA_R)))
     low = low.reshape(*x.shape[:-1], 5, LORA_R)
-    dyn = torch.einsum("...fr,frd->...fd", low, p["tm_w2"])    # (..., 5, d)
+    dyn = _einsum("...fr,frd->...fd", low, p["tm_w2"])         # (..., 5, d)
     mix = p["mu_rkvwg"] + dyn
     return [x + xx * mix[..., i, :] for i in range(5)]
 
 
 def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
     """Per-channel log-decay: logw = -exp(w0 + lora(xw)), clamped."""
-    lora = torch.einsum("...r,rd->...d",
-                        torch.tanh(torch.einsum("...d,dr->...r", xw,
-                                                p["dw_a"])),
-                        p["dw_b"])
+    lora = _einsum("...r,rd->...d",
+                   torch.tanh(_einsum("...d,dr->...r", xw, p["dw_a"])),
+                   p["dw_b"])
     logw = -torch.exp((p["w0"] + lora).to(torch.float32))
     return torch.clamp(logw, LOG_W_MIN, -1e-6)
 
@@ -128,8 +136,7 @@ def time_mix(p: dict, x: torch.Tensor, *, n_heads: int, head_dim: int,
 
     st = (torch.zeros((b, h, dk, dk), dtype=torch.float32, device=x.device)
           if state is None else state.s.to(torch.float32))
-    outs = []
-    for c in range(nc):
+    def chunk_step(c, st):
         rc, kc, vc, lac, lwc = rs[c], ks[c], vs[c], la[c], lw[c]  # (b,C,h,dk)
         la_prev = lac - lwc                                    # exclusive
         q_dec = rc * torch.exp(la_prev)                        # <= |r|
@@ -143,7 +150,19 @@ def time_mix(p: dict, x: torch.Tensor, *, n_heads: int, head_dim: int,
         k_carry = kc * torch.exp(la_end[:, None] - lac)        # <= |k|
         st = (st * torch.exp(la_end)[..., None]
               + torch.einsum("bshk,bshv->bhkv", k_carry, vc))
-        outs.append(out)
+        return out, st
+
+    if kernels.is_fake(x):
+        # shapes only (the dry-run): every chunk has one shape, so one
+        # stands for all nc, counted nc times (a loop body x its trips)
+        with kernels.repeated(nc):
+            out, st = chunk_step(0, st)
+        outs = [out] * nc
+    else:
+        outs = []
+        for c in range(nc):
+            out, st = chunk_step(c, st)
+            outs.append(out)
     out = torch.stack(outs, dim=1).reshape(b, sp, h * dk)[:, :s]
     y = _out_proj(p, out, g, ctx, name)
     if return_state:

@@ -101,17 +101,20 @@ def make_train_step(cfg: ModelConfig, *, microbatches: int = 1,
 
 
 def make_prefill_step(cfg: ModelConfig, context: int,
-                      cache_dtype=torch.bfloat16):
+                      cache_dtype=torch.bfloat16,
+                      kv_heads: int | None = None):
     """prefill_step(params, batch) -> (last position's logits (B, V), the
     lockstep caches of ``context`` positions).  ``batch``: ``tokens`` (B,
     S) [, ``positions`` (B, S) or mrope's (3, B, S), ``enc_embeds`` (B, T,
     d) for an encoder-decoder model].  The self-attention caches are in
     ``cache_dtype``; Whisper's cross K/V keep their linear's dtype (f32),
-    as the reference's do."""
+    as the reference's do.  ``kv_heads``: the caches' KV heads (a
+    tensor-parallel rank's share; default all)."""
     def prefill_step(params, batch):
         tokens = batch["tokens"]
         caches = decmod.init_caches(cfg, tokens.shape[0], context,
-                                    dtype=cache_dtype, device=tokens.device)
+                                    dtype=cache_dtype, device=tokens.device,
+                                    kv_heads=kv_heads)
         logits, caches, _ = decmod.prefill(
             cfg, params, tokens, positions=batch.get("positions"),
             enc_embeds=batch.get("enc_embeds"), context=context,

@@ -118,6 +118,17 @@ def scope(group: TPGroup | None):
         _GROUP.reset(token)
 
 
+DRYRUN = "dryrun"
+
+
+def dryrun_group(tp: int, device) -> TPGroup:
+    """Rank 0 of a ``tp``-rank group that joins no process: its gathers
+    take fake tensors only, return the gathered shape and report the
+    result's bytes to the cost counters (``launch/dryrun.py``)."""
+    return TPGroup(rank=0, size=tp, backend=DRYRUN,
+                   device=torch.device(device))
+
+
 def _all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The group's slices of ``x`` concatenated along ``dim`` in rank
     order.  Under gloo a CUDA tensor goes through the host."""
@@ -126,6 +137,15 @@ def _all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     if group is None or group.size == 1:
         raise RuntimeError(f"a sliced tensor {tuple(x.shape)} reached a TP "
                            f"gather outside a TP group's scope")
+    if group.backend == DRYRUN:
+        from repro_torch import kernels
+        if not kernels.is_fake(x):
+            raise RuntimeError("a dry-run group gathers fake tensors only")
+        shape = list(x.shape)
+        shape[dim] *= group.size
+        out = x.new_empty(shape)
+        kernels.collective("all-gather", out.numel() * out.element_size())
+        return out
     send = x.contiguous()
     host = group.backend == "gloo" and send.is_cuda
     if host:

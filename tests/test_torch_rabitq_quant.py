@@ -11,6 +11,7 @@ codes differ by at most one and in under 0.5% of entries (round-half ties
 under different f32 arithmetic, and the candidate scales' one-ulp
 difference, ROADMAP Queue 3), rescale rtol 5e-3.
 """
+import functools
 from fractions import Fraction
 
 import jax.numpy as jnp
@@ -42,6 +43,21 @@ def _close(codes, rescale, want_codes, want_rescale):
                                atol=1e-5)
 
 
+@functools.lru_cache(maxsize=None)
+def _oracle(bits, d, c):
+    """The reference oracle's codes and rescale for ``_weights(bits, d,
+    c)``, computed once per case for every test that reads them."""
+    q = jrabitq.quantize(jnp.asarray(_weights(bits, d, c)), bits)
+    return np.asarray(q.codes), np.asarray(q.rescale)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain(bits, d, c):
+    """The port's plain code search on ``_weights(bits, d, c)``, once per
+    case."""
+    return rq_ops.quantize(torch.from_numpy(_weights(bits, d, c)), bits)
+
+
 def _port(w, bits):
     q = rq_ops.quantize(torch.from_numpy(w), bits)
     assert q.bits == bits and q.codes.dtype == torch.uint8
@@ -61,8 +77,7 @@ def test_plain_matches_pallas_interpret(bits, d, c):
 @pytest.mark.parametrize("bits", range(1, 9))
 def test_plain_matches_reference_oracle(bits, d, c):
     w = _weights(bits, d, c)
-    q = jrabitq.quantize(jnp.asarray(w), bits)
-    _close(*_port(w, bits), q.codes, q.rescale)
+    _close(*_port(w, bits), *_oracle(bits, d, c))
 
 
 def test_cpu_tensor_takes_plain_path_and_kernel_path_refuses_cpu():
@@ -92,9 +107,8 @@ def test_search_walk_matches_reference_oracle(bits, d, c, slices):
     w = _weights(bits, d, c)
     codes, rescale, choice = rq_ref.search_walk(torch.from_numpy(w), bits,
                                                 slices=slices)
-    q = jrabitq.quantize(jnp.asarray(w), bits)
-    _close(codes.numpy(), rescale.numpy(), q.codes, q.rescale)
-    plain = rq_ops.quantize(torch.from_numpy(w), bits)
+    _close(codes.numpy(), rescale.numpy(), *_oracle(bits, d, c))
+    plain = _plain(bits, d, c)
     levels = (1 << bits) - 1
     wt = torch.from_numpy(w)
     delta0 = (wt.abs().amax(0).clamp(min=1e-30)

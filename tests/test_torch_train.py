@@ -295,3 +295,16 @@ def test_prefill_and_serve_steps_match_reference(setups):
                                 "positions": torch.from_numpy(pos)})
     np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast), rtol=0,
                                atol=1e-4 * float(jnp.abs(jlast).max()))
+
+
+def test_train_cuts_the_config_to_depth():
+    """``train(depth=)``: the published widths with the first ``depth``
+    layers (the card's smoke run trains qwen3-0.6b so)."""
+    cfg, params, losses = ttrain.train(arch="llama2-7b", tiny=True,
+                                       steps=2, batch=2, seq=16,
+                                       log_every=100, device="cpu", depth=1)
+    full = get_tiny("llama2-7b")
+    assert cfg.n_layers == 1 and len(params["layers"]) == 1
+    assert (cfg.d_model, cfg.d_ff, cfg.vocab) == (full.d_model, full.d_ff,
+                                                   full.vocab)
+    assert len(losses) == 2 and all(np.isfinite(losses))
