@@ -73,10 +73,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      column shard (``runtime/tp.py``: heads of wq/wk/wv and the KV arena,
      FFN columns of wi, vocab of lm_head); rank 0 drives phase 5's first
      TP_REQUESTS requests (TP_GEN new tokens each) at TP=2 fused (decode
-     and chunked prefill), unfused, and speculating k = 3 deep with the
-     2.2-bit draft (the verify steps).  Each run's tokens must equal
+     and chunked prefill), unfused, speculating k = 3 deep with the
+     2.2-bit draft (the verify steps), and through the streaming front
+     door (``launch.serve.serve_frontdoor``, the ``--serve --tp`` path:
+     rank 0's clients stream them over TP_FD_SLOTS slots, the last at
+     priority 2 preempting a decoding one, then the server idles past a
+     heartbeat interval and serves request 0's prompt again, then stops
+     cleanly; TTFT, host ms a step and preemptions logged as "tp
+     frontdoor:").  Each run's tokens must equal
      TP=1's request by request (the first TP_GEN of phase 5's fused and
-     unfused runs' tokens; the speculating run phase 5's fused tokens);
+     unfused runs' tokens; the speculating and front-door runs phase 5's
+     fused tokens);
      against a TP=1 fused run eager in this process, the first 8 decode
      steps' logits are compared
      bit for bit (max |diff| printed) beside checks of each rank's
@@ -85,7 +92,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      and paged-attention kernels planned from the full widths (must be
      bit for bit) and from the slice's own (reported); each rank's GEMM
      and paged-attention launches at shard widths are counted (paths
-     ``llama2_tp`` and ``llama2_tp_spec``), and the ranks' host ms per
+     ``llama2_tp``, ``llama2_tp_spec`` and ``llama2_tp_frontdoor``), and
+     the ranks' host ms per
      step beside TP=1's (gloo through the host, eager, two ranks on one
      card: no speed claim);
   6. Mixtral: mixtral-8x7b at its published width (d_model 4096, 32 heads
@@ -221,6 +229,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import http.client
 import json
 import os
@@ -279,7 +288,7 @@ from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch.roofline import (  # noqa: E402
     QUANT_TENSORS, RATES, SIMT, cost_bound, decode_step_bound_ms, quant_bytes,
     quantized_linears)
-from repro_torch.launch.serve import BatchedServer  # noqa: E402
+from repro_torch.launch.serve import BatchedServer, serve_frontdoor  # noqa: E402
 from repro_torch.launch.train import loader_batch, train  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.runtime import tp as tpmod  # noqa: E402
@@ -2143,7 +2152,8 @@ def serve_phase(dev, params) -> dict:
 TP_DEGREE = 2            # ranks of the parity run, every one on cuda:0
 TP_LOGIT_STEPS = 8       # decode steps whose logits TP=2 and TP=1 compare
 TP_RUNS = (("fused", True, False), ("unfused", False, False),
-           ("spec", True, True))     # name, fused, speculating (SPEC_K deep)
+           ("spec", True, True),     # name, fused, speculating (SPEC_K deep)
+           ("frontdoor", True, False))   # through the front door
 TP_CHECK_ROWS = (8, 64)  # a decode step's and a prefill chunk's rows
 # the serve phase's first TP_REQUESTS requests (prompts 64, 512, 128, 384:
 # one and several prefill chunks) with TP_GEN of their GEN_LEN new tokens:
@@ -2152,6 +2162,13 @@ TP_CHECK_ROWS = (8, 64)  # a decode step's and a prefill chunk's rows
 TP_REQUESTS = 4
 TP_GEN = 16
 TP_THREADS = 2           # each rank's intra-op threads (8 cores, 2 ranks)
+# the front-door run: TP_REQUESTS streams over TP_FD_SLOTS slots, the last
+# at priority 2 (it preempts), an idle of 1.25 heartbeats (a tenth of the
+# ranks' ctrl timeout, TP_CTRL_TIMEOUT_S, lowered from launch.mesh's 600 s
+# so that the idle fits the phase), then request 0's prompt again
+TP_FD_SLOTS = 2
+TP_CTRL_TIMEOUT_S = 30.0
+TP_AFTER_RID = 100
 
 
 class LogitServer(PagedServer):
@@ -2208,10 +2225,97 @@ def tp_run(engine, reqs) -> dict:
     return out
 
 
+def tp_traffic(reqs, door) -> dict:
+    """Rank 0's clients of the front-door run (threads of this process):
+    ``reqs[:2]`` stream at once; once both slots decode, the last at
+    priority 2 (it preempts one) and the rest; then /v1/stats, an idle of
+    1.25 heartbeat intervals, request 0's prompt again as TP_AFTER_RID,
+    /healthz and /v1/stats.  Each stream's events carry their seconds
+    since its request was sent."""
+    engine, record = door.engine, {}
+
+    def stream(req, priority):
+        t0 = time.monotonic()
+        try:
+            record[req.rid] = [(time.monotonic() - t0, e, d)
+                               for e, d in stream_generate(
+                                   "127.0.0.1", door.port,
+                                   tokens=req.prompt.tolist(),
+                                   max_new=req.max_new,
+                                   tenant=f"t{req.rid % 2}",
+                                   priority=priority, timeout=600.0)]
+        except Exception as exc:                          # noqa: BLE001
+            record[req.rid] = repr(exc)
+
+    def start(pairs):
+        threads = [threading.Thread(target=stream, args=p) for p in pairs]
+        for t in threads:
+            t.start()
+        return threads
+    clients = start([(r, 0) for r in reqs[:2]])
+    deadline = time.monotonic() + 120
+    while (engine.active_count < engine.pool.max_slots
+           and time.monotonic() < deadline):
+        time.sleep(0.001)
+    slots_busy = engine.active_count == engine.pool.max_slots
+    clients += start([(reqs[-1], 2)] + [(r, 0) for r in reqs[2:-1]])
+    for t in clients:
+        t.join(600)
+    stats = json.loads(http_get(door.port, "/v1/stats")[1])
+    t0 = time.monotonic()
+    time.sleep(1.25 * engine.heartbeat_s)
+    idle_s = time.monotonic() - t0
+    for t in start([(dataclasses.replace(reqs[0], rid=TP_AFTER_RID), 0)]):
+        t.join(600)
+    health = http_get(door.port, "/healthz")[0]
+    return {"record": record, "slots_busy": slots_busy, "stats": stats,
+            "stats_after": json.loads(http_get(door.port, "/v1/stats")[1]),
+            "idle_s": idle_s, "healthz": health}
+
+
+def tp_frontdoor_run(engine, reqs) -> dict:
+    """The front-door run on rank 0 (``launch.serve.serve_frontdoor``,
+    the ``--serve --tp`` CLI's path, on port 0 with ``tp_traffic``'s
+    clients), its launches counted from zero: tokens by rid, TTFT, host
+    ms per step, preemptions and heartbeats.  A failed driver, or a
+    server that did not stop, raises here."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fd = serve_frontdoor(engine, SchedConfig(), port=0,
+                         client=functools.partial(tp_traffic, reqs))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    st = engine.stats
+    tokens, ttft, bad = {}, [], {}
+    for rid, events in fd["record"].items():
+        if not isinstance(events, list) or events[-1][1] != "done":
+            bad[rid] = events
+            continue
+        tokens[rid] = [d["token"] for _, e, d in events if e == "token"]
+        ttft.append(next(t for t, e, _ in events if e == "token"))
+    before, after = fd["stats"], fd["stats_after"]
+    return {"request_tokens": tokens, "failed_streams": bad,
+            "launches": counts(), "wall_s": wall, "tp": st["tp"],
+            "captures": st["captures"], "logits": [],
+            "ttft_s": percentiles(ttft),
+            "decode_step_ms": 1e3 * st["decode_s"] / st["decode_steps"],
+            "prefill_chunk_ms": 1e3 * st["prefill_s"] / st["prefill_chunks"],
+            "preemptions": before["scheduler"].get("preempted", 0),
+            "slots_busy": fd["slots_busy"], "idle_s": fd["idle_s"],
+            "heartbeat_s": engine.heartbeat_s,
+            "heartbeats": (after["engine"].get("tp_heartbeats", 0)
+                           - before["engine"].get("tp_heartbeats", 0)),
+            "stats_tp": [after["engine"]["tp"], after["engine"]["tp_steps"]],
+            "healthz": fd["healthz"],
+            "completed": after["scheduler"].get("completed", 0)}
+
+
 def tp_rank(group, path: str, cfg, pool, reqs) -> dict:
     """One rank of the TP=2 parity run: load the quantization artifact
     onto this rank's device, then serve TP_RUNS over ``group``.  Rank 0
-    drives each run (``tp_run``) and reports its shard widths; the worker
+    drives each run (``tp_run``; the front door's ``tp_frontdoor_run``,
+    over TP_FD_SLOTS slots) and reports its shard widths; the worker
     mirrors it and reports its launches, counted from zero per run."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2219,14 +2323,20 @@ def tp_rank(group, path: str, cfg, pool, reqs) -> dict:
     art = torch.load(path, map_location=group.device, weights_only=False)
     out = {"load_s": time.monotonic() - t0, "runs": {}}
     for name, _, _ in TP_RUNS:
-        engine = tp_engine(cfg, art, pool, name, group.device, group)
+        door = name == "frontdoor"
+        engine = tp_engine(cfg, art, dataclasses.replace(
+            pool, max_slots=TP_FD_SLOTS) if door else pool, name,
+            group.device, group)
         if group.rank:
             zero_counts()
-            engine.serve_worker()
+            if door:
+                serve_frontdoor(engine, SchedConfig())
+            else:
+                engine.serve_worker()
             out["runs"][name] = {"launches": counts()}
             continue
         try:
-            run = tp_run(engine, reqs)
+            run = (tp_frontdoor_run if door else tp_run)(engine, reqs)
         finally:
             engine.close()
         lp = engine.params["layers"][0]
@@ -2314,8 +2424,10 @@ def tp_phase(dev, params, draft, serve_out) -> dict:
     not put two ranks on one card), each loading the artifact this process
     saves and slicing its shard; rank 0 drives TP_RUNS over the serve
     phase's first TP_REQUESTS requests, TP_GEN new tokens each (fused:
-    decode and chunked prefill; unfused; and speculating with the draft:
-    the verify steps).  Each run's tokens must equal TP=1's request by
+    decode and chunked prefill; unfused; speculating with the draft: the
+    verify steps; and through the front door, ``tp_frontdoor_run``, with
+    a preemption, an idle kept by heartbeats and one more request after
+    it).  Each run's tokens must equal TP=1's request by
     request: the first TP_GEN of the serve phase's fused and unfused graph
     runs (graph = eager, phase 5), the speculating run the fused one's
     (greedy speculation emits plain decoding's tokens, as phase 8
@@ -2336,6 +2448,8 @@ def tp_phase(dev, params, draft, serve_out) -> dict:
     want_tokens = {"fused": head(serve_out["request_tokens"]),
                    "unfused": head(serve_out["unfused"]["request_tokens"]),
                    "spec": head(serve_out["request_tokens"])}
+    want_tokens["frontdoor"] = {**want_tokens["fused"], TP_AFTER_RID:
+                                want_tokens["fused"][reqs[0].rid]}
     (ROOT / "build").mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="tp_artifact_", dir=ROOT / "build")
     try:
@@ -2346,7 +2460,8 @@ def tp_phase(dev, params, draft, serve_out) -> dict:
         artifact_gb = os.path.getsize(path) / 1e9
         t0 = time.monotonic()
         ranks = mesh.spawn(tp_rank, TP_DEGREE, path, cfg, pool, reqs,
-                           backend="gloo", device=dev, threads=TP_THREADS)
+                           backend="gloo", device=dev, threads=TP_THREADS,
+                           timeout_s=TP_CTRL_TIMEOUT_S)
         ranks_s = time.monotonic() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2393,6 +2508,27 @@ def tp_phase(dev, params, draft, serve_out) -> dict:
                   and (name != "unfused" or (by["rht"] > 0
                                              and by["rht_qmatmul"] == 0)),
                   f"tp {name}: rank {rank} launched {by}")
+    fd = lead["runs"]["frontdoor"]
+    log(f"tp frontdoor: {len(fd['request_tokens'])} streams over "
+        f"{TP_FD_SLOTS} slots (the last at priority 2), TTFT p50/p95 "
+        f"{fd['ttft_s']['p50']:.3f}/{fd['ttft_s']['p95']:.3f} s, host ms a "
+        f"step decode {fd['decode_step_ms']:.2f} / prefill chunk "
+        f"{fd['prefill_chunk_ms']:.2f} (TP=2 eager over gloo on one card: "
+        f"parity, no speed claim), preemptions {fd['preemptions']}; idle "
+        f"{fd['idle_s']:.2f} s kept by {fd['heartbeats']} heartbeats (every "
+        f"{fd['heartbeat_s']:.1f} s), then one more request; /v1/stats tp "
+        f"{fd['stats_tp']}; shut down cleanly; {gpu_line()}")
+    check(not fd["failed_streams"] and fd["slots_busy"]
+          and fd["preemptions"] >= 1,
+          f"tp frontdoor: failed streams {fd['failed_streams']}, slots busy "
+          f"{fd['slots_busy']}, preemptions {fd['preemptions']}")
+    check(fd["heartbeats"] >= 1 and fd["idle_s"] > fd["heartbeat_s"]
+          and fd["completed"] == TP_REQUESTS + 1,
+          f"tp frontdoor: the idle's heartbeats {fd['heartbeats']} in "
+          f"{fd['idle_s']:.2f} s, completed {fd['completed']}")
+    check(fd["stats_tp"] == [TP_DEGREE, "eager"] and fd["healthz"] == 200,
+          f"tp frontdoor: /v1/stats tp {fd['stats_tp']}, /healthz "
+          f"{fd['healthz']}")
     steps = []
     for i, (a, b) in enumerate(zip(base["logits"],
                                    lead["runs"]["fused"]["logits"])):
@@ -5695,8 +5831,9 @@ def main() -> int:
     # and the bf16-arena path llama2's spec-off graph run; the gather path
     # is llama2's paged_kernel=False run by graph, the front door its first
     # pass, the lockstep paths each mode's first call; the TP paths are the
-    # TP=2 runs at shard widths, fused and unfused (llama2_tp) and
-    # speculating (llama2_tp_spec), each run's launches on both ranks; each
+    # TP=2 runs at shard widths, fused and unfused (llama2_tp),
+    # speculating (llama2_tp_spec) and through the front door
+    # (llama2_tp_frontdoor), each run's launches on both ranks; each
     # dense config counts its own quantization, fused and unfused runs
     none = dict.fromkeys(counts(), 0)
     runs = {"llama2": {"quantize": quant_out["code_search_launches"],
@@ -5717,6 +5854,9 @@ def main() -> int:
             "llama2_tp_spec": {"quantize": 0,
                                "fused": tp_out["runs"]["spec"]["launches"],
                                "unfused": none},
+            "llama2_tp_frontdoor": {
+                "quantize": 0, "fused": tp_out["runs"]["frontdoor"][
+                    "launches"], "unfused": none},
             "llama2_bf16": {"quantize": 0,
                             "fused": spec_out["bf16"]["off graph"][
                                 "launches"], "unfused": none},
@@ -5787,7 +5927,7 @@ def main() -> int:
                     for path, r in runs.items()}
         return {path: r[run][kernel] for path, r in runs.items()}
     spec = ("llama2_spec", "llama2_bf16", "mixtral_spec")
-    tp_paths = ("llama2_tp", "llama2_tp_spec")
+    tp_paths = ("llama2_tp", "llama2_tp_spec", "llama2_tp_frontdoor")
     lockstep = ("lockstep_llama2", "lockstep_mixtral")
     fam_lock = tuple(f"lockstep_{p}" for p in families)
     on_path = {  # kernel -> (run that counts it, paths that must launch it)

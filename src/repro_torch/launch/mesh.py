@@ -12,6 +12,11 @@ A caller may name the backend: the one-card parity run puts every rank on
 (NCCL will not put two ranks on one card).  ``spawn`` starts the ranks
 and joins them through a ``file://`` rendezvous in a fresh temporary
 directory, so concurrent runs (parallel test workers) never share a port.
+A run is bounded by TIMEOUT_S, or, for a server (``deadline_s=None``),
+lives until its ranks return; the directory lives as long.  The ctrl
+group, which carries rank 0's host messages, waits ``timeout_s`` for one
+(TIMEOUT_S unless the caller lowers it): an idle server's rank 0 keeps it
+alive with heartbeats (``serve.engine.PagedServer.keepalive``).
 
 ``make_production_mesh`` is the dry-run's mesh (``launch/dryrun.py``): an
 abstract ``ProductionMesh`` of axis names and sizes that touches no device
@@ -27,9 +32,12 @@ InfiniBand, about a ninth of NVLink's rate (``launch/roofline.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import os
 import queue
+import signal
 import tempfile
 import time
 import traceback
@@ -101,12 +109,14 @@ def resolve_backend(tp: int, backend: str | None, device) -> str | None:
 
 def make_host_mesh(tp: int = 1, *, rank: int = 0,
                    init_method: str | None = None,
-                   backend: str | None = None, device=None) -> TPGroup:
+                   backend: str | None = None, device=None,
+                   timeout_s: float = TIMEOUT_S) -> TPGroup:
     """Build (tp 1) or join (tp > 1, as rank ``rank``) a TP group of
     ``tp`` ranks.  ``device`` is the ranks' device, CUDA unless ``"cpu"``;
     under NCCL rank r runs on ``cuda:r``.  ``init_method`` is the
-    rendezvous every rank names (``spawn`` makes one).  Collectives wait
-    at most TIMEOUT_S."""
+    rendezvous every rank names (``spawn`` makes one).  The gathers wait
+    at most TIMEOUT_S, a host message on the ctrl group (a gloo group of
+    its own) ``timeout_s``."""
     dev = resolve_device(device)
     backend = resolve_backend(tp, backend, dev)
     if not 0 <= rank < tp:
@@ -122,20 +132,21 @@ def make_host_mesh(tp: int = 1, *, rank: int = 0,
     dist.init_process_group(
         backend, init_method=init_method, rank=rank, world_size=tp,
         timeout=datetime.timedelta(seconds=TIMEOUT_S))
-    pg = dist.group.WORLD
-    ctrl = pg if backend == "gloo" else dist.new_group(backend="gloo")
-    return TPGroup(rank=rank, size=tp, backend=backend, device=dev, pg=pg,
-                   ctrl=ctrl)
+    ctrl = dist.new_group(backend="gloo",
+                          timeout=datetime.timedelta(seconds=timeout_s))
+    return TPGroup(rank=rank, size=tp, backend=backend, device=dev,
+                   pg=dist.group.WORLD, ctrl=ctrl, ctrl_timeout_s=timeout_s)
 
 
 def _rank_main(fn, rank, tp, init_method, backend, device, threads,
-               results, args):
+               timeout_s, results, args):
     """A spawned rank: join the group, run ``fn(group, *args)``, report."""
     if threads is not None:
         torch.set_num_threads(threads)
     try:
         group = make_host_mesh(tp, rank=rank, init_method=init_method,
-                               backend=backend, device=device)
+                               backend=backend, device=device,
+                               timeout_s=timeout_s)
         try:
             out = fn(group, *args)
         finally:
@@ -146,10 +157,10 @@ def _rank_main(fn, rank, tp, init_method, backend, device, threads,
         results.put((rank, False, traceback.format_exc()))
 
 
-def _report(results, procs, out: dict, deadline: float):
+def _report(results, procs, out: dict, deadline: float | None):
     """The next rank's report, waiting up to a second (``queue.Empty`` if
     none came).  Raises if a rank exited without one (a report is flushed
-    before its rank exits) or the deadline passed."""
+    before its rank exits) or the deadline (None: none) passed."""
     try:
         return results.get(timeout=1.0)
     except queue.Empty:
@@ -162,21 +173,48 @@ def _report(results, procs, out: dict, deadline: float):
                 raise RuntimeError(
                     f"rank {dead[0]} exited with code "
                     f"{procs[dead[0]].exitcode} and no report") from None
-        if time.monotonic() > deadline:
-            raise TimeoutError(f"{len(procs)} ranks did not finish in "
-                               f"{TIMEOUT_S} s (reported: {sorted(out)})"
+        if deadline is not None and time.monotonic() > deadline:
+            raise TimeoutError(f"{len(procs)} ranks did not finish by their "
+                               f"deadline (reported: {sorted(out)})"
                                ) from None
         raise
 
 
+@contextlib.contextmanager
+def _forwarding(signals, proc):
+    """While inside, each of ``signals`` this process receives is sent on
+    to ``proc`` instead of acting here (handlers are set from the main
+    thread only)."""
+    if not signals:
+        yield
+        return
+
+    def forward(sig, _frame):
+        if proc.pid is not None and proc.exitcode is None:
+            os.kill(proc.pid, sig)
+    old = {sig: signal.signal(sig, forward) for sig in signals}
+    try:
+        yield
+    finally:
+        for sig, handler in old.items():
+            signal.signal(sig, handler)
+
+
 def spawn(fn: Callable, tp: int, *args, backend: str | None = None,
-          device=None, threads: int | None = None) -> list:
+          device=None, threads: int | None = None,
+          timeout_s: float = TIMEOUT_S,
+          deadline_s: float | None = TIMEOUT_S,
+          forward_signals: tuple = ()) -> list:
     """``fn(group, *args)`` on ``tp`` fresh processes, one per rank, joined
     in one TP group; returns each rank's result in rank order.  ``fn`` and
     ``args`` are pickled (tensors through shared memory), so ``fn`` must
-    be importable.  ``threads`` sets each rank's intra-op threads.  Raises
-    if a rank fails (with its traceback) or the run outlasts TIMEOUT_S;
-    every process is stopped either way."""
+    be importable.  ``threads`` sets each rank's intra-op threads,
+    ``timeout_s`` the ctrl group's wait (``make_host_mesh``).  The run
+    may last ``deadline_s`` (None: until the ranks return, as a server
+    does); ``forward_signals`` (e.g. SIGINT, SIGTERM) received here
+    meanwhile go to rank 0 instead.  Raises if a rank fails (with its
+    traceback), exits without a report or outlasts the deadline; every
+    process is stopped either way."""
     if tp < 2:
         raise ValueError(f"spawn needs tp >= 2, got {tp}")
     resolve_backend(tp, backend, resolve_device(device))
@@ -186,23 +224,26 @@ def spawn(fn: Callable, tp: int, *args, backend: str | None = None,
     with tempfile.TemporaryDirectory() as tmp:
         init = (Path(tmp) / "rendezvous").as_uri()
         procs = [ctx.Process(target=_rank_main, args=(
-                     fn, r, tp, init, backend, device, threads, results,
-                     args), daemon=True) for r in range(tp)]
-        for p in procs:
-            p.start()
+                     fn, r, tp, init, backend, device, threads, timeout_s,
+                     results, args), daemon=True) for r in range(tp)]
         try:
-            out: dict[int, object] = {}
-            deadline = time.monotonic() + TIMEOUT_S
-            while len(out) < tp:
-                try:
-                    rank, ok, value = _report(results, procs, out, deadline)
-                except queue.Empty:
-                    continue
-                if not ok:
-                    raise RuntimeError(f"rank {rank} failed:\n{value}")
-                out[rank] = value
-            for p in procs:
-                p.join(timeout=60)
+            with _forwarding(forward_signals, procs[0]):
+                for p in procs:
+                    p.start()
+                out: dict[int, object] = {}
+                deadline = (None if deadline_s is None
+                            else time.monotonic() + deadline_s)
+                while len(out) < tp:
+                    try:
+                        rank, ok, value = _report(results, procs, out,
+                                                  deadline)
+                    except queue.Empty:
+                        continue
+                    if not ok:
+                        raise RuntimeError(f"rank {rank} failed:\n{value}")
+                    out[rank] = value
+                for p in procs:
+                    p.join(timeout=60)
         finally:
             for p in procs:
                 if p.is_alive():

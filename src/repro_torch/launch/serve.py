@@ -13,6 +13,8 @@
                                 # qwen2-vl-2b
     python -m repro_torch.launch.serve --device cpu --tiny --serve --port 8080
     python -m repro_torch.launch.serve --device cpu --tiny --tp 2
+    python -m repro_torch.launch.serve --device cpu --tiny --tp 2 --serve \\
+        --port 8080                           # the front door over 2 ranks
 
 Random weights from a seeded generator; with ``--avg-bits`` the model is
 calibrated on the paper's zero-shot sentence, bit widths are allocated
@@ -67,14 +69,22 @@ Whisper serves through ``runtime/steps.make_prefill_step`` /
 which refuses a host with fewer cards): the model is built and quantized
 here, each rank takes its column shard (``runtime/tp.py``), rank 0 drives
 the engine (``serve_rank``) and its run is printed with ``tp=N``.  Greedy
-tokens equal ``--tp 1``'s.  TP steps run eagerly (no CUDA graphs);
-``--serve`` with ``--tp`` above 1 is refused (ROADMAP Queue 1 item 9).
+tokens equal ``--tp 1``'s.  TP steps run eagerly (no CUDA graphs).  With
+``--serve`` the ranks serve the front door for as long as it runs
+(``frontdoor_rank``): rank 0 boots it over its engine and drives, the
+other ranks mirror its device ops, and while it idles rank 0 sends them
+heartbeats.  SIGINT / SIGTERM to this process go on to rank 0, whose
+server shuts down cleanly and releases the workers (which ignore both);
+a driver failure on rank 0 stops every rank and exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import functools
+import os
+import signal
+import threading
 import time
 
 import numpy as np
@@ -91,6 +101,7 @@ from repro_torch.launch import mesh
 from repro_torch.models import decode as decmod
 from repro_torch.models import transformer as tf
 from repro_torch.serve import PagedServer, PoolConfig, Request, graphs
+from repro_torch.serve.frontdoor import FrontDoor, SchedConfig
 
 ENC_DEC_LOCKSTEP = ("BatchedServer does not support encoder-decoder archs: "
                     "it takes no encoder frames (serve them through "
@@ -225,23 +236,27 @@ def _to_device(node, dev):
     return node
 
 
+def _rank_engine(group, job: dict) -> PagedServer:
+    """``job``'s ``PagedServer`` on this rank of ``group``: a dict of
+    ``cfg``, ``params`` (the full tree, on any device), ``pool`` and
+    ``engine`` (``PagedServer`` keyword arguments, ``draft_params`` among
+    them)."""
+    kw = dict(job.get("engine", {}))
+    if kw.get("draft_params") is not None:
+        kw["draft_params"] = _to_device(kw["draft_params"], group.device)
+    return PagedServer(job["cfg"], _to_device(job["params"], group.device),
+                       job["pool"], device=group.device, group=group, **kw)
+
+
 def serve_rank(group, jobs: list) -> list | None:
     """One rank's part of a tensor-parallel run (``launch.mesh.spawn``):
-    each job, a dict of ``cfg``, ``params`` (the full tree, on any
-    device), ``pool``, ``requests`` and ``engine`` (``PagedServer``
-    keyword arguments, ``draft_params`` among them), is served by a
+    each job (``_rank_engine``'s, with its ``requests``) is served by a
     ``PagedServer`` over ``group``.  Rank 0 drives and returns per job the
     tokens by rid, the engine's stats and the run's seconds; the other
     ranks mirror its device ops and return None."""
     out = []
     for job in jobs:
-        kw = dict(job.get("engine", {}))
-        if kw.get("draft_params") is not None:
-            kw["draft_params"] = _to_device(kw["draft_params"], group.device)
-        engine = PagedServer(job["cfg"],
-                             _to_device(job["params"], group.device),
-                             job["pool"], device=group.device, group=group,
-                             **kw)
+        engine = _rank_engine(group, job)
         if group.rank:
             engine.serve_worker()
             continue
@@ -256,6 +271,71 @@ def serve_rank(group, jobs: list) -> list | None:
                                for rid, r in results.items()},
                     "stats": engine.stats, "seconds": seconds})
     return None if group.rank else out
+
+
+def serve_frontdoor(engine: PagedServer, sched: SchedConfig, *,
+                    port: int = 8080, client=None):
+    """The streaming front door over ``engine``.  At TP=1 and on rank 0
+    of its group, a ``FrontDoor`` on ``port``: with no ``client`` it
+    serves in this thread until ``stop``, SIGINT or SIGTERM and returns
+    None; else it serves on a thread while ``client(door)`` runs here,
+    stops after it and returns its result.  Rank 0 then stops the workers
+    (``close``), and raises if its driver failed.  On a TP worker it
+    mirrors rank 0's device ops until that ``close``, ignoring SIGINT and
+    SIGTERM meanwhile (a terminal's Ctrl-C reaches every process: rank 0
+    takes it, and a worker stopped inside a collective would leave rank 0
+    waiting; so a worker calls it from its main thread), and returns
+    None."""
+    if engine.group is not None and engine.group.rank:
+        old = {sig: signal.signal(sig, signal.SIG_IGN)
+               for sig in (signal.SIGINT, signal.SIGTERM)}
+        try:
+            engine.serve_worker()
+        finally:
+            for sig, handler in old.items():
+                signal.signal(sig, handler)
+        return None
+    door = FrontDoor(engine, sched, port=port)
+    try:
+        if client is None:
+            door.serve_forever()
+            return None
+        failed: list = []
+
+        def serve():
+            try:
+                door.serve_forever()
+            except BaseException as exc:                  # noqa: BLE001
+                failed.append(exc)
+        server = threading.Thread(target=serve, name="frontdoor-server")
+        server.start()
+        try:
+            if not door.ready.wait(120):
+                raise RuntimeError("the front door did not start listening")
+            result = client(door)
+        finally:
+            door.stop()
+            server.join()
+        if failed:
+            raise failed[0]
+        return result
+    finally:
+        engine.close()
+
+
+def frontdoor_rank(group, job: dict, sched: SchedConfig, port: int,
+                   client=None):
+    """One rank of ``--serve --tp N`` (``launch.mesh.spawn``): ``job``'s
+    engine (``_rank_engine``) behind ``serve_frontdoor``.  Rank 0 prints
+    the ranks' process ids first."""
+    import torch.distributed as dist
+    engine = _rank_engine(group, job)
+    pids = [None] * group.size
+    dist.all_gather_object(pids, os.getpid(), group=group.ctrl)
+    if not group.rank:
+        print(f"frontdoor: {group.size} TP ranks, pids "
+              f"{' '.join(map(str, pids))}", flush=True)
+    return serve_frontdoor(engine, sched, port=port, client=client)
 
 
 def main(argv=None):
@@ -324,9 +404,6 @@ def main(argv=None):
         ap.error("--tp needs the paged engine (drop --lockstep)")
     if args.serve and args.lockstep:
         ap.error("--serve needs the paged engine (drop --lockstep)")
-    if args.tp > 1 and args.serve:
-        ap.error("--serve with --tp > 1: the front door under tensor "
-                 "parallelism is not ported yet (ROADMAP Queue 1 item 9)")
     if args.paged_kernel and torch.device(args.device).type != "cuda":
         ap.error("--paged-kernel needs the card: the flash-decode kernel "
                  "has no host version (drop it, or --device cpu)")
@@ -411,23 +488,27 @@ def main(argv=None):
                      draft_params=draft_params, speculate=args.speculate)
     reqs = [Request(rid=i, prompt=np.asarray(prompt), max_new=args.gen)
             for i in range(args.requests)]
+    sched = SchedConfig(slo_p95_ms=args.slo_p95_ms,
+                        max_tenant_share=args.max_tenant_share)
     if args.tp > 1:
         # the ranks take host copies; each moves its shard to its device
         host = torch.device("cpu")
         engine_kw["draft_params"] = _to_device(draft_params, host)
         job = {"cfg": cfg, "params": _to_device(params, host), "pool": pool,
                "requests": reqs, "engine": engine_kw}
+        if args.serve:
+            # a server lives until it is stopped: no deadline
+            mesh.spawn(frontdoor_rank, args.tp, job, sched, args.port,
+                       device=dev, deadline_s=None,
+                       forward_signals=(signal.SIGINT, signal.SIGTERM))
+            return
         run = mesh.spawn(serve_rank, args.tp, [job], device=dev)[0][0]
         sample = np.asarray(run["tokens"][0])
         stats, dt = run["stats"], run["seconds"]
     else:
         engine = PagedServer(cfg, params, pool, device=dev, **engine_kw)
         if args.serve:
-            from repro_torch.serve.frontdoor import FrontDoor, SchedConfig
-            FrontDoor(engine, SchedConfig(
-                slo_p95_ms=args.slo_p95_ms,
-                max_tenant_share=args.max_tenant_share),
-                port=args.port).serve_forever()
+            serve_frontdoor(engine, sched, port=args.port)
             return
         t0 = time.monotonic()
         results = engine.run(reqs)

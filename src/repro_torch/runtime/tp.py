@@ -93,14 +93,15 @@ def local_kv_heads(cfg, plan: TPPlan) -> int:
 class TPGroup:
     """One rank's view of a TP group (``launch/mesh.make_host_mesh``).
     ``pg`` carries the gathers (gloo or NCCL); ``ctrl`` is a gloo group
-    over the same ranks for the host messages (the same group under
-    gloo).  A group of size 1 has neither."""
+    over the same ranks for the host messages, whose wait for one ends
+    after ``ctrl_timeout_s``.  A group of size 1 has neither."""
     rank: int
     size: int
     backend: str | None
     device: torch.device
     pg: Any = None
     ctrl: Any = None
+    ctrl_timeout_s: float | None = None
 
 
 _GROUP: contextvars.ContextVar[TPGroup | None] = contextvars.ContextVar(
@@ -181,9 +182,16 @@ def in_dim(w) -> int:
 # ------------------------------------------------------ host messages
 
 
+# the key of rank 0's no-op message: an idle driver sends it at least
+# every HEARTBEAT_FRACTION of the ctrl timeout, so a worker waiting for its
+# next op never reaches the timeout (``PagedServer.keepalive``)
+HEARTBEAT = ("heartbeat",)
+HEARTBEAT_FRACTION = 0.1
+
+
 def send_op(group: TPGroup, key, inputs) -> None:
     """Rank 0: the next device op's key and host inputs to every rank
-    (``key`` None stops the workers)."""
+    (``key`` None stops the workers, HEARTBEAT is a no-op)."""
     import torch.distributed as dist
     dist.broadcast_object_list([key, inputs], src=0, group=group.ctrl)
 

@@ -86,7 +86,10 @@ state (allocator, prefix cache, sampling, ``decode_gaps``), and before each
 device op (a step, the copy-on-write clone) it broadcasts the op's key and
 host inputs; the other ranks run ``serve_worker``, which runs each
 announced op on their shard and takes part in its gathers, until rank 0's
-``close``.  The scheduler is not replicated: decisions that read the clock
+``close``.  A worker waits for the next op at most the ctrl group's
+timeout, so an idle rank 0 (the front door between requests) sends a
+heartbeat, a no-op key, every tenth of it (``keepalive``).  The scheduler
+is not replicated: decisions that read the clock
 would diverge between ranks and deadlock a collective.  Under ``tp > 1``
 the steps run op by op, captured nothing (gloo collectives cannot be
 captured in a CUDA graph; capturing NCCL collectives waits for a host with
@@ -312,6 +315,11 @@ class PagedServer:
         self.tp = group.size if group is not None else 1
         self.tp_plan = tpmod.plan_for(cfg, self.tp)
         self._closed = False
+        self._op_open = False
+        self._last_sent = time.monotonic()
+        self.heartbeat_s = (
+            group.ctrl_timeout_s * tpmod.HEARTBEAT_FRACTION
+            if group is not None and group.ctrl_timeout_s else None)
         rank = group.rank if group is not None else 0
         self.cfg = cfg
         self.params = tpmod.prepare_params(cfg, params, rank, self.tp)
@@ -450,17 +458,25 @@ class PagedServer:
             def call(inputs: dict):
                 if self._closed:
                     raise RuntimeError("the TP workers were stopped (close)")
-                tpmod.send_op(self.group, key, inputs)
-                return eager(inputs)
+                self._send(key, inputs)
+                self._op_open = True        # the workers are in this op
+                out = eager(inputs)
+                self._op_open = False
+                return out
             return call
         if graphs.eager_enabled() or (self.device.type == "cuda"
                                       and kernels.plain_forced()):
             return graphs.eager_call(fn, self.device)
         return self.graphs.get(key, fn, inert)
 
+    def _send(self, key, inputs) -> None:
+        tpmod.send_op(self.group, key, inputs)
+        self._last_sent = time.monotonic()
+
     def serve_worker(self) -> None:
         """A TP worker's loop (rank > 0): run each device op that rank 0
-        announces, on this rank's shard, until rank 0's ``close``."""
+        announces, on this rank's shard, until rank 0's ``close``
+        (heartbeats run nothing)."""
         if self.group is None or self.group.rank == 0:
             raise RuntimeError("serve_worker runs on TP ranks other than 0")
         with self._kernel_scope():
@@ -468,12 +484,30 @@ class PagedServer:
                 key, inputs = tpmod.recv_op(self.group)
                 if key is None:
                     return
+                if key == tpmod.HEARTBEAT:
+                    continue
                 graphs.eager_call(self._op(key[0]), self.device)(inputs)
+
+    def keepalive(self) -> None:
+        """On rank 0 of a TP group, a heartbeat to the workers if nothing
+        was sent for ``heartbeat_s`` (a tenth of the ctrl group's timeout),
+        so that a server idle for longer than the timeout keeps its
+        workers; a no-op at TP=1, on a worker and after ``close``.  Its
+        caller serializes it with the steps (the front door's lock)."""
+        if (self.heartbeat_s is None or self.group.rank or self._closed
+                or time.monotonic() - self._last_sent < self.heartbeat_s):
+            return
+        self._send(tpmod.HEARTBEAT, None)
+        self._add_stat("tp_heartbeats", 1)
 
     def close(self) -> None:
         """On rank 0 of a TP group, stop the workers' loops; the engine
-        runs no device op after it (idempotent; nothing to do at TP=1)."""
-        if self.tp > 1 and self.group.rank == 0 and not self._closed:
+        runs no device op after it (idempotent; nothing to do at TP=1).
+        After an op that failed on rank 0 the workers wait in its
+        collectives, so nothing is sent: the caller's failure stops them
+        (``launch.mesh.spawn`` kills every rank once one has failed)."""
+        if (self.tp > 1 and self.group.rank == 0 and not self._closed
+                and not self._op_open):
             tpmod.send_op(self.group, None, None)
         self._closed = True
 

@@ -22,7 +22,12 @@ The bridges between the threads are explicit and small:
   posts ``(event, data)`` onto that stream's ``asyncio.Queue`` with
   ``loop.call_soon_threadsafe``, then hands it to the scheduler under
   ``self._lock`` and wakes the driver; ``_lock`` serializes ``submit``,
-  ``cancel`` and the stats read against ``tick``.
+  ``cancel`` and the stats read against ``tick`` and the engine's
+  ``keepalive``.  Under tensor parallelism (an engine over a
+  ``runtime.tp.TPGroup``, rank 0 of it) every message to the workers is
+  sent under the lock: the ticks' device ops and, while the server idles,
+  the heartbeat that keeps the workers from timing out; ``cancel`` and
+  preemption change host state only.
 - completion: the driver posts the terminal ``done`` (or ``error``) event
   the same way.
 - disconnect: a failed SSE write cancels the request through the
@@ -140,6 +145,9 @@ class FrontDoor:
                     finished = self.scheduler.tick() if busy else {}
                     done_watch = [(self._watchers.pop(rid, None), res)
                                   for rid, res in finished.items()]
+                    # a tensor-parallel engine's heartbeat to its workers
+                    # when it has sent them nothing for a while (idle)
+                    self.engine.keepalive()
                 for q, res in done_watch:
                     if q is not None:
                         self._post(q, ("done", self._done_payload(res)))

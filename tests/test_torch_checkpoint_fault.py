@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.checkpoint import CheckpointManager as JManager  # noqa: E402
 from repro.runtime.fault import FaultTolerantLoop as JLoop  # noqa: E402
@@ -28,16 +29,6 @@ from repro_torch import tree  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.optim import AdamWState, adamw_init  # noqa: E402
 from repro_torch.runtime.fault import FaultTolerantLoop, LoopConfig  # noqa: E402
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread while a test runs: the tiny tensors gain nothing
-    from more, and spinning threads slow the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tree(seed=0):

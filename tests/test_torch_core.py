@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.configs import registry as jreg  # noqa: E402
 from repro.core import hadamard as jh  # noqa: E402

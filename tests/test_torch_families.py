@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from helpers import mixed_requests, small_pool  # noqa: E402
 from test_torch_engine import to_numpy_tree  # noqa: E402
@@ -56,15 +57,6 @@ ROOT = Path(__file__).resolve().parents[1]
 def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The module's port calls on one intra-op thread (restored after)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _signs(jq: dict) -> dict:

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.kernels.flash_attention.flash import flash_attention_pallas  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402

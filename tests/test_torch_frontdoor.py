@@ -23,7 +23,10 @@ engine surface it sits on, against the JAX reference on the host.
   --serve --port 0``, fp32): one streamed generation, ``/healthz``,
   ``/v1/stats``, a 400 for a token outside the vocab, SIGTERM -> rc 0 and
   ``shut down cleanly``; and an engine failure in the driver thread, which
-  streams an ``error`` event and makes the CLI exit non-zero.
+  streams an ``error`` event and makes the CLI exit non-zero.  The same
+  under ``--tp 2`` (two gloo ranks, rank 0 serving): the stream's tokens
+  are the ``--tp 1`` server's, and after SIGTERM or a driver failure no
+  rank is left running.
 """
 import collections
 import dataclasses
@@ -43,6 +46,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from helpers import mixed_requests, small_pool  # noqa: E402
 from test_torch_prefix_cache import _pool  # noqa: E402
@@ -63,16 +67,6 @@ from repro_torch.serve.frontdoor.sse import encode_event, iter_events  # noqa: E
 ROOT = Path(__file__).resolve().parents[1]
 COUNTERS = ("prefill_chunks", "prefill_tokens", "decode_steps",
             "preemptions", "replays")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread while a test runs: the tiny models gain nothing
-    from more, and spinning threads slow the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------- SSE codec
@@ -347,9 +341,9 @@ SERVE = ["--device", "cpu", "--tiny", "--serve", "--port", "0", "--slots",
          "2", "--prompt-len", "32", "--gen", "16"]
 
 
-def _boot(code: str):
-    """Start ``python -c code`` (which boots the CLI's front door) and
-    wait for its listening line; returns (process, port, output lines)."""
+def _start(code: str):
+    """Start ``python -c code`` (which boots the CLI's front door);
+    returns (process, its output lines so far, filled as they come)."""
     proc = subprocess.Popen(
         [sys.executable, "-c", code], cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -358,23 +352,49 @@ def _boot(code: str):
     lines = []
     threading.Thread(target=lambda: lines.extend(
         iter(proc.stdout.readline, "")), daemon=True).start()
+    return proc, lines
+
+
+def _listening(proc, lines) -> int:
+    """The port of ``proc``'s listening line, once it is printed."""
     deadline = time.monotonic() + 120
     while time.monotonic() < deadline:
         for line in list(lines):
             if "frontdoor listening on" in line:
-                return proc, int(line.rsplit(":", 1)[1]), lines
+                return int(line.rsplit(":", 1)[1])
         assert proc.poll() is None, "server died:\n" + "".join(lines)
         time.sleep(0.1)
     proc.kill()
     raise AssertionError("no listening line:\n" + "".join(lines))
 
 
-def _cli(*patch: str) -> str:
+def _boot(code: str):
+    """Start ``code`` and wait for its listening line; returns (process,
+    port, output lines)."""
+    proc, lines = _start(code)
+    return proc, _listening(proc, lines), lines
+
+
+def _cli(*patch: str, extra=()) -> str:
     return textwrap.dedent("""
         from repro_torch.launch import serve
         {}
         serve.main({!r})
-    """).format("\n".join(patch), SERVE)
+    """).format("\n".join(patch), SERVE + list(extra))
+
+
+def _rank_pids(lines) -> list:
+    """The ranks' process ids from the TP front door's ``pids`` line."""
+    line = next(ln for ln in lines if "TP ranks, pids" in ln)
+    return [int(p) for p in line.split("pids", 1)[1].split()]
+
+
+def _gone(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
 
 
 def _get(port, path):
@@ -436,3 +456,65 @@ def test_http_driver_failure_exits_non_zero():
     out = "".join(lines)
     assert "injected engine failure" in out
     assert "shut down cleanly" not in out
+
+
+@pytest.mark.tier2
+def test_http_tp2_stream_and_clean_shutdown():
+    """``--tp 2``: rank 0's front door streams the ``--tp 1`` server's
+    tokens and reports the TP engine; SIGTERM to the CLI reaches rank 0,
+    whose server shuts down cleanly and releases the worker: rc 0, and
+    no rank is left."""
+    one, one_lines = _start(_cli())
+    two, two_lines = _start(_cli(extra=("--tp", "2")))
+    procs = (one, two)
+    try:
+        ports = [_listening(p, ln) for p, ln in ((one, one_lines),
+                                                 (two, two_lines))]
+        streams = [list(stream_generate("127.0.0.1", port,
+                                        prompt="the quick brown fox",
+                                        max_new=8, tenant="a", timeout=60.0))
+                   for port in ports]
+        tokens = [[d["token"] for e, d in ev if e == "token"]
+                  for ev in streams]
+        assert len(tokens[0]) == 8 and tokens[1] == tokens[0], streams
+        assert [e for e, _ in streams[1]][-1] == "done"
+        assert _get(ports[1], "/healthz")[0] == 200
+        status, body = _get(ports[1], "/v1/stats")
+        engine = json.loads(body)["engine"]
+        assert status == 200 and engine["tp"] == 2
+        assert engine["tp_steps"] == "eager" and engine["decode_steps"] == 7
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        rcs = [p.wait(timeout=60) for p in procs]
+    assert rcs == [0, 0], "".join(two_lines)
+    out = "".join(two_lines)
+    assert out.count("frontdoor shut down cleanly") == 1
+    assert all(_gone(pid) for pid in _rank_pids(two_lines)), out
+
+
+@pytest.mark.tier2
+def test_http_tp2_driver_failure_stops_every_rank():
+    """Under ``--tp 2`` an engine failure in rank 0's driver thread
+    (injected in the spawned rank: ``_torch_tp_ranks``) streams an
+    ``error`` event, fails the CLI and leaves no rank running."""
+    proc, port, lines = _boot(_cli(
+        "import sys",
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})",
+        "import _torch_tp_ranks",
+        "serve.frontdoor_rank = _torch_tp_ranks.failing_frontdoor_rank",
+        extra=("--tp", "2")))
+    try:
+        events = list(stream_generate("127.0.0.1", port, prompt="fox",
+                                      max_new=4, timeout=60.0))
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert [e for e, _ in events] == ["token", "error"], events
+    out = "".join(lines)
+    assert rc != 0, out
+    assert "injected engine failure" in out and "rank 0 failed" in out
+    assert "shut down cleanly" not in out
+    assert all(_gone(pid) for pid in _rank_pids(lines)), out

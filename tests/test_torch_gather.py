@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from test_torch_paged_attention import _pool_state  # noqa: E402
 
@@ -28,16 +29,6 @@ CASES = [  # b, kv, g, hd, bs, mb, window, wrapped
     (3, 2, 2, 16, 4, 4, None, False),
     (2, 1, 4, 32, 8, 3, 5, True),
 ]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread while a test runs: the tiny models gain nothing
-    from more, and spinning threads slow the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

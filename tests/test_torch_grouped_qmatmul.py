@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.core import packing as jpack  # noqa: E402
 from repro.core import qlinear as jql  # noqa: E402

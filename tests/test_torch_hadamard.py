@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.kernels.hadamard import ops as jhops  # noqa: E402
 from repro_torch.kernels.hadamard import ops as hops  # noqa: E402

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from helpers import mixed_requests, noisy, small_pool, tiny  # noqa: E402
 from test_torch_engine import to_numpy_tree  # noqa: E402

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from helpers import tiny  # noqa: E402
 from test_torch_engine import _moe_cfgs, to_numpy_tree  # noqa: E402
@@ -39,16 +40,6 @@ from repro_torch.serve import graphs  # noqa: E402
 ARCHS = ["llama2-7b", "mixtral-8x7b"]
 WIDTHS = (3, 4, 5, 2, 8, 6, 7, 1)
 PROMPT, GEN, CONTEXT = 20, 6, 32
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread while a test runs: the tiny models gain nothing
-    from more, and spinning threads slow the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

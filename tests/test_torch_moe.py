@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402

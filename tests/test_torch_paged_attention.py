@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.kernels.paged_attention.paged import paged_attention_pallas  # noqa: E402
 from repro.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402

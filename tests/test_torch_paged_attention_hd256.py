@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from helpers import mixed_requests, small_pool, tiny  # noqa: E402
 
@@ -266,19 +267,26 @@ class _PortRecording(_Recording, PagedServer):
     pass
 
 
+@pytest.fixture(scope="module")
+def reference(setup):
+    """(requests, the JAX engine recording its logits, its results) for the
+    reference pipeline's model, served once, fused."""
+    jreqs = mixed_requests(setup["cfg"])
+    ref = _JaxRecording(setup["cfg"], setup["jq"],
+                        small_pool(prefix_cache=False))
+    return jreqs, ref, ref.run(jreqs)
+
+
 @pytest.mark.tier2
 @pytest.mark.parametrize("fused", [True, False])
-def test_served_tokens_match_reference_pipeline(setup, fused):
-    """Each pipeline's own quantized model, served by its own engine.  Up to
+def test_served_tokens_match_reference_pipeline(setup, reference, fused):
+    """Each pipeline's own quantized model, served by its own engine, the
+    port's fused and unfused against one reference run.  Up to
     and including a request's first differing token both runs saw the same
     tokens, so their logits must agree within LOGIT_TOL of the step's
     largest |logit|; a token may differ only where the reference's top-2
     gap is within that agreement."""
-    cfg = setup["cfg"]
-    jreqs = mixed_requests(cfg)
-    ref = _JaxRecording(cfg, setup["jq"], small_pool(prefix_cache=False),
-                        fused=fused)
-    want = ref.run(jreqs)
+    jreqs, ref, want = reference
     pool = PoolConfig(max_slots=2, block_size=4, max_context=32,
                       prefill_chunk=4)
     engine = _PortRecording(get_tiny(ARCH), setup["tq"], pool, fused=fused,

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from helpers import PROMPT_LENS, mixed_requests, small_pool, tiny  # noqa: E402
 from test_torch_engine import _moe_cfgs, to_numpy_tree  # noqa: E402

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from helpers import shared_prefix_requests, small_pool, tiny  # noqa: E402
 from test_torch_engine import (  # noqa: E402,F401

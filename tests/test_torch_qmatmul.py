@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.kernels.qmatmul import ops as jqops  # noqa: E402
 from repro.kernels.qmatmul.qmatmul import (  # noqa: E402

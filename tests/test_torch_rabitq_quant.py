@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.core import rabitq as jrabitq  # noqa: E402
 from repro.kernels.rabitq_quant.quantize import quantize_pallas  # noqa: E402

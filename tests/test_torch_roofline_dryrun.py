@@ -22,6 +22,7 @@ import os
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.configs import registry as jreg  # noqa: E402
 from repro.launch import roofline as jroof  # noqa: E402

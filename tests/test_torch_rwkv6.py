@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from test_torch_families import (check_allocation, check_engine,  # noqa: E402
                                  family_models)

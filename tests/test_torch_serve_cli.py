@@ -154,7 +154,6 @@ def test_lockstep_and_gather_samples_equal_the_paged_fp32_sample(capsys):
     (["--lockstep", "--serve"], "--serve needs the paged engine"),
     (["--lockstep", "--speculate", "2"], "--speculate needs the paged"),
     (["--lockstep", "--tp", "2"], "--tp needs the paged engine"),
-    (["--serve", "--tp", "2"], "ROADMAP Queue 1 item 9"),
     (["--paged-kernel", "--device", "cpu"], "--paged-kernel needs the card"),
 ])
 def test_refused_flag_combinations(argv, message, capsys):

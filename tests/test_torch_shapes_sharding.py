@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.data import LMBatchLoader as JLoader  # noqa: E402
 from repro.data import make_corpus_tokens as jcorpus  # noqa: E402

@@ -23,7 +23,13 @@ compiles would double this file's time).  TP=2 greedy tokens must equal
 the port's TP=1 tokens, and for llama2 fp32 the JAX engine's too.  The
 same ranks run ``int8_psum``, which must equal the reference's under
 ``jax.vmap`` with an axis name (the reference's ``pmax`` / ``psum`` over
-the mapped axis).
+the mapped axis).  Then they serve the streaming front door
+(``launch.serve.frontdoor_rank``) over llama2 fp32 and its quantization:
+rank 0's clients stream the churn workload from two tenants over the two
+slots, a late priority-2 request preempts a decoding one, and every
+stream's tokens must equal TP=1's ``run``; after the last run's traffic
+the server idles for twice the ranks' lowered ctrl timeout, kept alive by
+rank 0's heartbeats, and serves one more request.
 """
 import concurrent.futures
 import dataclasses
@@ -34,6 +40,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import _torch_tp_ranks  # noqa: E402
 from helpers import (mixed_requests, shared_prefix_requests,  # noqa: E402
@@ -67,6 +74,10 @@ ARCH = {"llama2": "llama2-7b", "llama2_quant": "llama2-7b",
 SCENARIOS = ("llama2", "llama2_quant", "mixtral", "gqa", "yi", "prefix",
              "speculative")
 PSUM_SCALES = ((1.0, 1.0), (1.0, 40.0))   # per rank: shared and unequal
+DOORS = ("llama2", "llama2_quant")        # served through the front door
+CTRL_TIMEOUT_S = 3.0     # the ranks' ctrl timeout: the idle outlasts it
+AFTER_RID = 5            # the request served after the idle (rid 0's)
+TENANTS = ("t0", "t1", "t0", "t1", "t1")  # the front door's, by rid
 
 
 @pytest.fixture(autouse=True)
@@ -183,12 +194,34 @@ def _tokens(results) -> dict:
     return {rid: r.tokens.tolist() for rid, r in results.items()}
 
 
+def _door(models, name: str, after: bool) -> dict:
+    """Scenario ``name``'s traffic through the front door over two slots
+    (``_torch_tp_ranks._traffic``): requests 0 and 2 first (tenant t0),
+    then request 4 at priority 2, which preempts one of them, and 1 and 3
+    (tenant t1: t0 holds every slot, so the share cap would pass over a
+    t0 waiter); with ``after``, an idle of twice the ctrl timeout, then
+    rid 0's prompt again as AFTER_RID."""
+    _, tcfg, _, tparams, pool, reqs, kw = _scenario(models, name)
+    spec = [{"rid": r.rid, "prompt": r.prompt.tolist(), "max_new": r.max_new,
+             "tenant": TENANTS[r.rid], "priority": 0} for r in reqs]
+    door = {"job": {"cfg": tcfg, "params": tparams, "pool": pool,
+                    "engine": kw},
+            "early": [spec[0], spec[2]], "late": dict(spec[4], priority=2),
+            "rest": [spec[1], spec[3]]}
+    if after:
+        door.update(after=dict(spec[0], rid=AFTER_RID),
+                    idle_s=2 * CTRL_TIMEOUT_S + 0.5)
+    return door
+
+
 @pytest.fixture(scope="module")
 def tp_runs(models):
     """Every scenario at TP=2 in one spawn of two gloo ranks and, while the
     ranks run, at TP=1 in this process; the llama2 fp32 scenario in the JAX
-    engine too, and ``int8_psum`` on the ranks."""
+    engine too, and on the ranks ``int8_psum`` and the front door's runs
+    (DOORS)."""
     scen = {name: _scenario(models, name) for name in SCENARIOS}
+    doors = [_door(models, name, name == DOORS[-1]) for name in DOORS]
     jobs = [{"cfg": tcfg, "params": tparams, "pool": pool,
              "requests": _port_requests(reqs), "engine": kw}
             for _, tcfg, _, tparams, pool, reqs, kw in scen.values()]
@@ -197,7 +230,8 @@ def tp_runs(models):
                             for s in scales]) for scales in PSUM_SCALES]
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
         spawned = ex.submit(mesh.spawn, _torch_tp_ranks.rank_main, 2, jobs,
-                            psum_cases, device="cpu", threads=1)
+                            psum_cases, doors, device="cpu", threads=1,
+                            timeout_s=CTRL_TIMEOUT_S)
         tp1 = {}
         for name, (_, tcfg, _, tparams, pool, reqs, kw) in scen.items():
             engine = PagedServer(tcfg, tparams, pool, device="cpu", **kw)
@@ -208,11 +242,13 @@ def tp_runs(models):
                                        small_pool()).run(reqs))
         ranks = spawned.result()
     assert ranks[1]["served"] is None            # a worker returns nothing
+    assert ranks[1]["frontdoor"] is None
     tp2 = {name: (r["tokens"], r["stats"])
            for name, r in zip(SCENARIOS, ranks[0]["served"])}
     return {"tp1": tp1, "tp2": tp2, "jax": jax_tokens,
             "psum_cases": psum_cases,
-            "psum": [r["int8_psum"] for r in ranks]}
+            "psum": [r["int8_psum"] for r in ranks],
+            "doors": dict(zip(DOORS, ranks[0]["frontdoor"]))}
 
 
 @pytest.mark.parametrize("name", SCENARIOS)
@@ -250,6 +286,52 @@ def test_int8_psum_matches_reference(tp_runs, case):
     for rank in range(2):
         np.testing.assert_array_equal(tp_runs["psum"][rank][case],
                                       np.asarray(want[rank]))
+
+
+def _streamed(events) -> tuple:
+    """A stream's token ids and its done event; its events must be token
+    events, then one done, each token once."""
+    assert isinstance(events, list), events           # the client failed
+    kinds = [e for e, _ in events]
+    assert kinds[-1] == "done" and set(kinds[:-1]) == {"token"}, kinds
+    tokens = [d["token"] for e, d in events if e == "token"]
+    assert events[-1][1]["tokens"] == tokens
+    return tokens, events[-1][1]
+
+
+@pytest.mark.parametrize("name", DOORS)
+def test_tp2_frontdoor_streams_equal_tp1(tp_runs, name):
+    """Every stream's tokens are TP=1's (those are held to the JAX engine
+    by ``test_tp2_tokens_equal_tp1``), the late request preempted one of
+    the decoding two, and /v1/stats reports the TP engine."""
+    door, want = tp_runs["doors"][name], tp_runs["tp1"][name][0]
+    dones = {}
+    for rid in want:
+        tokens, dones[rid] = _streamed(door["record"][rid])
+        assert tokens == want[rid], f"{name}: rid={rid}"
+        assert dones[rid]["tenant"] == TENANTS[rid]
+    assert sum(d["preemptions"] for d in dones.values()) >= 1
+    assert dones[4]["preemptions"] == 0          # the late one preempts
+    stats = door["stats"]
+    assert stats["engine"]["tp"] == 2 and stats["engine"]["tp_steps"] == "eager"
+    assert stats["engine"]["captures"] == 0
+    assert stats["scheduler"]["preempted"] >= 1
+    assert stats["scheduler"]["completed"] == len(want)
+
+
+def test_tp2_frontdoor_serves_after_an_idle_past_the_ctrl_timeout(tp_runs):
+    """After twice the ctrl timeout with nothing to serve (the workers
+    would have timed out waiting for rank 0's next op), rank 0's
+    heartbeats have kept them: one more request streams TP=1's tokens."""
+    door = tp_runs["doors"][DOORS[-1]]
+    assert door["idle_s"] >= 2 * CTRL_TIMEOUT_S
+    tokens, done = _streamed(door["record"][AFTER_RID])
+    assert tokens == tp_runs["tp1"][DOORS[-1]][0][0]
+    before, after = door["stats"]["engine"], door["stats_after"]["engine"]
+    beats = after["tp_heartbeats"] - before.get("tp_heartbeats", 0)
+    # one every tenth of the timeout, so about 20 in the idle
+    assert beats >= door["idle_s"] / CTRL_TIMEOUT_S * 2
+    assert door["stats_after"]["scheduler"]["completed"] == 6
 
 
 # ------------------------------------------------------------- in process
@@ -339,6 +421,38 @@ def test_gathers_are_shape_driven_noops():
     assert tp.gather_cols(y, 16) is y
     with pytest.raises(RuntimeError, match="outside a TP group"):
         tp.gather_cols(y, 32)            # a slice with no group to gather
+
+
+def test_heartbeat_and_close_on_rank_0(models, monkeypatch):
+    """Rank 0's messages with the sends recorded: a heartbeat only once a
+    tenth of the ctrl timeout has passed since the last message, none at
+    TP=1; after an op that failed on rank 0 (its workers wait in the op's
+    collectives) ``close`` sends nothing, and nothing follows it."""
+    _, tcfg, _, full, _ = models["llama2"]
+    sent = []
+    monkeypatch.setattr(tp, "send_op",
+                        lambda group, key, inputs: sent.append(key))
+    PagedServer(tcfg, full, _pool(), device="cpu").keepalive()
+    assert sent == []
+    group = tp.TPGroup(rank=0, size=2, backend="gloo",
+                       device=torch.device("cpu"), ctrl_timeout_s=2.0)
+    engine = PagedServer(tcfg, full, _pool(), device="cpu", group=group)
+    assert engine.heartbeat_s == pytest.approx(0.2)
+    engine.keepalive()                    # a message went 0 s ago
+    engine._last_sent -= 0.3
+    engine.keepalive()
+    engine.keepalive()
+    assert sent == [tp.HEARTBEAT] and engine.stats["tp_heartbeats"] == 1
+
+    def failing(**inputs):
+        raise RuntimeError("a step failed on rank 0")
+    monkeypatch.setattr(engine, "_op", lambda kind: failing)
+    with pytest.raises(RuntimeError, match="failed on rank 0"):
+        engine._compiled(("decode",), None)({})
+    engine.close()
+    engine._last_sent -= 1.0
+    engine.keepalive()
+    assert sent == [tp.HEARTBEAT, ("decode",)]
 
 
 def test_make_host_mesh_validates_tp_and_backend():

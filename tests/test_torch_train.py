@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from helpers import tiny  # noqa: E402
 from test_torch_engine import _moe_cfgs  # noqa: E402
