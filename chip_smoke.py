@@ -65,7 +65,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      kernels launching, equal to the same step on fake tensors, its bytes
      over the HBM rate beside ``decode_step_bound_ms`` and phase 5's graph
      ms a step; the kernels' ``cost(...)`` against PERF.md section 6's
-     bound column (PERF6_BOUNDS);
+     bound column (PERF6_BOUNDS); qwen3-0.6b's train_4k cell
+     (DRYRUN_TRAIN_CELL: rank 0 of the model-parallel train step, data 32
+     x model 8) counted on fake CUDA tensors and on the host's, equal;
  5b. tensor parallelism (``tp_phase``): phase 4's quantization and its
      draft saved to a temporary file under ``build/``; two ranks
      (``launch.mesh.spawn``), both on this card with the gloo backend
@@ -192,6 +194,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (encoder, decoder and cross-attention), 4 prompts through the
      lockstep steps fused, unfused and plain, tokens identical but at
      near-ties;
+ 14a. model-parallel training (``train_mp_phase``): qwen3-0.6b at its
+     published width cut to TRAIN_MP_LAYERS = 2 layers on a (data 2,
+     model 2) mesh of four ranks (``launch.mesh.spawn(dp=)``) that share
+     this card over gloo: ZeRO-3 shards over data, tensor parallelism over
+     model (``runtime/steps.make_train_step(mesh=)``); global batch 4 x
+     256 in 2 microbatches, 3 steps with grad_compression off and int8,
+     each step from one rank's state held to that rank's step (loss,
+     grad norm, lr, every param and moment element of every shard; the
+     tolerances at MP_TREE_TOL say why); host ms a step, the collectives'
+     share of it and their bytes a step by axis (no speed claim: gloo
+     through the host); the mesh's checkpoint restored on one rank here,
+     its next step's loss equal to the mesh's;
  15. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
      path's runs counted from zero), the phases' seconds, the nvidia-smi
      line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -214,7 +228,9 @@ only phases 9-11, after the quantizations they need (see
 bits and a 2.2-bit draft's acceptance on the trained weights (see
 ``train_main``); ``--mrope-whisper`` builds every kernel
 and runs only phase 14, Whisper at its full 32 + 32 layers (see
-``mrope_whisper_main``); ``--tp`` builds every kernel and runs only
+``mrope_whisper_main``); ``--train-mp`` builds every kernel and runs
+only phase 14a (see ``train_mp_main``); ``--tp`` builds every kernel and
+runs only
 phase 5b at the whole run's depth, after the quantization and the fused
 serve run it needs (see ``tp_main``); ``--dryrun`` builds every kernel
 and runs phase 5a after phases 4 (without the plain comparison) and 5 at
@@ -4092,8 +4108,10 @@ SMOKE_TRAIN_STEPS = 30
 # the whole run also cuts qwen3-0.6b to TRAIN_LAYERS of its 28 layers
 # (published widths): at 28 its phase took 321.4 and 344.8 s of whole runs
 # of 1225.6 and 1173.4 s on slow hosts (H100 80GB HBM3, 700 W), past or
-# at the 1200 s limit; --train keeps all 28
-TRAIN_LAYERS = 14
+# at the 1200 s limit, and 144.1 s at 14 on a fast host; 8 pays for
+# the model-parallel training phase (``train_mp_phase``, 86.1 s on its own)
+# and the dry-run's train cell; --train keeps all 28
+TRAIN_LAYERS = 8
 _TRAIN_DEPTH = [28]            # main() sets TRAIN_LAYERS for the whole run
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, TRAIN_WARMUP = 8, 256, 2e-3, 20
 TRAIN_LOG = 10
@@ -4727,6 +4745,303 @@ def train_main(dev, smi) -> int:
     return 0
 
 
+# ------------------------------------------------ model-parallel training
+
+# qwen3-0.6b at its published width (d_model 1024, 16 heads over 8 KV at
+# hd 128, d_ff 3072, vocab 151936) cut to TRAIN_MP_LAYERS layers, trained
+# on a (data TRAIN_MP_DP, model TRAIN_MP_TP) mesh whose ranks share this
+# card over gloo (``runtime/steps.make_train_step(mesh=)``: ZeRO-3 over
+# data, TP over model): a global batch of TRAIN_MP_BATCH x TRAIN_MP_SEQ in
+# TRAIN_MP_MB microbatches, TRAIN_MP_STEPS steps with grad_compression
+# off and int8, each held to the same steps on one rank of the card
+TRAIN_MP_LAYERS = 2
+TRAIN_MP_DP, TRAIN_MP_TP = 2, 2
+TRAIN_MP_BATCH, TRAIN_MP_SEQ, TRAIN_MP_MB, TRAIN_MP_STEPS = 4, 256, 2, 3
+TRAIN_MP_LR, TRAIN_MP_WARMUP = TRAIN_LR, 2      # the training protocol's
+TRAIN_MP_DIR = ROOT / "build" / "train_mp_ckpt"
+# Each mesh step starts from the one-rank run's state (every rank runs
+# that run itself and takes its shards of it, ``TrainLayout.shard_state``),
+# so each step is held to one device's from the same inputs and the
+# steps' differences do not compound: int8 code flips at round-off ties
+# would otherwise turn into whole lr-sized moves that change later losses
+# by more than round-off (a free-running int8 mesh was 5.3e-5 off one
+# rank's loss at step 2 on an H100 80GB HBM3 at 700 W).
+# tests/test_torch_train.py's tolerances (its docstring gives the errors
+# measured on the host): loss, grad norm and lr relative; every element
+# of a param or moment leaf within MP_TREE_TOL of the leaf's largest
+# |value|, but for a share of the elements, each of which may be off by at
+# most twice the step's learning rate: with int8 MP_INT8_OFF (a code
+# flip), without it MP_OFF.  AdamW's normalised update moves an element by
+# lr |m/sqrt(v)| a step, |m/sqrt(v)| <= 1.002 over three steps at b1 0.9,
+# b2 0.95, so round-off that reverses an element's update (a gradient
+# near AdamW's eps, or a flipped code) moves it by up to 2 lr, and a
+# moment by far less.  At published width (vocab 151936) a free-running
+# mesh put 26 of 342,627,840 params (7.6e-8) past 1e-3 of their leaf's
+# largest |value| (the same card); the tiny host runs none.
+MP_LOSS_RTOL, MP_GNORM_RTOL, MP_LR_RTOL = 1e-5, 1e-4, 1e-6
+MP_TREE_TOL, MP_INT8_OFF, MP_OFF = 1e-3, 5e-3, 1e-6
+
+
+def train_mp_config():
+    return get_config(TRAIN_ARCH).with_(
+        n_layers=TRAIN_MP_LAYERS,
+        mixer_pattern=get_config(TRAIN_ARCH).mixer_pattern[:TRAIN_MP_LAYERS])
+
+
+def train_mp_params(cfg, dev) -> dict:
+    """The seeded fp32 init on ``dev``: every rank draws the same."""
+    return tf.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev)
+
+
+def train_mp_step(cfg, comp, mesh=None):
+    return make_train_step(cfg, microbatches=TRAIN_MP_MB,
+                           peak_lr=TRAIN_MP_LR, warmup=TRAIN_MP_WARMUP,
+                           total_steps=TRAIN_MP_STEPS + 2,
+                           grad_compression=comp, mesh=mesh)
+
+
+def mp_metrics(m) -> dict:
+    return {k: float(v) for k, v in m.items()}
+
+
+def mp_shard_errors(layout, got, want_full) -> dict:
+    """This rank's shards ``got`` (params, AdamWState) against its shards
+    of the one-device state ``want_full``: per tree the elements past
+    MP_TREE_TOL of their full leaf's largest |value| (in all and by leaf),
+    the compared elements, the worst ratio and the largest |error|."""
+    from repro_torch.runtime.sharding import _leaf_paths
+    want = layout.shard_state(want_full)
+    out = {}
+    for name, g, w, full in (("params", got[0], want[0], want_full[0]),
+                             ("mu", got[1].mu, want[1].mu, want_full[1].mu),
+                             ("nu", got[1].nu, want[1].nu, want_full[1].nu)):
+        off = n = 0
+        worst = move = 0.0
+        by_leaf = {}
+        for path, a, b, f in zip(_leaf_paths(full), ptree.leaves(g),
+                                 ptree.leaves(w), ptree.leaves(full)):
+            err = (a.float() - b.float()).abs()
+            scale = float(f.abs().max()) or 1.0
+            k = int((err > MP_TREE_TOL * scale).sum())
+            if k:
+                by_leaf[".".join(path)] = k
+            off += k
+            n += err.numel()
+            worst = max(worst, float(err.max()) / scale)
+            move = max(move, float(err.max()))
+        out[name] = {"off": off, "off_by_leaf": by_leaf, "elements": n,
+                     "worst_ratio": worst, "max_move": move}
+    return out
+
+
+@contextlib.contextmanager
+def timed_collectives(seconds: dict):
+    """While inside, the training collectives' host seconds are added up
+    by kind in ``seconds`` (each ends in its host copy back, so the host
+    clock covers its transfer)."""
+    names = ("all_gather_flat", "reduce_scatter_flat", "all_reduce",
+             "gather_flat_to_root")
+    orig = {n: getattr(tpmod, n) for n in names}
+
+    def wrap(name):
+        def fn(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return orig[name](*a, **k)
+            finally:
+                seconds[name] = seconds.get(name, 0.0) + (
+                    time.perf_counter() - t0)
+        return fn
+    for n in names:
+        setattr(tpmod, n, wrap(n))
+    try:
+        yield
+    finally:
+        for n, f in orig.items():
+            setattr(tpmod, n, f)
+
+
+def train_mp_rank(tmesh, batches: list) -> dict:
+    """One rank of the train_mp phase: for grad_compression off and int8,
+    TRAIN_MP_STEPS steps of one rank's run here, and before each one the
+    mesh's step from its state (the first counted by
+    ``hlocost.CostCounter`` for its collective bytes, the others timed),
+    held to it shard by shard (``mp_shard_errors``).  With compression off
+    the mesh then writes its checkpoint (``ShardedCheckpointManager``) and
+    takes one step more.  Returns the rank's report."""
+    from repro_torch.checkpoint import ShardedCheckpointManager
+    from repro_torch.runtime.sharding import TrainLayout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = tmesh.device
+    cfg = train_mp_config()
+    full = train_mp_params(cfg, dev)
+    layout = TrainLayout(cfg, tmesh)
+    dev_batches = [{"tokens": torch.from_numpy(b).to(dev)} for b in batches]
+    out = {}
+    for comp in (None, "int8"):
+        step, one_step = train_mp_step(cfg, comp, tmesh), train_mp_step(
+            cfg, comp)
+        one = ptree.tree_map(torch.clone, full)
+        ostate = (one, adamw_init(one))
+        run = {"metrics": [], "one_rank": [], "host_ms": [], "errors": []}
+        coll_s = {}
+        for i, b in enumerate(dev_batches[:TRAIN_MP_STEPS]):
+            mstate = layout.shard_state(ostate)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with (hlocost.CostCounter() if i == 0
+                  else timed_collectives(coll_s)) as cc:
+                mstate = step(*mstate, b)
+            torch.cuda.synchronize(dev)
+            run["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["metrics"].append(mp_metrics(mstate[2]))
+            if i == 0:
+                counted = cc.totals()
+            p, o, m = one_step(*ostate, b)
+            ostate = (p, o)
+            run["one_rank"].append(mp_metrics(m))
+            run["errors"].append(mp_shard_errors(layout, mstate[:2], ostate))
+        run.update(coll_by_axis=counted["coll_by_axis"],
+                   flops=counted["flops"],
+                   coll_ms_a_step={k: v * 1e3 / (TRAIN_MP_STEPS - 1)
+                                   for k, v in coll_s.items()})
+        if comp is None:
+            t0 = time.perf_counter()
+            ShardedCheckpointManager(str(TRAIN_MP_DIR), layout, keep=1).save(
+                TRAIN_MP_STEPS, mstate[:2], {"next_step": TRAIN_MP_STEPS})
+            run["save_s"] = time.perf_counter() - t0
+            _, _, m = step(*mstate[:2], dev_batches[TRAIN_MP_STEPS])
+            run["next_loss"] = float(m["loss"])
+        out["off" if comp is None else comp] = run
+        del mstate, ostate, one
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_mp_phase(dev) -> dict:
+    """Model-parallel training (``train_mp_rank`` on TRAIN_MP_DP x
+    TRAIN_MP_TP ranks over gloo on this card): each step's loss, grad norm
+    and lr within the host test's tolerances of one rank's from the same
+    state, every param and moment element of every rank's shards by the
+    rule above, the loss falling; the host ms a step and the collective
+    bytes a step by axis (gloo through the host on one card: no speed
+    claim); then the mesh's checkpoint restored on one rank here, whose
+    next step's loss must equal the mesh's next step's."""
+    t0 = time.monotonic()
+    cfg = train_mp_config()
+    corpus = make_corpus_tokens(cfg.vocab, 2000, seed=SEED)
+    loader = LMBatchLoader(corpus, TRAIN_MP_BATCH, TRAIN_MP_SEQ, seed=SEED)
+    batches = [loader.next_batch() for _ in range(TRAIN_MP_STEPS + 1)]
+    shutil.rmtree(TRAIN_MP_DIR, ignore_errors=True)
+    ranks = mesh.spawn(train_mp_rank, TRAIN_MP_TP, batches, dp=TRAIN_MP_DP,
+                       backend="gloo", device=dev, threads=1)
+    spawn_s = time.monotonic() - t0
+    runs = {}
+    for name, run in ranks[0].items():
+        # every rank's comparisons, added up (a leaf replicated over the
+        # model axis is compared on each of its holders)
+        errs = []
+        for i in range(TRAIN_MP_STEPS):
+            tot = {}
+            for r in ranks:
+                for tree, e in r[name]["errors"][i].items():
+                    t = tot.setdefault(tree, {"off": 0, "elements": 0,
+                                              "worst_ratio": 0.0,
+                                              "max_move": 0.0,
+                                              "off_by_leaf": {}})
+                    t["off"] += e["off"]
+                    t["elements"] += e["elements"]
+                    t["worst_ratio"] = max(t["worst_ratio"], e["worst_ratio"])
+                    t["max_move"] = max(t["max_move"], e["max_move"])
+                    for k, v in e["off_by_leaf"].items():
+                        t["off_by_leaf"][k] = t["off_by_leaf"].get(k, 0) + v
+            errs.append(tot)
+        runs[name] = dict(run, errors=errs, workers_host_ms=[
+            r[name]["host_ms"] for r in ranks[1:]])
+        coll = {a: sum(k.values()) for a, k in run["coll_by_axis"].items()}
+        log(f"train_mp {name}: DP {TRAIN_MP_DP} x TP {TRAIN_MP_TP}, each "
+            f"step from one rank's state: losses "
+            f"{[round(m['loss'], 6) for m in run['metrics']]} (one rank "
+            f"{[round(m['loss'], 6) for m in run['one_rank']]}), grad norms "
+            f"{[round(m['grad_norm'], 5) for m in run['metrics']]} (one "
+            f"rank {[round(m['grad_norm'], 5) for m in run['one_rank']]}); "
+            f"a step's params / mu / nu worst |err| / leaf max "
+            f"{[round(max(e[t]['worst_ratio'] for e in errs), 8) for t in ('params', 'mu', 'nu')]}"
+            f", elements past {MP_TREE_TOL} "
+            f"{[sum(e[t]['off'] for t in e) for e in errs]} of "
+            f"{errs[0]['params']['elements'] + errs[0]['mu']['elements'] + errs[0]['nu']['elements']}"
+            f" a step ({json.dumps([{t: e[t]['off_by_leaf'] for t in e if e[t]['off']} for e in errs])})"
+            f", largest |err| "
+            f"{max(e[t]['max_move'] for e in errs for t in e):.3e}; host ms "
+            f"a step {[round(t, 1) for t in run['host_ms']]} (the first "
+            f"counted), of it in collectives "
+            f"{json.dumps({k: round(v, 1) for k, v in run['coll_ms_a_step'].items()})}"
+            f"; collective bytes a step {json.dumps(coll)} "
+            f"({json.dumps(run['coll_by_axis'])})")
+    out = {"runs": runs, "spawn_s": spawn_s}
+    for name, run in runs.items():
+        int8 = name == "int8"
+        for i, (a, b, e) in enumerate(zip(run["metrics"], run["one_rank"],
+                                          run["errors"])):
+            for k, tol in (("loss", MP_LOSS_RTOL),
+                           ("grad_norm", MP_GNORM_RTOL),
+                           ("lr", MP_LR_RTOL)):
+                check(abs(a[k] - b[k]) <= tol * abs(b[k]),
+                      f"train_mp {name} step {i} {k}: mesh {a[k]!r} one "
+                      f"rank {b[k]!r} (rtol {tol})")
+            for tree, t in e.items():
+                check(t["off"] <= (MP_INT8_OFF if int8 else MP_OFF)
+                      * t["elements"] and t["max_move"] <= 2 * b["lr"],
+                      f"train_mp {name} step {i} {tree} against one rank: "
+                      f"{t}")
+        check(run["metrics"][-1]["loss"] < run["metrics"][0]["loss"],
+              f"train_mp {name}: the loss did not fall")
+    # the mesh's checkpoint, restored on one rank here
+    t1 = time.monotonic()
+    full = train_mp_params(cfg, dev)
+    state, extra = CheckpointManager(str(TRAIN_MP_DIR)).restore(
+        TRAIN_MP_STEPS, (full, adamw_init(full)))
+    _, _, m = train_mp_step(cfg, None)(*state, {"tokens": torch.from_numpy(
+        batches[extra["next_step"]]).to(dev)})
+    mesh_next = ranks[0]["off"]["next_loss"]
+    one_next = float(m["loss"])
+    check(abs(one_next - mesh_next) <= MP_LOSS_RTOL * abs(mesh_next),
+          f"train_mp checkpoint: one rank's next loss {one_next!r}, the "
+          f"mesh's {mesh_next!r}")
+    del state, full
+    shutil.rmtree(TRAIN_MP_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["checkpoint"] = {"mesh_next_loss": mesh_next,
+                         "one_rank_next_loss": one_next,
+                         "save_s": ranks[0]["off"]["save_s"],
+                         "restore_step_s": time.monotonic() - t1}
+    out["seconds"] = time.monotonic() - t0
+    log(f"train_mp checkpoint: written at DP {TRAIN_MP_DP} x TP "
+        f"{TRAIN_MP_TP} ({out['checkpoint']['save_s']:.1f} s), restored on "
+        f"one rank: next loss {one_next!r} against the mesh's {mesh_next!r}"
+        f"; phase {out['seconds']:.1f} s (spawn and ranks {spawn_s:.1f} s)")
+    return out
+
+
+def train_mp_main(dev, smi) -> int:
+    """``--train-mp``: build every kernel, then only ``train_mp_phase``;
+    prints one JSON line (also ``chiprun_out/chip_smoke_train_mp.json``),
+    the nvidia-smi line and the contract's last line."""
+    _build.build()
+    out = {"gpu": smi, "train_mp": train_mp_phase(dev),
+           "seconds": time.monotonic() - T_START}
+    (OUT_DIR / "chip_smoke_train_mp.json").write_text(
+        json.dumps(out, indent=1))
+    log(json.dumps(compact(out)))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 # ---------------------------------------- the gather, the front door, lockstep
 
 
@@ -5337,6 +5652,11 @@ DRYRUN_CELLS = [("llama2-7b", "decode_32k", None),
                 ("rwkv6-3b", "long_500k", 4),
                 ("deepseek-v2-236b", "decode_32k", 4)]
 DRYRUN_MEM = 64 * 2 ** 20       # what the fake cells may add to CUDA memory
+# the model-parallel train cell, counted on fake CUDA tensors and on the
+# host's fake tensors, which must agree
+DRYRUN_TRAIN_CELL = ("qwen3-0.6b", "train_4k")
+TRAIN_CELL_KEYS = ("flops", "hlo_bytes", "coll_bytes", "coll_by_kind",
+                   "coll_by_axis", "memory")
 # the kernels' bounds as PERF.md section 6 printed them (the formulas this
 # script held before they moved into the wrappers' cost(...)): kernel, cost
 # keywords, the printed bound in ms
@@ -5491,6 +5811,31 @@ def dryrun_phase(dev, params, serve_out) -> dict:
             f"GiB, fits 80 GB: {row['fits_80gb']}; {rl.dominant}-bound, "
             f"roofline fraction {rl.roofline_frac:.4f}; build "
             f"{row['build_s']} s, count {row['count_s']} s")
+    arch, shape = DRYRUN_TRAIN_CELL
+    train_recs = {}
+    for where in ("cuda", "cpu"):
+        t1 = time.monotonic()
+        rec = dryrunmod.run_cell(arch, shape, force=True,
+                                 device=dev if where == "cuda" else where,
+                                 art_dir=str(OUT_DIR / "dryrun" / where))
+        check(rec["status"] == "ok", f"dry-run {arch} {shape} on {where}: "
+              f"{rec.get('error')}")
+        train_recs[where] = dict(
+            {k: rec[k] for k in TRAIN_CELL_KEYS}, seconds=time.monotonic()
+            - t1)
+    tr = train_recs["cuda"]
+    check(all(tr[k] == train_recs["cpu"][k] for k in TRAIN_CELL_KEYS),
+          f"the train cell's counts differ on fake CUDA / host tensors: "
+          f"{tr} / {train_recs['cpu']}")
+    rl = roofline.analyze(dict(rec, **tr), get_config(arch))
+    log(f"dryrun {arch} {shape} (rank 0 of data 32 x model 8, microbatches "
+        f"{rec['microbatches']}, {rec['batch']} rows): flops "
+        f"{tr['flops']:.4e} bytes {tr['hlo_bytes']:.4e} coll "
+        f"{json.dumps(tr['coll_by_axis'])}; argument "
+        f"{tr['memory']['argument'] / 2 ** 30:.3f} GiB, peak "
+        f"{tr['memory']['peak'] / 2 ** 30:.2f} GiB; {rl.dominant}-bound, "
+        f"roofline fraction {rl.roofline_frac:.4f}; counts on fake CUDA = "
+        f"host ({tr['seconds']:.1f} / {train_recs['cpu']['seconds']:.1f} s)")
     grew = torch.cuda.max_memory_allocated(dev) - base
     check(grew < DRYRUN_MEM, f"the fake dry-run cells grew CUDA memory by "
           f"{grew} bytes (limit {DRYRUN_MEM})")
@@ -5517,7 +5862,8 @@ def dryrun_phase(dev, params, serve_out) -> dict:
     log(f"dryrun bound column: {col['entries']} kernel shapes agree with "
         f"PERF.md section 6 to the printed digits (worst "
         f"{col['worst_half_ulps']:.3f} half-units of the last digit)")
-    out = {"cells": cells, "cuda_memory_growth_bytes": int(grew),
+    out = {"cells": cells, "train_cell": train_recs,
+           "cuda_memory_growth_bytes": int(grew),
            "cells_s": cells_s, "counted_step": step,
            "graph_decode_step_ms": graph_ms, "bound_column": col,
            "seconds": time.monotonic() - t0}
@@ -5699,6 +6045,8 @@ def main() -> int:
         return frontdoor_main(dev, smi)
     if sys.argv[1:] == ["--train"]:
         return train_main(dev, smi)
+    if sys.argv[1:] == ["--train-mp"]:
+        return train_mp_main(dev, smi)
     if sys.argv[1:] == ["--families"]:
         return families_main(dev, smi)
     if sys.argv[1:] == ["--mrope-whisper"]:
@@ -5819,6 +6167,7 @@ def main() -> int:
     whisper_out = timed("whisper", whisper_phase, dev)
     dense_out = timed("dense", dense_phase, dev)
     train_out = timed("train", train_phase, dev)
+    train_mp_out = timed("train_mp", train_mp_phase, dev)
     log(f"phase seconds: {json.dumps(phase_s)}")
 
     # launches per path, each from that path's own run with every count
@@ -6117,7 +6466,7 @@ def main() -> int:
               "qwen2_vl": qwen2_vl_out, "whisper": whisper_out,
               "mrope_whisper_gemm_times": mw_times,
               "mrope_whisper_unfused_gemm_times": mw_unfused_times,
-              "train": train_out,
+              "train": train_out, "train_mp": train_mp_out,
               "kernels": kernels,
               "phase_s": phase_s, "seconds": time.monotonic() - T_START}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

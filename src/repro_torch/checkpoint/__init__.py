@@ -1,1 +1,1 @@
-from .ckpt import CheckpointManager  # noqa: F401
+from .ckpt import CheckpointManager, ShardedCheckpointManager  # noqa: F401

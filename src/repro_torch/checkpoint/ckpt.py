@@ -18,7 +18,11 @@ Design (numpy .npz per step, no external deps), as the reference's:
   * async mode: the device -> host copy happens in ``save`` (the port's
     train step updates params in place, so the copy must be taken before
     the next step), the serialize + write on a background thread, with a
-    barrier (``wait``) before the next save.
+    barrier (``wait``) before the next save;
+  * a model-parallel run (``ShardedCheckpointManager``) writes the same
+    one-device format: every rank gathers the full state from the shards,
+    rank 0 writes it, and a restore gives every rank its own shards of the
+    full leaves, so a checkpoint moves between meshes of any shape.
 """
 from __future__ import annotations
 
@@ -147,3 +151,38 @@ class CheckpointManager:
             out = [place(z[f"leaf_{i}"], ll)
                    for i, ll in enumerate(leaves_like)]
         return unflatten(treedef, out), meta["extra"]
+
+
+class ShardedCheckpointManager(CheckpointManager):
+    """``CheckpointManager`` for one rank of a model-parallel run: the state
+    is the rank's ``(params, AdamWState)`` of shards, ``layout`` a
+    ``runtime/sharding.TrainLayout``.  ``save`` is collective (every rank
+    calls it): the full state is gathered, rank 0 writes it synchronously
+    in the one-device format and every rank waits for the write.
+    ``restore`` reads the full leaves on the host and keeps the rank's
+    shards of them, on its device."""
+
+    def __init__(self, directory: str, layout, keep: int = 3,
+                 milestone_every: int = 0):
+        super().__init__(directory, keep, milestone_every, async_write=False)
+        self.layout = layout
+
+    def save(self, step: int, tree: Any, extra: dict | None = None) -> None:
+        full = self.layout.gather_state(tree)
+        if self.layout.mesh.rank == 0:
+            super().save(step, full, extra)
+        del full
+        self.layout.mesh.barrier()
+
+    def restore(self, step: int, like: Any) -> tuple[Any, dict]:
+        params, opt = like
+        full_like = (self.layout.full_like(params),
+                     opt._replace(mu=self.layout.full_like(opt.mu),
+                                  nu=self.layout.full_like(opt.nu)))
+        host, extra = super().restore(
+            step, full_like, lambda a, ll: torch.from_numpy(a).to(ll.dtype))
+        mine = self.layout.shard_state(host)
+        leaves_like = flatten(like)[0]
+        out, treedef = flatten(mine)
+        return unflatten(treedef, [
+            t.to(ll.device) for t, ll in zip(out, leaves_like)]), extra

@@ -140,10 +140,11 @@ def repeated(trips: int):
             s.exit_repeat()
 
 
-def collective(kind: str, nbytes: int) -> None:
-    """A collective's bytes on the wire (``runtime/tp.py``'s gathers)."""
+def collective(kind: str, nbytes: int, axis: str | None = None) -> None:
+    """A collective's bytes on the wire (``runtime/tp.py``'s gathers and
+    training collectives) over the mesh axis ``axis``."""
     for s in _SINKS:
-        s.add_collective(kind, nbytes)
+        s.add_collective(kind, nbytes, axis)
 
 
 def is_fake(t) -> bool:

@@ -27,9 +27,21 @@ per chip the ported GSPMD rules of ``runtime/sharding.py`` would hold),
 ``wo_bytes`` (the replicated ``wo`` / ``swo`` bytes of the rank) and
 ``kernel_credits``.
 
-Train cells are recorded as ``skip``: the reference lowers train_4k under
-FSDP + TP, and the port's ``make_train_step`` runs on one device (model-
-parallel training is ROADMAP Queue 1 item 10).  A cell that the port
+A train cell (train_4k) is rank 0 of the port's model-parallel training
+(``runtime/steps.make_train_step(mesh=)``) on the same mesh: ZeRO-3 over
+the data axis (dp = 32, the data-parallel axes' product) and tensor
+parallelism over the model axis (tp = 8), on a dry-run ``TrainMesh``
+whose collectives report their bytes by kind and axis (``coll_by_kind``;
+``coll_by_axis``: the data axis's all-gathers and reduce-scatters, the
+model axis's all-reduces).  The params are built in bf16, sliced and
+sharded for rank 0 (``sharding.TrainLayout``), the moments are
+``adamw_init``'s on the shards, and the step takes the rank's rows of the
+global batch (256 -> 8) in ``--microbatches`` parts (the reference's
+flag, default 4); the counter sees the backward too.  The dense attention
+decoders count; the MoE, MLA, RWKV6, RG-LRU and Whisper train cells are
+``skip`` with the ROADMAP item their families wait for (Queue 1 item 11:
+MoE's aux loss under data parallelism and expert parallelism's
+all-to-all, the recurrent mixers' TP layout).  A cell that the port
 cannot run is recorded as ``error`` with its reason.  The reference's
 variants (``--remat-attention``, ``--expand-kv``, ``--seqshard``,
 ``--shard-kv``, ``--shard-qkv``) are refused: the port's models do not
@@ -65,9 +77,7 @@ from repro_torch.runtime import tp as tpmod
 
 # the reference's --all list: its registry leaves the paper's llama2-7b out
 REFERENCE_ARCHS = tuple(a for a in ARCH_IDS if a != "llama2-7b")
-TRAIN_SKIP = ("SKIP: model-parallel training is not ported; the port's "
-              "runtime/steps.make_train_step runs on one device (ROADMAP "
-              "Queue 1 item 10)")
+MICROBATCHES = 4                 # the reference's --microbatches default
 VARIANTS = ("remat-attention", "expand-kv", "seqshard", "shard-kv",
             "shard-qkv")
 
@@ -113,12 +123,65 @@ def _dp(mesh) -> int:
     return n
 
 
+def _train_skip(cfg) -> str | None:
+    """Why ``cfg``'s train cell is skipped, or None (it counts)."""
+    try:
+        tpmod.check_trainable(cfg)
+    except ValueError as e:
+        return "SKIP: " + str(e).split(": ", 1)[1]
+    return None
+
+
+def _build_train(cfg, arch, shape, *, mesh, quant, device, dtype, tiny,
+                 microbatches):
+    """(run, meta, arguments) of rank 0's train step on ``mesh`` (see the
+    module docstring).  ``quant`` only labels the record: the reference
+    trains its bf16 params under ``--quant`` too."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.tree import tree_map
+    cell = SHAPES[shape]
+    tp, dp = mesh.shape["model"], _dp(mesh)
+    gb = cell.global_batch
+    tmesh = shd.dryrun_mesh(dp, tp, device)
+    params = tf.init_params(cfg, device=device, dtype=dtype)
+    layout = shd.TrainLayout(cfg, tmesh)
+    shards = layout.shard(params)
+    opt = adamw_init(shards)
+    batch = input_specs(cfg, shape, dtype, device=device)
+    local = input_specs(cfg, shape, dtype, batch=gb // dp, device=device)
+    step = make_train_step(cfg, microbatches=microbatches, mesh=tmesh)
+    f32 = tree_map(lambda t: t.new_empty(t.shape, dtype=torch.float32),
+                   params)
+    p_specs = shd.param_specs(params, mesh, serve=False,
+                              period=cfg.scan_period)
+    spec_bytes = (shd.bytes_per_chip(params, p_specs, mesh)
+                  + 2 * shd.bytes_per_chip(f32, p_specs, mesh)
+                  + shd.bytes_per_chip(batch, shd.batch_specs(batch, mesh),
+                                       mesh))
+    meta = dict(arch=arch, shape=shape, kind=cell.kind, mesh=mesh.name,
+                chips=mesh.size, seq_len=cell.seq_len, global_batch=gb,
+                quant=quant, tp=tp, dp=dp, batch=gb // dp,
+                microbatches=microbatches, tp_plan=layout.plan.asdict(),
+                argument_specs=int(spec_bytes), wo_bytes=_wo_bytes(shards),
+                coll_axis="data+model",
+                device=str(torch.device(device).type),
+                dtype=str(dtype).split(".")[-1], tiny=tiny)
+
+    def run():
+        return step(shards, opt, batch)
+    return run, meta, (shards, opt, local)
+
+
 def build_cell(arch: str, shape: str, *, mesh, quant: int | None,
-               device, dtype=torch.bfloat16, tiny: bool = False):
-    """(run, meta, arguments) for one serve cell, built on fake tensors
-    (the caller holds the ``FakeTensorMode``): ``run()`` is rank 0's step,
-    ``arguments`` what it reads (params, caches, inputs), ``meta`` the
-    record's fields so far."""
+               device, dtype=torch.bfloat16, tiny: bool = False,
+               microbatches: int = MICROBATCHES):
+    """(run, meta, arguments) for one cell, built on fake tensors (the
+    caller holds the ``FakeTensorMode``): ``run()`` is rank 0's step,
+    ``arguments`` what it reads (params, caches, inputs; a train cell's
+    rank reads its rows of the batch), ``meta`` the record's fields so
+    far."""
     from repro_torch.core.pipeline import quantize_params_uniform
     from repro_torch.models import decode as decmod
     from repro_torch.models import transformer as tf
@@ -126,6 +189,10 @@ def build_cell(arch: str, shape: str, *, mesh, quant: int | None,
     from repro_torch.runtime.steps import make_prefill_step, make_serve_step
     cfg = (get_tiny if tiny else get_config)(arch)
     cell = SHAPES[shape]
+    if cell.kind == "train":
+        return _build_train(cfg, arch, shape, mesh=mesh, quant=quant,
+                            device=device, dtype=dtype, tiny=tiny,
+                            microbatches=microbatches)
     tp = mesh.shape["model"]
     dp = _dp(mesh)
     gb = cell.global_batch
@@ -183,15 +250,17 @@ def build_cell(arch: str, shape: str, *, mesh, quant: int | None,
 
 
 def count_cell(arch: str, shape: str, *, mesh, quant: int | None, device,
-               save_ops: bool = False, tiny: bool = False) -> dict:
-    """Build and count one serve cell on fake tensors -> the record's
-    fields (and ``ops``, the trace, with ``save_ops``)."""
+               save_ops: bool = False, tiny: bool = False,
+               microbatches: int = MICROBATCHES) -> dict:
+    """Build and count one cell on fake tensors -> the record's fields
+    (and ``ops``, the trace, with ``save_ops``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     t0 = time.time()
     with FakeTensorMode(allow_non_fake_inputs=True), torch.no_grad():
         run, meta, arguments = build_cell(arch, shape, mesh=mesh,
                                           quant=quant, device=device,
-                                          tiny=tiny)
+                                          tiny=tiny,
+                                          microbatches=microbatches)
         t_build = time.time() - t0
         argument = _storages(arguments)
         with tpmod.scope(tpmod.dryrun_group(meta["tp"], device)), \
@@ -211,6 +280,8 @@ def count_cell(arch: str, shape: str, *, mesh, quant: int | None, device,
                memory=dict(argument=arg_b, output=out_b,
                            temp=max(temp_peak - out_b, 0),
                            peak=arg_b + temp_peak))
+    if meta["kind"] == "train":
+        rec["coll_by_axis"] = tot["coll_by_axis"]
     rec["fits"] = rec["memory"]["peak"] <= CARD_BYTES
     if save_ops:
         rec["ops"] = cc.ops_trace()
@@ -224,7 +295,8 @@ def _tag(arch, shape, meshname, quant) -> str:
 def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
              quant: int | None = None, force: bool = False, device=None,
              save_ops: bool = False, mesh=None, tiny: bool = False,
-             art_dir: str | None = None) -> dict:
+             art_dir: str | None = None,
+             microbatches: int = MICROBATCHES) -> dict:
     """One cell's record, from ``art_dir`` if it is there (unless
     ``force``), else counted and written.  ``mesh`` replaces the
     production mesh (tests: a small one); ``tiny`` counts the arch's tiny
@@ -242,7 +314,8 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
     cfg = (get_tiny if tiny else get_config)(arch)
     ok, why = cell_applicable(cfg, shape)
     if ok and SHAPES[shape].kind == "train":
-        ok, why = False, TRAIN_SKIP
+        why = _train_skip(cfg)
+        ok = why is None
     rec = None
     if not ok:
         rec = dict(arch=arch, shape=shape, mesh=mesh.name, status="skip",
@@ -251,7 +324,8 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
         try:
             rec = count_cell(arch, shape, mesh=mesh, quant=quant,
                              device=resolve_device(device),
-                             save_ops=save_ops, tiny=tiny)
+                             save_ops=save_ops, tiny=tiny,
+                             microbatches=microbatches)
         except Exception as e:       # recorded, never hidden
             rec = dict(arch=arch, shape=shape, mesh=mesh.name,
                        status="error", quant=quant,
@@ -276,6 +350,8 @@ def main(argv=None):
     ap.add_argument("--quant", type=int, default=None)
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--save-ops", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=MICROBATCHES,
+                    help="a train cell's microbatches (the reference's)")
     ap.add_argument("--device", default=None,
                     help="where the fake tensors live (default cuda)")
     for v in VARIANTS:
@@ -301,7 +377,8 @@ def main(argv=None):
             for mp in meshes:
                 rec = run_cell(a, s, multi_pod=mp, quant=args.quant,
                                force=args.force, device=args.device,
-                               save_ops=args.save_ops)
+                               save_ops=args.save_ops,
+                               microbatches=args.microbatches)
                 status = rec["status"]
                 n[status] += 1
                 extra = ""

@@ -27,7 +27,12 @@ shapes only, nothing allocated); the counts are the same either way.
     counted;
   * collectives — the TP gathers of a dry-run group report the gathered
     result's bytes as ``all-gather`` (the reference counts max(operand,
-    result) per collective: the result, for a gather).
+    result) per collective: the result, for a gather); the training
+    collectives (``runtime/tp.py``) report ``all-gather`` (the result),
+    ``reduce-scatter`` (the operand) and ``all-reduce`` (the tensor), each
+    under its mesh axis (``coll_by_axis``: axis -> kind -> bytes).  The
+    backward of a train step dispatches through the counter too (autograd
+    carries the dispatch mode into its engine), so it is counted.
 
 A model loop whose trips all have one shape may run one trip on fake
 inputs under ``repro_torch.kernels.repeated(trips)``, which counts it
@@ -212,6 +217,7 @@ class CostCounter(TorchDispatchMode):
         self.bytes = 0.0
         self.coll_bytes = 0.0
         self.coll_by_kind: dict[str, float] = {}
+        self.coll_by_axis: dict[str, dict[str, float]] = {}
         self.kernel_credits: dict[str, dict] = {}
         self.mem = _Memory()
         self._kernel: list[str] = []        # the credited call we are in
@@ -247,12 +253,17 @@ class CostCounter(TorchDispatchMode):
     def exit_repeat(self) -> None:
         self._trips //= self._repeats.pop()
 
-    def add_collective(self, kind: str, nbytes: int) -> None:
+    def add_collective(self, kind: str, nbytes: int,
+                       axis: str | None = None) -> None:
         n = self._trips
         self.coll_bytes += n * nbytes
         self.coll_by_kind[kind] = self.coll_by_kind.get(kind, 0) + n * nbytes
+        if axis is not None:
+            by = self.coll_by_axis.setdefault(axis, {})
+            by[kind] = by.get(kind, 0) + n * nbytes
         if self._trace is not None:
-            key = json.dumps(["collective", kind, nbytes])
+            key = json.dumps(["collective", kind, nbytes]
+                             + ([axis] if axis is not None else []))
             self._trace[key] = self._trace.get(key, 0) + n
 
     # -- the dispatch hook --
@@ -293,6 +304,8 @@ class CostCounter(TorchDispatchMode):
         return dict(flops=self.flops, bytes=self.bytes,
                     coll_bytes=self.coll_bytes,
                     coll_by_kind=dict(self.coll_by_kind),
+                    coll_by_axis={a: dict(k) for a, k in
+                                  self.coll_by_axis.items()},
                     unknown_trip_whiles=0,
                     kernel_credits={k: dict(v) for k, v in
                                     self.kernel_credits.items()})
@@ -306,7 +319,8 @@ class CostCounter(TorchDispatchMode):
             entry = json.loads(key)
             if entry[0] == "collective":
                 ops.append({"collective": entry[1], "bytes": entry[2],
-                            "count": n})
+                            "count": n, **({"axis": entry[3]}
+                                           if len(entry) > 3 else {})})
             else:
                 ops.append({"op": entry[0], "args": entry[1],
                             "kwargs": entry[2], "out": entry[3],
@@ -321,13 +335,17 @@ def recount(trace: dict) -> dict:
     current rules: ops outside a kernel by their specs, kernel calls by
     their wrappers' ``cost``, collectives by their bytes."""
     t = {"flops": 0.0, "bytes": 0.0, "coll_bytes": 0.0, "coll_by_kind": {},
-         "unknown_trip_whiles": 0, "kernel_credits": {}}
+         "coll_by_axis": {}, "unknown_trip_whiles": 0, "kernel_credits": {}}
     for e in trace["ops"]:
         n = e["count"]
         if "collective" in e:
             t["coll_bytes"] += n * e["bytes"]
             t["coll_by_kind"][e["collective"]] = (
                 t["coll_by_kind"].get(e["collective"], 0) + n * e["bytes"])
+            if "axis" in e:
+                by = t["coll_by_axis"].setdefault(e["axis"], {})
+                by[e["collective"]] = (by.get(e["collective"], 0)
+                                       + n * e["bytes"])
         elif e["kernel"] is None:
             t["flops"] += n * op_flops(e["op"], e["args"], e["kwargs"],
                                        e["out"])

@@ -1,17 +1,22 @@
-"""Tensor-parallel groups on ``torch.distributed`` (port of
-``repro/launch/mesh.py``).  Functions only: importing this module starts
-nothing.
+"""Tensor-parallel groups and training meshes on ``torch.distributed``
+(port of ``repro/launch/mesh.py``).  Functions only: importing this module
+starts nothing.
 
 ``make_host_mesh(tp, ...)`` is the counterpart of the reference's
 ``make_host_mesh``: where the reference splits one process's devices into
 a ``("data", "model")`` mesh, the port joins ``tp`` processes, one per
 rank, into a ``runtime.tp.TPGroup``.  The backend follows the device:
 gloo for CPU tensors, NCCL for one card per rank (rank r on ``cuda:r``).
-A caller may name the backend: the one-card parity run puts every rank on
-``cuda:0`` with ``backend="gloo"``, whose gathers go through the host
-(NCCL will not put two ranks on one card).  ``spawn`` starts the ranks
+Ranks that must share a card (fewer cards than ranks) take gloo, whose
+collectives go through the host: NCCL will not put two ranks on one card,
+and the one-card parity runs put every rank on ``cuda:0``.  A caller may
+name the backend.  ``spawn`` starts the ranks
 and joins them through a ``file://`` rendezvous in a fresh temporary
 directory, so concurrent runs (parallel test workers) never share a port.
+``make_train_mesh(tp, dp, ...)`` joins ``dp * tp`` ranks into a (data,
+model) training mesh (``runtime/sharding.TrainMesh``): rank d * tp + m
+sits in the model group of row d and the data group of column m, the
+reference's ("data", "model") order; ``spawn(..., dp=dp)`` starts them.
 A run is bounded by TIMEOUT_S, or, for a server (``deadline_s=None``),
 lives until its ranks return; the directory lives as long.  The ctrl
 group, which carries rank 0's host messages, waits ``timeout_s`` for one
@@ -48,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.runtime.sharding import TrainMesh
 from repro_torch.runtime.tp import TPGroup
 
 BACKENDS = ("gloo", "nccl")
@@ -86,7 +92,8 @@ def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
 
 def resolve_backend(tp: int, backend: str | None, device) -> str | None:
     """The backend a ``tp``-rank group on ``device`` uses (None at tp 1):
-    gloo on the CPU, NCCL on the card unless ``backend`` names one.
+    gloo on the CPU and where ranks share a card (fewer cards than
+    ranks), NCCL with a card per rank, unless ``backend`` names one.
     Raises ValueError for tp < 1, an unknown backend, NCCL on the CPU, and
     NCCL with fewer than ``tp`` cards."""
     if tp < 1:
@@ -94,7 +101,9 @@ def resolve_backend(tp: int, backend: str | None, device) -> str | None:
     if tp == 1:
         return None
     dev = torch.device(device)
-    backend = backend or ("gloo" if dev.type == "cpu" else "nccl")
+    if backend is None:
+        backend = ("nccl" if dev.type == "cuda"
+                   and torch.cuda.device_count() >= tp else "gloo")
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
     if backend == "nccl":
@@ -138,15 +147,68 @@ def make_host_mesh(tp: int = 1, *, rank: int = 0,
                    pg=dist.group.WORLD, ctrl=ctrl, ctrl_timeout_s=timeout_s)
 
 
-def _rank_main(fn, rank, tp, init_method, backend, device, threads,
+def make_train_mesh(tp: int = 1, dp: int = 1, *, rank: int = 0,
+                    init_method: str | None = None,
+                    backend: str | None = None, device=None,
+                    timeout_s: float = TIMEOUT_S) -> TrainMesh:
+    """Build (1 x 1) or join (as rank ``rank``) a training mesh of ``dp``
+    data rows by ``tp`` model columns: rank = d * tp + m.  Every rank
+    creates every row's and column's group (``new_group`` is collective)
+    and keeps its own two, plus a gloo ctrl group over all ranks.  Under
+    NCCL rank r runs on ``cuda:r``; under gloo every rank on ``device``."""
+    from repro_torch.runtime.sharding import single_mesh
+    if dp < 1:
+        raise ValueError(f"dp={dp} must be >= 1")
+    world = tp * dp
+    dev = resolve_device(device)
+    backend = resolve_backend(world, backend, dev)
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not in [0, {world})")
+    if world == 1:
+        return single_mesh(dev)
+    if init_method is None:
+        raise ValueError("a mesh of more than one rank needs init_method, "
+                         "the ranks' rendezvous")
+    import torch.distributed as dist
+    if backend == "nccl":
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    d, m = divmod(rank, tp)
+
+    def groups(members: list, mine: int, axis: str) -> TPGroup:
+        pgs = [dist.new_group(ranks) if len(ranks) > 1 else None
+               for ranks in members]
+        size = len(members[mine])
+        return TPGroup(rank=members[mine].index(rank), size=size,
+                       backend=backend if size > 1 else None, device=dev,
+                       pg=pgs[mine], axis=axis)
+    model = groups([list(range(r * tp, (r + 1) * tp)) for r in range(dp)],
+                   d, "model")
+    data = groups([list(range(c, world, tp)) for c in range(tp)], m, "data")
+    ctrl = dist.new_group(backend="gloo", timeout=timeout)
+    return TrainMesh(dp=dp, tp=tp, data=data, model=model, ctrl=ctrl)
+
+
+def _rank_main(fn, rank, tp, dp, init_method, backend, device, threads,
                timeout_s, results, args):
-    """A spawned rank: join the group, run ``fn(group, *args)``, report."""
+    """A spawned rank: join the group (a TP group, or with ``dp`` a
+    training mesh), run ``fn(group, *args)``, report."""
     if threads is not None:
         torch.set_num_threads(threads)
     try:
-        group = make_host_mesh(tp, rank=rank, init_method=init_method,
-                               backend=backend, device=device,
-                               timeout_s=timeout_s)
+        if dp is None:
+            group = make_host_mesh(tp, rank=rank, init_method=init_method,
+                                   backend=backend, device=device,
+                                   timeout_s=timeout_s)
+        else:
+            group = make_train_mesh(tp, dp, rank=rank,
+                                    init_method=init_method,
+                                    backend=backend, device=device,
+                                    timeout_s=timeout_s)
         try:
             out = fn(group, *args)
         finally:
@@ -200,13 +262,16 @@ def _forwarding(signals, proc):
             signal.signal(sig, handler)
 
 
-def spawn(fn: Callable, tp: int, *args, backend: str | None = None,
+def spawn(fn: Callable, tp: int, *args, dp: int | None = None,
+          backend: str | None = None,
           device=None, threads: int | None = None,
           timeout_s: float = TIMEOUT_S,
           deadline_s: float | None = TIMEOUT_S,
           forward_signals: tuple = ()) -> list:
     """``fn(group, *args)`` on ``tp`` fresh processes, one per rank, joined
-    in one TP group; returns each rank's result in rank order.  ``fn`` and
+    in one TP group, or with ``dp`` on ``dp * tp`` processes joined in a
+    training mesh (``group`` is then a ``TrainMesh``); returns each rank's
+    result in rank order.  ``fn`` and
     ``args`` are pickled (tensors through shared memory), so ``fn`` must
     be importable.  ``threads`` sets each rank's intra-op threads,
     ``timeout_s`` the ctrl group's wait (``make_host_mesh``).  The run
@@ -215,17 +280,19 @@ def spawn(fn: Callable, tp: int, *args, backend: str | None = None,
     meanwhile go to rank 0 instead.  Raises if a rank fails (with its
     traceback), exits without a report or outlasts the deadline; every
     process is stopped either way."""
-    if tp < 2:
-        raise ValueError(f"spawn needs tp >= 2, got {tp}")
-    resolve_backend(tp, backend, resolve_device(device))
+    world = tp * (dp or 1)
+    if world < 2:
+        raise ValueError(f"spawn needs at least 2 ranks, got {world}")
+    resolve_backend(world, backend, resolve_device(device))
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
         init = (Path(tmp) / "rendezvous").as_uri()
         procs = [ctx.Process(target=_rank_main, args=(
-                     fn, r, tp, init, backend, device, threads, timeout_s,
-                     results, args), daemon=True) for r in range(tp)]
+                     fn, r, tp, dp, init, backend, device, threads,
+                     timeout_s, results, args), daemon=True)
+                 for r in range(world)]
         try:
             with _forwarding(forward_signals, procs[0]):
                 for p in procs:
@@ -233,7 +300,7 @@ def spawn(fn: Callable, tp: int, *args, backend: str | None = None,
                 out: dict[int, object] = {}
                 deadline = (None if deadline_s is None
                             else time.monotonic() + deadline_s)
-                while len(out) < tp:
+                while len(out) < world:
                     try:
                         rank, ok, value = _report(results, procs, out,
                                                   deadline)
@@ -249,4 +316,4 @@ def spawn(fn: Callable, tp: int, *args, backend: str | None = None,
                 if p.is_alive():
                     p.kill()
                     p.join()
-    return [out[r] for r in range(tp)]
+    return [out[r] for r in range(world)]

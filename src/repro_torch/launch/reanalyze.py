@@ -35,6 +35,8 @@ def main(art_dir: str | None = None) -> int:
         rec["hlo_bytes"] = t["bytes"]
         rec["coll_bytes"] = t["coll_bytes"]
         rec["coll_by_kind"] = t["coll_by_kind"]
+        if "coll_by_axis" in rec:       # a train cell's
+            rec["coll_by_axis"] = t["coll_by_axis"]
         rec["kernel_credits"] = t["kernel_credits"]
         rec["unknown_trip_whiles"] = 0
         with open(jpath, "w") as f:

@@ -205,11 +205,21 @@ def coll_bw(rec: dict) -> float:
     return LINK_BW[rec.get("coll_axis") or "model"]
 
 
+def coll_time(rec: dict) -> float:
+    """Seconds the record's collectives take on their links: each axis's
+    bytes over its link (``coll_by_axis``, a train cell's), else all of
+    them over ``coll_bw``."""
+    if "coll_by_axis" in rec:
+        return sum(sum(kinds.values()) / LINK_BW[axis]
+                   for axis, kinds in rec["coll_by_axis"].items())
+    return rec.get("coll_bytes", 0) / coll_bw(rec)
+
+
 def analyze(rec: dict, cfg) -> Roofline:
     chips = rec["chips"]
     t_c = rec["flops"] / PEAK_FLOPS
     t_m = rec["hlo_bytes"] / HBM_BW
-    t_l = rec.get("coll_bytes", 0) / coll_bw(rec)
+    t_l = coll_time(rec)
     dominant = max(("compute", t_c), ("memory", t_m),
                    ("collective", t_l), key=lambda kv: kv[1])[0]
     mf = model_flops(cfg, rec["kind"], rec["seq_len"], rec["global_batch"])

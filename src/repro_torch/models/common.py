@@ -163,14 +163,28 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int, device,
     return (w * scale).to(dtype)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean NLL; logits (..., V) computed in f32 for stability."""
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL; logits (..., V) computed in f32 for stability."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
-    nll = lse - ll
+    return lse - ll
+
+
+def mean_nll(nll: torch.Tensor, mask: torch.Tensor | None = None,
+             mask_total: torch.Tensor | None = None) -> torch.Tensor:
+    """The mean of ``nll`` over the tokens ``mask`` keeps (all without
+    one).  ``mask_total`` replaces the mask's own token count (a data-
+    parallel rank divides by its share of the global count)."""
     if mask is not None:
         mask = mask.to(torch.float32)
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        total = (torch.clamp(torch.sum(mask), min=1.0) if mask_total is None
+                 else mask_total)
+        return torch.sum(nll * mask) / total
     return torch.mean(nll)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean NLL; logits (..., V) computed in f32 for stability."""
+    return mean_nll(token_nll(logits, labels), mask)

@@ -39,6 +39,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.runtime import tp as tpmod
+from repro_torch.runtime.sharding import gathered
 
 from . import attention as attnmod
 from . import ffn as ffnmod
@@ -47,8 +49,8 @@ from . import moe as moemod
 from . import rglru as rglrumod
 from . import rwkv6 as rwkvmod
 from .common import (LinearCtx, apply_mrope, apply_norm, apply_rope,
-                     cross_entropy, dense_init, linear, norm_params, rms_norm,
-                     sinusoidal_positions)
+                     dense_init, linear, mean_nll, norm_params, rms_norm,
+                     sinusoidal_positions, token_nll)
 from .config import ModelConfig
 
 
@@ -217,16 +219,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     return params
 
 
-def _qk_normalize(p: dict, q, k):
+def _qk_normalize(p: dict, q, k, sliced: bool = False):
+    """Per-head q/k RMS norms; ``sliced``: q and k hold a model-parallel
+    rank's heads, so the shared scales' gradients are summed over the
+    ranks."""
     if "q_norm" in p:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        qs, ks = p["q_norm"], p["k_norm"]
+        if sliced:
+            qs, ks = tpmod.copy_to_model(qs), tpmod.copy_to_model(ks)
+        q = rms_norm(q, qs)
+        k = rms_norm(k, ks)
     return q, k
 
 
 def embed_tokens(cfg: ModelConfig, params: dict,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.to(torch.int64)]
+    return gathered(params["embed"])[tokens.to(torch.int64)]
 
 
 def _ffn_apply(cfg: ModelConfig, lp: dict, h2: torch.Tensor,
@@ -235,6 +243,9 @@ def _ffn_apply(cfg: ModelConfig, lp: dict, h2: torch.Tensor,
     for the others).  RWKV's channel mix here is the sequence form with a
     zero shift register (the serving paths carry theirs)."""
     fk = cfg.ffn_kind()
+    # model-parallel training slices the FFN's wo by input row
+    row = fk in ("glu", "gelu") and tpmod.model_sliced(
+        lp["mlp"]["wo"], cfg.d_ff, axis=0)
     if fk == "moe":
         return moemod.moe_ffn(lp["moe"], h2, n_experts=cfg.moe.n_experts,
                               top_k=cfg.moe.top_k,
@@ -243,9 +254,10 @@ def _ffn_apply(cfg: ModelConfig, lp: dict, h2: torch.Tensor,
     if fk == "cm":
         return rwkvmod.channel_mix(lp["cm"], h2, None, ctx, f"{name}.cm"), 0.0
     if fk == "gelu":
-        return ffnmod.gelu_ffn(lp["mlp"], h2, ctx, f"{name}.mlp"), 0.0
+        return ffnmod.gelu_ffn(lp["mlp"], h2, ctx, f"{name}.mlp",
+                               row_parallel=row), 0.0
     return ffnmod.glu_ffn(lp["mlp"], h2, act=cfg.act, ctx=ctx,
-                          name=f"{name}.mlp"), 0.0
+                          name=f"{name}.mlp", row_parallel=row), 0.0
 
 
 def rotate_qk(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
@@ -266,19 +278,26 @@ def _attn_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, ctx,
               kv_src: torch.Tensor | None = None,
               use_rope: bool = True) -> torch.Tensor:
     """Attention over a whole sequence x (B, S, d): self-attention, or
-    cross-attention over ``kv_src`` (B, T, d) (non-causal, no rotation)."""
+    cross-attention over ``kv_src`` (B, T, d) (non-causal, no rotation).
+    Under model-parallel training (``wo`` sliced by input row) the rank
+    runs its own heads and all-reduces ``wo``'s partial sums."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    row = tpmod.model_sliced(p["wo"], h * hd, axis=0)
+    if row:
+        x = tpmod.copy_to_model(x)
+        h, kv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     src = x if kv_src is None else kv_src
     sk = src.shape[1]
     q = linear(p["wq"], x, ctx, f"{name}.wq").reshape(b, s, h, hd)
     k = linear(p["wk"], src, ctx, f"{name}.wk").reshape(b, sk, kv, hd)
     v = linear(p["wv"], src, ctx, f"{name}.wv").reshape(b, sk, kv, hd)
-    q, k = _qk_normalize(p, q, k)
+    q, k = _qk_normalize(p, q, k, row)
     if use_rope:
         q, k = rotate_qk(cfg, q, k, positions)
     out = attnmod.flash_attention(q, k, v, causal=causal, window=window)
-    return linear(p["wo"], out.reshape(b, s, h * hd), ctx, f"{name}.wo")
+    y = linear(p["wo"], out.reshape(b, s, h * hd), ctx, f"{name}.wo")
+    return tpmod.reduce_from_model(y) if row else y
 
 
 def layer_seq(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
@@ -286,7 +305,10 @@ def layer_seq(cfg: ModelConfig, mixer: str, lp: dict, h: torch.Tensor,
               encoder_out: torch.Tensor | None = None, causal: bool = True):
     """One layer in sequence mode (the reference's ``layer_seq``) ->
     (h, aux_loss).  ``causal=False``: an encoder layer (no window);
-    ``encoder_out``: a decoder layer's cross-attention source."""
+    ``encoder_out``: a decoder layer's cross-attention source.  ``lp`` may
+    be a ZeRO unit (``runtime/sharding.py``), gathered here, inside the
+    layer's checkpoint region."""
+    lp = gathered(lp)
     hn = apply_norm(cfg.norm, h, lp["ln1"])
     if mixer == "attn":
         mix = _attn_seq(cfg, lp["attn"], hn, positions, ctx, f"{name}.attn",
@@ -321,12 +343,20 @@ def _default_positions(cfg: ModelConfig, b: int, s: int, device,
     return pos.expand(b, s)
 
 
+def _scoped_layer(group, *args):
+    with tpmod.scope(group):
+        return layer_seq(*args)
+
+
 def _layer(remat: bool, *args):
     """``layer_seq(*args)``, under ``torch.utils.checkpoint`` with
-    ``remat``."""
+    ``remat``.  The recompute runs in autograd's device thread on the
+    card, which does not see this thread's TP scope, so the scope's group
+    goes in as an argument."""
     if remat:
-        return torch.utils.checkpoint.checkpoint(layer_seq, *args,
-                                                 use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(
+            _scoped_layer, tpmod.current_group(), *args,
+            use_reentrant=False)
     return layer_seq(*args)
 
 
@@ -372,17 +402,22 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         h, aux = _layer(remat, cfg, mixer, lp, h, positions, ctx, f"L{i}",
                         encoder_out)
         aux_total = aux_total + aux
-    h = apply_norm(cfg.norm, h, params["final_norm"])
-    return linear(params["lm_head"], h, ctx, "lm_head"), aux_total
+    h = apply_norm(cfg.norm, h, gathered(params["final_norm"]))
+    head = gathered(params["lm_head"])
+    if tpmod.model_sliced(head, cfg.vocab):     # vocab-parallel training
+        h = tpmod.copy_to_model(h)
+    return linear(head, h, ctx, "lm_head"), aux_total
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
-            ctx: Optional[LinearCtx] = None,
-            remat: bool = False) -> torch.Tensor:
+            ctx: Optional[LinearCtx] = None, remat: bool = False,
+            mask_total: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token NLL (+ the MoE aux loss, which calibration and
     training differentiate through).  batch: tokens (B, S+1) [, mask (B,
     S), positions (B, S+1) or mrope's (3, B, S+1), cut to the inputs' S;
-    enc_embeds (B, T, d)]; ``remat`` as ``forward``'s."""
+    enc_embeds (B, T, d)]; ``remat`` as ``forward``'s; ``mask_total`` as
+    ``common.mean_nll``'s.  Vocab-sliced logits (model-parallel training)
+    take ``runtime/tp.vocab_parallel_nll``."""
     tokens = batch["tokens"]
     inputs = tokens[:, :-1]
     positions = batch.get("positions")
@@ -391,7 +426,12 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     logits, aux = forward(cfg, params, inputs, positions=positions,
                           enc_embeds=batch.get("enc_embeds"), ctx=ctx,
                           remat=remat)
-    loss = cross_entropy(logits, tokens[:, 1:], batch.get("mask"))
+    labels = tokens[:, 1:]
+    if tpmod.model_sliced(logits, cfg.vocab):
+        nll = tpmod.vocab_parallel_nll(logits, labels)
+    else:
+        nll = token_nll(logits, labels)
+    loss = mean_nll(nll, batch.get("mask"), mask_total)
     if cfg.moe is not None:
         loss = loss + cfg.moe.aux_coef * aux
     return loss

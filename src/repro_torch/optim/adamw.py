@@ -11,6 +11,13 @@ Unlike the reference, which returns new trees, ``adamw_update`` updates
 the params and the moments in place (under ``torch.no_grad()``) and returns
 the same trees: at full width a second copy of each would cost its GB.
 Every value stays on the device; nothing is read back to the host.
+
+Under model-parallel training (``runtime/steps.make_train_step(mesh=)``)
+the params, gradients and moments are a rank's ZeRO shards; the update is
+elementwise and runs on them as it is, and ``sq_total`` adds the shards'
+squared norms up over the ranks that hold each leaf
+(``runtime/sharding.TrainLayout.sq_total``), so the clip and ``grad_norm``
+are one device's.
 """
 from __future__ import annotations
 
@@ -36,12 +43,18 @@ def adamw_init(params) -> AdamWState:
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sq_total=None):
     """(grads scaled so their global norm is at most ``max_norm``, the f32
-    norm before scaling); new tensors, the input is left as it was."""
+    norm before scaling); new tensors, the input is left as it was.
+    ``sq_total(squared norms per leaf) -> the global squared norm`` (0-d)
+    replaces their sum when the leaves are shards of a mesh."""
     flat, treedef = flatten(grads)
     f32 = [g.to(torch.float32) for g in flat]
-    gn = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(f32)))
+    norms = torch._foreach_norm(f32)
+    if sq_total is None:
+        gn = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        gn = torch.sqrt(sq_total([n * n for n in norms]))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     scaled = torch._foreach_mul(f32, scale)
     return unflatten(treedef, [s.to(g.dtype) for s, g in zip(scaled, flat)]), gn
@@ -50,10 +63,12 @@ def clip_by_global_norm(grads, max_norm: float):
 @torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, max_grad_norm: float = 1.0):
+                 weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+                 sq_total=None):
     """One AdamW step, in place -> (params, new state, grad norm before the
-    clip).  ``lr`` is a float or a 0-d tensor on the params' device."""
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    clip).  ``lr`` is a float or a 0-d tensor on the params' device;
+    ``sq_total`` as ``clip_by_global_norm``'s."""
+    grads, gnorm = clip_by_global_norm(grads, max_grad_norm, sq_total)
     step = state.step + 1
     stepf = step.to(torch.float32)
     b1c = 1.0 - torch.full_like(stepf, b1).pow(stepf)

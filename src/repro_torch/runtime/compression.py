@@ -20,6 +20,12 @@ leaf is quantized with the scale of it and its counterparts in the list's
 other layers (the max over all of them): the same codes as the
 reference's.  Every other leaf has its own scale.
 
+Under model-parallel training the gradients are a rank's ZeRO shards of
+its tensor-parallel slices; ``compress_decompress_grads(amax_total=)``
+takes each group's largest |g| over every rank that holds a part of it (an
+all-reduce MAX, ``runtime/sharding.TrainLayout.amax_total``), so every
+element's code is one device's.
+
 ``int8_psum`` is the reference's (``repro/runtime/compression.py:61``),
 with a process group in place of a mesh axis name: each rank quantizes its
 tensor, the ranks agree on the largest scale (an all-reduce MAX), every
@@ -76,18 +82,38 @@ def _map_groups(fn: Callable[[list], list], tree_):
                 and v else _map_groups(fn, v)) for k, v in tree_.items()}
 
 
-def _int8_group(gs: list) -> list:
+def _int8_group(gs: list, amax: torch.Tensor | None = None) -> list:
     """A group of leaves through int8 with one shared scale (f32 out); a
-    group that is not floating point passes through."""
+    group that is not floating point passes through.  ``amax``: the
+    group's largest |g| (default: over ``gs``)."""
     if not all(_is_float(g) for g in gs):
         return gs
     gf = [g.to(torch.float32) for g in gs]
-    scale = _scale(gf)
+    scale = (_scale(gf) if amax is None
+             else torch.clamp(amax, min=1e-12) / 127.0)
     return [_roundtrip(x, scale) for x in gf]
 
 
-def compress_decompress_grads(grads):
-    deq = _map_groups(_int8_group, grads)
+def compress_decompress_grads(grads, amax_total: Callable | None = None):
+    """``grads`` through int8, one scale per group.  ``amax_total(amax)``
+    takes the groups' local largest |g| (1-D, in the groups' order) to
+    their global ones (a mesh's shards); without it each group's scale is
+    its own."""
+    if amax_total is None:
+        deq = _map_groups(_int8_group, grads)
+    else:
+        local = []
+
+        def collect(gs):
+            if all(_is_float(g) for g in gs):
+                local.append(torch.stack([torch.max(torch.abs(
+                    g.to(torch.float32))) for g in gs]).max())
+            return gs
+        _map_groups(collect, grads)
+        amax = iter(amax_total(torch.stack(local)) if local else [])
+        deq = _map_groups(lambda gs: _int8_group(
+            gs, next(amax) if all(_is_float(g) for g in gs) else None),
+            grads)
     return tree_map(lambda d, g: d.to(g.dtype) if _is_float(g) else g,
                     deq, grads)
 

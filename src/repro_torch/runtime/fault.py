@@ -13,7 +13,11 @@ The host-side control plane around the train step:
     ``inject_failure``.
   * elasticity: checkpoints are host numpy (``checkpoint/ckpt.py``) and
     the data loader keys batches by step, so a restored run replays the
-    same batches.
+    same batches.  A model-parallel run saves and restores through a
+    ``ShardedCheckpointManager`` (in the one-device format, so a run
+    resumes on a mesh of another shape), and ``agree`` makes the ranks take
+    the straggler watchdog's checkpoint together: a rank's slow step is
+    its own, and a save is collective.
 
 On the card each step's time ends with ``torch.cuda.synchronize()``: the
 port's step returns once its kernels are queued, and without the sync the
@@ -65,12 +69,16 @@ def _sync() -> None:
 class FaultTolerantLoop:
     def __init__(self, step_fn: Callable, ckpt: CheckpointManager,
                  cfg: LoopConfig = LoopConfig(),
-                 inject_failure: Optional[Callable[[int], bool]] = None):
+                 inject_failure: Optional[Callable[[int], bool]] = None,
+                 agree: Optional[Callable[[bool], bool]] = None):
+        """``agree(flag)``: whether ``flag`` holds on any rank of a
+        model-parallel run (called by every rank after every step)."""
         self.step_fn = step_fn
         self.ckpt = ckpt
         self.cfg = cfg
         self.stats = LoopStats()
         self.inject_failure = inject_failure
+        self.agree = agree
         self._slow_streak = 0
 
     def maybe_resume(self, state: Any) -> tuple[Any, int]:
@@ -122,17 +130,21 @@ class FaultTolerantLoop:
                         attempt = 0
             dt = time.perf_counter() - t0
             deadline = self._deadline()
+            evict = False
             if deadline is not None and dt > deadline:
                 self.stats.straggler_events += 1
                 self._slow_streak += 1
                 log.warning("straggler: step %d took %.3fs (deadline %.3fs)",
                             step, dt, deadline)
-                if self._slow_streak >= self.cfg.straggler_patience:
-                    log.warning("straggler streak -- checkpointing for "
-                                "eviction/reschedule")
-                    self.ckpt.save(step, state, {"next_step": step + 1})
-                    self._slow_streak = 0
+                evict = self._slow_streak >= self.cfg.straggler_patience
             else:
+                self._slow_streak = 0
+            if self.agree is not None:
+                evict = self.agree(evict)
+            if evict:
+                log.warning("straggler streak -- checkpointing for "
+                            "eviction/reschedule")
+                self.ckpt.save(step, state, {"next_step": step + 1})
                 self._slow_streak = 0
             self.stats.step_times.append(dt)
             if on_metrics:

@@ -13,6 +13,13 @@ activations at a time instead of every layer's.  (The reference
 checkpoints at the loss boundary, which in PyTorch would recompute the
 whole forward and keep all of it again.)  Either way the numbers do not
 change.
+
+``make_train_step(mesh=)`` runs one rank of a (data dp, model tp) mesh
+(``runtime/sharding.TrainMesh``): its params and moments are the rank's
+ZeRO shards of its tensor-parallel slices (``sharding.TrainLayout``), the
+layers are gathered inside their checkpoint regions, and the step computes
+what one device computes on the global batch, within round-off (the sums
+run in another order): the same loss, grad norm, learning rate and update.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.models import decode as decmod
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
@@ -27,7 +35,9 @@ from repro_torch.optim import adamw_update
 from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.tree import flatten, unflatten
 
+from . import tp as tpmod
 from .compression import compress_decompress_grads
+from .sharding import TrainLayout
 
 
 def _value_and_grad(cfg: ModelConfig, params, batch: dict, remat: bool):
@@ -53,10 +63,20 @@ def _split(batch: dict, microbatches: int) -> list[dict]:
     return [{k: v[i] for k, v in parts.items()} for i in range(microbatches)]
 
 
+def _rank_rows(batch: dict, microbatches: int, dp: int, d: int
+               ) -> list[dict]:
+    """Data-parallel rank ``d``'s rows of each microbatch: of the global
+    batch's microbatch k, its d-th of ``dp`` equal shares.  With one
+    microbatch that is rows d B/dp ... (d+1) B/dp (``batch_specs``'
+    layout); with more, the union over the ranks of their k-th parts is
+    one device's microbatch k, so a masked loss weights the same tokens."""
+    return [_split(part, dp)[d] for part in _split(batch, microbatches)]
+
+
 def make_train_step(cfg: ModelConfig, *, microbatches: int = 1,
                     peak_lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10000, remat: bool = True,
-                    grad_compression: Optional[str] = None):
+                    grad_compression: Optional[str] = None, mesh=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics) with metrics ``loss``, ``grad_norm`` and ``lr``.
 
@@ -65,11 +85,20 @@ def make_train_step(cfg: ModelConfig, *, microbatches: int = 1,
     params' device.  Gradient accumulation: with ``microbatches`` > 1 the
     batch is split on its batch axis, each part runs one forward and
     backward, the f32 gradients and the losses are summed in order and
-    scaled by ``1 / microbatches``.  The learning rate is the cosine schedule at the step
-    the optimizer state holds before the update (0 for the first)."""
+    scaled by ``1 / microbatches``.  The learning rate is the cosine
+    schedule at the step the optimizer state holds before the update (0
+    for the first).
+
+    ``mesh``: a ``runtime/sharding.TrainMesh``; ``params`` and the
+    moments are then this rank's shards (``TrainLayout(cfg, mesh).shard``)
+    and ``batch`` the global batch, of which the rank takes its rows
+    (``_rank_rows``); ``loss`` is the global batch's."""
     if grad_compression not in (None, "int8"):
         raise ValueError(f"grad_compression {grad_compression!r}: None or "
                          "'int8'")
+    if mesh is not None:
+        return _mesh_train_step(cfg, mesh, microbatches, peak_lr, warmup,
+                                total_steps, remat, grad_compression)
 
     def compute_grads(params, batch):
         if microbatches == 1:
@@ -96,6 +125,78 @@ def make_train_step(cfg: ModelConfig, *, microbatches: int = 1,
         params, opt_state, gnorm = adamw_update(params, grads, opt_state, lr)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         return params, opt_state, metrics
+
+    return train_step
+
+
+def _mesh_train_step(cfg, mesh, microbatches, peak_lr, warmup, total_steps,
+                     remat, grad_compression):
+    """One rank's train step on ``mesh`` (see ``make_train_step``).
+
+    Each microbatch's loss is the rank's share of the global one: its
+    tokens' mean (or, with a mask, their masked sum over 1/dp of the
+    microbatch's global token count), so the gathers' backward, a mean
+    over dp, gives the global microbatch's gradient.  The metric is the
+    mean of the ranks' losses over the data group."""
+    layout = TrainLayout(cfg, mesh)
+    dp = mesh.dp
+    amax = layout.amax_total if grad_compression == "int8" else None
+
+    def train_step(params, opt_state, batch):
+        parts = _rank_rows(batch, microbatches, dp, mesh.data.rank)
+        totals = [None] * microbatches
+        if "mask" in batch:
+            counts = torch.stack([torch.sum(p["mask"].to(torch.float32))
+                                  for p in parts])
+            counts = tpmod.all_reduce(counts, mesh.data)
+            totals = list(torch.clamp(counts, min=1.0) / dp)
+        # the layers' shards, gathered in the forward; the root units
+        # gathered once, here
+        flat, treedef = flatten({k: v for k, v in params.items()
+                                 if isinstance(v, list)})
+        roots, rdef = flatten(layout.gather_roots(params))
+        n = len(flat)
+        # every microbatch runs the same ops (the sums start from zero), so
+        # on fake tensors one counts for all (``kernels.repeated``)
+        fake = kernels.is_fake(flat[0])
+        trips = 1 if fake else microbatches
+        loss_acc = flat[0].new_zeros((), dtype=torch.float32)
+        gacc = [p.new_zeros(p.shape, dtype=torch.float32)
+                for p in flat + roots]
+        with tpmod.scope(mesh.model), kernels.repeated(
+                microbatches if fake else 1):
+            for part, total in zip(parts[:trips], totals[:trips]):
+                live = [p.detach().requires_grad_(True)
+                        for p in flat + roots]
+                view = layout.view(unflatten(treedef, live[:n]),
+                                   unflatten(rdef, live[n:]))
+                with torch.enable_grad():
+                    loss = tf.loss_fn(cfg, view, part, remat=remat,
+                                      mask_total=total)
+                    grads = torch.autograd.grad(loss, live,
+                                                materialize_grads=True)
+                loss_acc = loss_acc + loss.detach()
+                torch._foreach_add_(gacc, [g.to(torch.float32)
+                                           for g in grads])
+        del roots, live, view
+        if microbatches > 1:
+            scale = 1.0 / microbatches
+            torch._foreach_mul_(gacc, scale)
+            loss_acc = loss_acc * scale
+        loss = tpmod.all_reduce(loss_acc.reshape(1), mesh.data)[0]
+        if dp > 1:
+            loss = loss / dp
+        grads = unflatten(treedef, gacc[:n])
+        # the root units' summed gradients to their shards, once a step
+        grads.update((k, g) for (k, _), g in layout.scatter_roots(
+            unflatten(rdef, gacc[n:])).items())
+        if grad_compression == "int8":
+            grads = compress_decompress_grads(grads, amax)
+        lr = cosine_schedule(opt_state.step, peak_lr, warmup, total_steps)
+        params, opt_state, gnorm = adamw_update(params, grads, opt_state, lr,
+                                                sq_total=layout.sq_total)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
+                                   "lr": lr}
 
     return train_step
 

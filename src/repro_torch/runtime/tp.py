@@ -102,6 +102,7 @@ class TPGroup:
     pg: Any = None
     ctrl: Any = None
     ctrl_timeout_s: float | None = None
+    axis: str = "model"      # the mesh axis it spans (a dry run's label)
 
 
 _GROUP: contextvars.ContextVar[TPGroup | None] = contextvars.ContextVar(
@@ -119,15 +120,21 @@ def scope(group: TPGroup | None):
         _GROUP.reset(token)
 
 
+def current_group() -> TPGroup | None:
+    """The group of the innermost ``scope`` (None outside one)."""
+    return _GROUP.get()
+
+
 DRYRUN = "dryrun"
 
 
-def dryrun_group(tp: int, device) -> TPGroup:
+def dryrun_group(tp: int, device, axis: str = "model") -> TPGroup:
     """Rank 0 of a ``tp``-rank group that joins no process: its gathers
-    take fake tensors only, return the gathered shape and report the
-    result's bytes to the cost counters (``launch/dryrun.py``)."""
+    and the training collectives below take fake tensors only, return the
+    result's shape and report their bytes to the cost counters under
+    ``axis`` (``launch/dryrun.py``)."""
     return TPGroup(rank=0, size=tp, backend=DRYRUN,
-                   device=torch.device(device))
+                   device=torch.device(device), axis=axis)
 
 
 def _all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -145,7 +152,8 @@ def _all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
         shape = list(x.shape)
         shape[dim] *= group.size
         out = x.new_empty(shape)
-        kernels.collective("all-gather", out.numel() * out.element_size())
+        kernels.collective("all-gather", out.numel() * out.element_size(),
+                           group.axis)
         return out
     send = x.contiguous()
     host = group.backend == "gloo" and send.is_cuda
@@ -277,6 +285,18 @@ def _shard(node, rank: int, tp: int, permute: bool):
     return _take(node, _columns(c, rank, tp, permute))
 
 
+def _walk_leaves(node, names, fn):
+    """``node``'s dicts and lists rebuilt with each leaf (a tensor or a
+    quantized weight) replaced by ``fn(path of keys, leaf)``."""
+    if isinstance(node, dict):
+        return {k: _walk_leaves(v, names + [str(k)], fn)
+                for k, v in node.items()}
+    if isinstance(node, list):
+        return [_walk_leaves(v, names + [str(i)], fn)
+                for i, v in enumerate(node)]
+    return fn(names, node)
+
+
 def prepare_params(cfg, params: dict, rank: int, tp: int) -> dict:
     """This rank's param tree for TP serving: every weight whose plan flag
     is on sliced along its last (output-column) axis, after the gate|up
@@ -288,13 +308,282 @@ def prepare_params(cfg, params: dict, rank: int, tp: int) -> dict:
         return params
     glu_ffn = cfg.ffn_kind() != "gelu"       # fused gate|up wi
 
-    def walk(node, names):
-        if isinstance(node, dict):
-            return {k: walk(v, names + [str(k)]) for k, v in node.items()}
-        if isinstance(node, list):
-            return [walk(v, names + [str(i)]) for i, v in enumerate(node)]
+    def cut(names, node):
         shard, glu = _decision(plan, names)
         if not shard:
             return node
         return _shard(node, rank, tp, glu and glu_ffn)
-    return walk(params, [])
+    return _walk_leaves(params, [], cut)
+
+
+# ------------------------------------------------------- training layout
+#
+# Training weights are dense, so the training layout is the reference's
+# GSPMD rules (``runtime/sharding.py``'s ``_COL_KEYS`` / ``_ROW_KEYS``):
+# wq/wk/wv and the fused gate|up ``wi`` by output column, the attention and
+# FFN ``wo`` by input row, ``lm_head`` by vocab column.  A row-sliced
+# ``wo`` yields a partial sum on each rank, which ``reduce_from_model``
+# all-reduces; ``copy_to_model`` in front of each column-sliced linear
+# all-reduces its input's gradient.  Attention stays all-or-nothing by
+# ``plan_for``, as in serving; a family the plan leaves whole replicates.
+
+def check_trainable(cfg) -> None:
+    """Model-parallel training covers the dense attention decoders: raise
+    for the other families."""
+    fam = ((["MoE"] if cfg.moe is not None else [])
+           + sorted(k.upper() for k in set(cfg.pattern) - {"attn"})
+           + (["encoder-decoder"] if cfg.enc_dec else []))
+    if fam:
+        raise ValueError(
+            f"{cfg.name}: {'/'.join(fam)} model-parallel training waits for "
+            f"ROADMAP Queue 1 item 11 (this slice trains the dense "
+            f"attention decoders)")
+
+
+def train_slice(plan: TPPlan, names: list[str]):
+    """(axis, glu_permute) along which the training layout slices the leaf
+    at path ``names`` over the model axis, or None (replicated)."""
+    key = names[-1] if names else ""
+    if "attn" in names and key in ("wq", "wk", "wv"):
+        return (1, False) if plan.attn else None
+    if "attn" in names and key == "wo":
+        return (0, False) if plan.attn else None
+    if "mlp" in names and key == "wi":
+        return (1, True) if plan.ffn else None
+    if "mlp" in names and key == "wo":
+        return (0, False) if plan.ffn else None
+    if key == "lm_head":
+        return (1, False) if plan.lm_head else None
+    return None                 # embed, norms, q/k norms: replicated
+
+
+def slice_leaf(t: torch.Tensor, axis: int, rank: int, tp: int,
+               permute: bool) -> torch.Tensor:
+    """Rank ``rank``'s slice of ``t`` along ``axis`` (the gate|up
+    interleave first for a fused glu ``wi``)."""
+    n = t.shape[axis]
+    cols = _columns(n, rank, tp, permute)
+    idx = torch.from_numpy(cols).to(t.device)
+    return t.index_select(axis, idx).contiguous()
+
+
+def unslice_leaf(parts: list, axis: int, permute: bool) -> torch.Tensor:
+    """The full leaf from every rank's slice (``slice_leaf``'s inverse)."""
+    full = torch.cat(parts, dim=axis)
+    if not permute:
+        return full
+    inv = np.argsort(_glu_perm(full.shape[axis], len(parts)))
+    return full.index_select(axis, torch.from_numpy(inv).to(full.device))
+
+
+def prepare_train_params(cfg, params: dict, rank: int, tp: int) -> dict:
+    """This rank's param tree for model-parallel training (``rank`` its
+    coordinate on the model axis): every leaf ``train_slice`` names cut to
+    the rank's share, the rest the caller's tensor.  The dense decoders
+    carry no biases; ``q_norm`` / ``k_norm`` act per head with one (hd,)
+    scale, so they replicate (``copy_to_model`` sums their gradients)."""
+    check_trainable(cfg)
+    plan = plan_for(cfg, tp)
+    glu = cfg.ffn_kind() != "gelu"
+
+    def cut(names, leaf):
+        how = train_slice(plan, names)
+        if how is None or tp == 1:
+            return leaf
+        axis, permute = how
+        return slice_leaf(leaf, axis, rank, tp, permute and glu)
+    return _walk_leaves(params, [], cut)
+
+
+def model_sliced(a: torch.Tensor, full: int, axis: int = -1) -> bool:
+    """Whether a plain weight holds a slice of its ``full`` width along
+    ``axis`` (a quantized one never does in training)."""
+    return isinstance(a, torch.Tensor) and a.shape[axis] < full
+
+
+# ------------------------------------------------ training collectives
+
+
+def _group_of(x: torch.Tensor) -> TPGroup:
+    """The scope's group, for a collective on the sliced tensor ``x``."""
+    group = _GROUP.get()
+    if group is None or group.size == 1:
+        raise RuntimeError(f"a sliced tensor {tuple(x.shape)} reached a "
+                           f"model-parallel collective outside a group")
+    return group
+
+
+def _dry(group: TPGroup, x: torch.Tensor, kind: str, shape,
+         nbytes: int) -> torch.Tensor:
+    from repro_torch import kernels
+    if not kernels.is_fake(x):
+        raise RuntimeError("a dry-run group's collectives take fake "
+                           "tensors only")
+    kernels.collective(kind, nbytes, group.axis)
+    return x.new_empty(shape)
+
+
+def _dist_fn(new: str, old: str):
+    """A ``torch.distributed`` function by its current name, or by the name
+    older releases give it."""
+    import torch.distributed as dist
+    return getattr(dist, new, None) or getattr(dist, old)
+
+
+def all_reduce(x: torch.Tensor, group: TPGroup, op: str = "sum"
+               ) -> torch.Tensor:
+    """A new tensor: ``x`` reduced (``op`` "sum" or "max") over ``group``'s
+    ranks; ``x`` itself for a group of one.  Under gloo a CUDA tensor goes
+    through the host."""
+    if group.size == 1:
+        return x
+    nbytes = x.numel() * x.element_size()
+    if group.backend == DRYRUN:
+        return _dry(group, x, "all-reduce", x.shape, nbytes)
+    import torch.distributed as dist
+    from repro_torch import kernels
+    kernels.collective("all-reduce", nbytes, group.axis)
+    host = group.backend == "gloo" and x.is_cuda
+    y = x.detach().to("cpu") if host else x.detach().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group.pg)
+    return y.to(x.device) if host else y
+
+
+def all_gather_flat(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """(n,) on each rank -> (size * n,): the ranks' ``x`` in rank order."""
+    out_shape = (group.size * x.numel(),)
+    nbytes = group.size * x.numel() * x.element_size()
+    if group.size == 1:
+        return x.reshape(-1)
+    if group.backend == DRYRUN:
+        return _dry(group, x, "all-gather", out_shape, nbytes)
+    from repro_torch import kernels
+    kernels.collective("all-gather", nbytes, group.axis)
+    host = group.backend == "gloo" and x.is_cuda
+    send = x.detach().reshape(-1)
+    send = send.to("cpu") if host else send.contiguous()
+    out = send.new_empty(out_shape)
+    _dist_fn("all_gather_single", "all_gather_into_tensor")(
+        out, send, group=group.pg)
+    return out.to(x.device) if host else out
+
+
+def gather_flat_to_root(x: torch.Tensor, group: TPGroup):
+    """(n,) on each rank -> (size * n,) on the group's rank 0, the ranks'
+    ``x`` in rank order; None on the others."""
+    if group.size == 1:
+        return x.reshape(-1)
+    import torch.distributed as dist
+    from repro_torch import kernels
+    nbytes = group.size * x.numel() * x.element_size()
+    kernels.collective("gather", nbytes, group.axis)
+    host = group.backend == "gloo" and x.is_cuda
+    send = x.detach().reshape(-1)
+    send = send.to("cpu") if host else send.contiguous()
+    parts = ([torch.empty_like(send) for _ in range(group.size)]
+             if group.rank == 0 else None)
+    dist.gather(send, gather_list=parts,
+                dst=dist.get_global_rank(group.pg, 0), group=group.pg)
+    if parts is None:
+        return None
+    out = torch.cat(parts)
+    return out.to(x.device) if host else out
+
+
+def reduce_scatter_flat(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """(size * n,) on each rank -> (n,): rank r's part of the sum over the
+    ranks."""
+    n = x.numel() // group.size
+    if group.size == 1:
+        return x.reshape(-1)
+    nbytes = x.numel() * x.element_size()
+    if group.backend == DRYRUN:
+        return _dry(group, x, "reduce-scatter", (n,), nbytes)
+    import torch.distributed as dist
+    from repro_torch import kernels
+    kernels.collective("reduce-scatter", nbytes, group.axis)
+    host = group.backend == "gloo" and x.is_cuda
+    send = x.detach().reshape(-1)
+    send = send.to("cpu") if host else send.contiguous()
+    out = send.new_empty((n,))
+    _dist_fn("reduce_scatter_single", "reduce_scatter_tensor")(
+        out, send, op=dist.ReduceOp.SUM, group=group.pg)
+    return out.to(x.device) if host else out
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, all-reduce over the model group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce over the model group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """In front of a column-sliced linear (or a replicated scale applied to
+    sliced heads): each rank's gradient of ``x`` covers its own columns,
+    so the backward sums them over the scope's model group."""
+    return _CopyToModel.apply(x, _group_of(x))
+
+
+def reduce_from_model(y: torch.Tensor) -> torch.Tensor:
+    """After a row-sliced linear: the ranks' partial sums added up."""
+    return _ReduceFromModel.apply(y, _group_of(y))
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token NLL over vocab-sliced logits: the max and the sum of
+    exponentials all-reduced over the model group, the target's logit from
+    the rank that holds it; the backward is softmax - onehot on each
+    rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group):
+        lf = logits.to(torch.float32)
+        v = lf.shape[-1]
+        m = all_reduce(torch.amax(lf, dim=-1), group, "max")
+        e = torch.exp(lf - m[..., None])
+        se = all_reduce(torch.sum(e, dim=-1), group)
+        local = labels.to(torch.int64) - group.rank * v
+        inside = (local >= 0) & (local < v)
+        idx = torch.where(inside, local, torch.zeros_like(local))
+        tl = torch.gather(lf, -1, idx[..., None])[..., 0]
+        tl = all_reduce(torch.where(inside, tl, torch.zeros_like(tl)), group)
+        nll = torch.log(se) + m - tl
+        e.div_(se[..., None])
+        ctx.save_for_backward(e, idx, inside)
+        ctx.dtype = logits.dtype
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, inside = ctx.saved_tensors
+        grad = p * g[..., None]
+        hit = torch.where(inside, g, torch.zeros_like(g))
+        grad.scatter_add_(-1, idx[..., None], -hit[..., None])
+        return grad.to(ctx.dtype), None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """(..., V/tp) logits of this rank's vocab slice -> the full
+    vocabulary's per-token NLL (...), f32, the same on every rank."""
+    return _VocabParallelNLL.apply(logits, labels, _group_of(logits))

@@ -7,12 +7,27 @@ every registry config (the port builds the params on fake tensors, the
 reference by ``jax.eval_shape``).  ``analyze`` equals the reference's on
 the same record when the hardware constants are the reference's.
 ``run_cell`` on tiny configs (``device="cpu"``, a (2, 2) mesh) writes
-the reference's record keys for the serve shapes and skips where the
-reference skips (long_500k on full-attention archs) and where the port
-does not run (train_4k: model-parallel training is not ported);
-``memory.argument`` equals the bytes of the rank's tensors; the CLI
-refuses the variants that need ``runtime/actsharding.py``; ``report``
-renders and ``reanalyze`` reproduces a record from its op trace.
+the reference's record keys for the serve shapes and the dense decoders'
+train_4k cells, and skips where the reference skips (long_500k on
+full-attention archs) and where the port does not run yet (the train
+cells of the MoE, MLA, RWKV6, RG-LRU and Whisper families, ROADMAP Queue
+1 item 11); ``memory.argument`` equals the bytes of the rank's tensors;
+the CLI refuses the variants that need ``runtime/actsharding.py``;
+``report`` renders and ``reanalyze`` reproduces a record from its op
+trace.
+
+A train cell is rank 0 of the model-parallel train step: at data 2 x
+model 2 its matmul flops times the four ranks equal the 1 x 1 count at
+the same global batch (tiny llama2 and qwen2-vl shard attention, the FFN
+and the head, so no term is replicated), with data-axis all-gathers and
+reduce-scatters and model-axis all-reduces.  At 1 x 1 tiny llama2's
+counted step is held against the reference's ``analyze_hlo`` of its
+jitted ``make_train_step`` on one CPU device: without remat they are
+equal; with remat the reference counts two named terms more, the
+``lm_head`` forward (its remat at the loss boundary recomputes the whole
+forward; the port's per-layer remat leaves the head alone) and each
+layer's FFN ``wo`` forward (the port's recompute stops once the backward
+has what it saved: the layer's last GEMM is not recomputed).
 """
 import dataclasses
 import functools
@@ -24,15 +39,32 @@ import pytest
 torch = pytest.importorskip("torch")
 from _torch_threads import one_torch_thread  # noqa: E402,F401
 
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from helpers import tiny  # noqa: E402
+
 from repro.configs import registry as jreg  # noqa: E402
 from repro.launch import roofline as jroof  # noqa: E402
+from repro.launch.hlocost import analyze_hlo  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro.optim import adamw_init as jinit  # noqa: E402
+from repro.runtime import steps as jsteps  # noqa: E402
 from repro_torch.configs.registry import (ARCH_IDS, get_config,  # noqa: E402
                                           get_tiny)
-from repro_torch.launch import dryrun, reanalyze, report  # noqa: E402
+from repro_torch.launch import dryrun, hlocost, reanalyze, report  # noqa
 from repro_torch.launch import roofline as troof  # noqa: E402
 from repro_torch.launch.mesh import ProductionMesh  # noqa: E402
+from repro_torch.models import transformer as ttf  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.runtime import sharding  # noqa: E402
+from repro_torch.runtime import steps as tsteps  # noqa: E402
 
 MESH = ProductionMesh(("data", "model"), (2, 2))
+ONE = ProductionMesh(("data", "model"), (1, 1))
+# the train cells the port does not count yet, one per family
+TRAIN_SKIPS = {"mixtral-8x7b": "MoE", "deepseek-v2-236b": "MoE/MLA",
+               "rwkv6-3b": "RWKV", "recurrentgemma-2b": "RGLRU",
+               "whisper-large-v3": "encoder-decoder"}
 # the reference's count_params traces the full-width init on every call
 _ref_counts = functools.lru_cache(maxsize=None)(jroof.count_params)
 
@@ -93,9 +125,9 @@ def test_run_cell_records_the_reference_keys(tmp_path):
                 with open(os.path.join(art, tag + ".json")) as f:
                     assert json.load(f) == rec
                 cfg = get_tiny(arch)
-                if shape == "train_4k":
+                if shape == "train_4k" and arch in TRAIN_SKIPS:
                     assert rec["status"] == "skip"
-                    assert "ROADMAP Queue 1 item 10" in rec["reason"]
+                    assert "ROADMAP Queue 1 item 11" in rec["reason"]
                 elif shape == "long_500k" and not cfg.subquadratic:
                     assert rec["status"] == "skip"
                     assert rec["reason"].startswith(
@@ -107,6 +139,13 @@ def test_run_cell_records_the_reference_keys(tmp_path):
                                                   "temp", "peak"}
                     assert rec["flops"] > 0 and rec["hlo_bytes"] > 0
                     assert rec["chips"] == 4 and rec["tp"] == 2
+    # the train cell's collectives: ZeRO's over data, TP's over model
+    train = seen["llama2-7b", "train_4k", None]
+    assert set(train["coll_by_axis"]["data"]) >= {"all-gather",
+                                                  "reduce-scatter"}
+    assert set(train["coll_by_axis"]["model"]) == {"all-reduce"}
+    assert train["batch"] == 256 // 2 and train["microbatches"] == 4
+    assert seen["llama2-7b", "train_4k", 4]["flops"] == train["flops"]
     # tp 2 shards llama2's heads and vocab: its gathers cross the model axis
     dec = seen["llama2-7b", "decode_32k", None]
     assert dec["coll_bytes"] > 0 and dec["batch"] == 128 // 2
@@ -187,3 +226,62 @@ def test_report_renders_and_reanalyze_reproduces(tmp_path, capsys):
     with open(path) as f:
         after = json.load(f)
     assert after == before
+
+
+@pytest.mark.parametrize("arch", ("llama2-7b", "qwen2-vl-2b"))
+def test_train_cell_flops_split_over_the_ranks(arch, tmp_path):
+    recs = {m.name: dryrun.run_cell(arch, "train_4k", mesh=m, tiny=True,
+                                    device="cpu", art_dir=_art(tmp_path),
+                                    microbatches=2)
+            for m in (MESH, ONE)}
+    two, one = recs["2x2"], recs["1x1"]
+    assert two["status"] == one["status"] == "ok"
+    # no term is replicated over the model axis: every family is sharded
+    assert all(two["tp_plan"][k] for k in ("attn", "ffn", "lm_head"))
+    assert two["flops"] * 4 == one["flops"]
+    assert one["coll_bytes"] == 0 and two["coll_by_axis"]["model"][
+        "all-reduce"] > 0
+    cfg = get_tiny(arch)
+    # the data axis gathers every rank's share of the params: forward,
+    # the layers' recompute and the head's; a layer's gather in bf16
+    assert two["coll_by_axis"]["data"]["all-gather"] > 0
+    assert two["batch"] == 128 and cfg.n_layers >= 2
+
+
+@pytest.mark.parametrize("arch", sorted(TRAIN_SKIPS))
+def test_train_cells_of_the_other_families_skip(arch, tmp_path):
+    rec = dryrun.run_cell(arch, "train_4k", mesh=MESH, tiny=True,
+                          device="cpu", art_dir=_art(tmp_path))
+    assert rec["status"] == "skip"
+    assert rec["reason"].startswith(f"SKIP: {TRAIN_SKIPS[arch]} "
+                                    "model-parallel training waits for "
+                                    "ROADMAP Queue 1 item 11")
+
+
+B_TRAIN, S_TRAIN = 4, 32
+
+
+@pytest.mark.parametrize("remat", (False, True))
+def test_train_step_flops_against_the_reference(remat):
+    """Tiny llama2's 1 x 1 counted train step (microbatches 2) against the
+    reference's ``analyze_hlo`` (see the module docstring)."""
+    jcfg = tiny("llama2-7b")
+    jp = jax.eval_shape(lambda: jtf.init_params(jcfg, jax.random.PRNGKey(0)))
+    batch = {"tokens": jax.ShapeDtypeStruct((B_TRAIN, S_TRAIN + 1),
+                                            jnp.int32)}
+    step = jsteps.make_train_step(jcfg, microbatches=2, remat=remat)
+    ref = analyze_hlo(jax.jit(step).lower(jp, jax.eval_shape(jinit, jp),
+                                          batch).compile().as_text())
+    cfg = get_tiny("llama2-7b")
+    mesh = sharding.single_mesh("cpu")
+    shards = sharding.TrainLayout(cfg, mesh).shard(
+        ttf.init_params(cfg, device="cpu"))
+    got = hlocost.analyze(
+        tsteps.make_train_step(cfg, microbatches=2, remat=remat, mesh=mesh),
+        shards, adamw_init(shards),
+        {"tokens": torch.zeros(B_TRAIN, S_TRAIN + 1, dtype=torch.int32)})
+    n = B_TRAIN * S_TRAIN
+    head_fwd = 2 * n * cfg.d_model * cfg.vocab
+    ffn_wo_fwd = 2 * n * cfg.d_ff * cfg.d_model
+    named = head_fwd + cfg.n_layers * ffn_wo_fwd if remat else 0
+    assert ref["flops"] - got["flops"] == named, (ref["flops"], got["flops"])

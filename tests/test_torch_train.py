@@ -242,6 +242,36 @@ def test_train_cli_on_the_host(capsys):
                         r"in \d+s", out[-1])
 
 
+def test_train_cli_on_a_mesh(capfd, tmp_path):
+    """``--tp 2 --dp 2``: four spawned ranks, rank 0 prints the report
+    lines, the losses equal ``--tp 1 --dp 1``'s within LOSS_RTOL, and
+    ``--ckpt-dir`` leaves a one-device checkpoint; a mesh that does not
+    divide the heads, the batch or the microbatches is refused."""
+    argv = ["--device", "cpu", "--tiny", "--arch", "qwen3-0.6b", "--steps",
+            "3", "--batch", "4", "--seq", "16", "--microbatches", "2"]
+    one = ttrain.main(argv)
+    capfd.readouterr()
+    mesh = ttrain.main(argv + ["--tp", "2", "--dp", "2",
+                               "--ckpt-dir", str(tmp_path)])
+    out = capfd.readouterr().out.strip().splitlines()
+    assert len([ln for ln in out if ln.startswith("step ")]) == 1
+    assert re.fullmatch(r"step +0 loss \d+\.\d{4} gnorm \d+\.\d{3} \d+ms",
+                        out[0])
+    assert re.fullmatch(r"trained qwen3-tiny: loss \d+\.\d{3} -> "
+                        r"\d+\.\d{3} in \d+s", out[-1])
+    np.testing.assert_allclose(mesh, one, rtol=LOSS_RTOL)
+    assert os.listdir(tmp_path) == ["ckpt_0000000003.npz"]
+    for flags, msg in ((["--tp", "3"], "does not divide qwen3-tiny's 4 "
+                        "heads and 2 KV heads"),
+                       (["--dp", "3"], "--batch 4 does not split"),
+                       (["--dp", "2", "--microbatches", "3"],
+                        "--batch 4 does not split")):
+        with pytest.raises(SystemExit) as e:
+            ttrain.main(argv[:-2] + flags)
+        assert e.value.code == 2
+        assert msg in capfd.readouterr().err
+
+
 def test_train_needs_a_card_unless_asked_for_the_host():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
