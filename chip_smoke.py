@@ -199,13 +199,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      model 2) mesh of four ranks (``launch.mesh.spawn(dp=)``) that share
      this card over gloo: ZeRO-3 shards over data, tensor parallelism over
      model (``runtime/steps.make_train_step(mesh=)``); global batch 4 x
-     256 in 2 microbatches, 3 steps with grad_compression off and int8,
-     each step from one rank's state held to that rank's step (loss,
-     grad norm, lr, every param and moment element of every shard; the
-     tolerances at MP_TREE_TOL say why); host ms a step, the collectives'
-     share of it and their bytes a step by axis (no speed claim: gloo
-     through the host); the mesh's checkpoint restored on one rank here,
-     its next step's loss equal to the mesh's;
+     256 in 2 microbatches, TRAIN_MP_STEPS = 2 steps with
+     grad_compression off and int8, each step from one rank's state held
+     to that rank's step (loss, grad norm, lr, every param and moment
+     element of every shard; the tolerances at MP_TREE_TOL say why); host
+     ms a step, the collectives' share of it and their bytes a step by
+     axis (no speed claim: gloo through the host); the mesh's checkpoint
+     restored on one rank here, its next step's loss equal to the
+     mesh's; then the Mixtral leg on the same ranks
+     (``train_mp_moe_rank``): mixtral-8x7b at its published width cut to
+     1 layer, experts whole over model (4 a rank), 2 x 256 tokens, 2
+     steps, each from one device's state, held to one device's step by
+     the same rules, the data ranks' dropped assignments adding up to one
+     device's;
  15. a ``{"kernels": [...]}`` line (each kernel's launches per path, each
      path's runs counted from zero), the phases' seconds, the nvidia-smi
      line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -3792,9 +3798,11 @@ _WHISPER_DEPTH = [32]          # main() sets WHISPER_LAYERS for the whole run
 # qwen2-vl-2b's depth in the whole run: QWEN2_VL_LAYERS of its 28 layers
 # (published widths).  At 28 the phase took 99.3 s of an 846.7 s whole
 # run and 158.7 s of a 1210.2 s one on a slower host, past the 1200 s
-# limit once the tensor-parallel phase joined (H100 80GB HBM3, 700 W);
-# --mrope-whisper keeps all 28.
-QWEN2_VL_LAYERS = 14
+# limit once the tensor-parallel phase joined, 66.7 s at 14 and 37.2 s
+# at 7 (H100 80GB HBM3, 700 W); 4 pays, with TRAIN_LAYERS, for the
+# model-parallel training phase's Mixtral leg; --mrope-whisper keeps all
+# 28.
+QWEN2_VL_LAYERS = 4
 _QWEN2_VL_DEPTH = [28]         # main() sets QWEN2_VL_LAYERS for the whole run
 WHISPER_BATCH = 4              # decoder prompts, each over its own clip
 WHISPER_PROMPT = 64            # decoder prompt tokens before GEN_LEN new
@@ -4108,10 +4116,13 @@ SMOKE_TRAIN_STEPS = 30
 # the whole run also cuts qwen3-0.6b to TRAIN_LAYERS of its 28 layers
 # (published widths): at 28 its phase took 321.4 and 344.8 s of whole runs
 # of 1225.6 and 1173.4 s on slow hosts (H100 80GB HBM3, 700 W), past or
-# at the 1200 s limit, and 144.1 s at 14 on a fast host; 8 pays for
+# at the 1200 s limit, and 144.1 s at 14 on a fast host; 8 paid for
 # the model-parallel training phase (``train_mp_phase``, 86.1 s on its own)
-# and the dry-run's train cell; --train keeps all 28
-TRAIN_LAYERS = 8
+# and the dry-run's train cell (89.2 s at 8 on an H100 80GB HBM3 at 700
+# W), 2 for that phase's Mixtral leg (72.1 s at 4 in a 930.9 s whole run
+# on a host 1.08x that one), with two qwen3 steps a mode there instead of
+# three; --train keeps all 28
+TRAIN_LAYERS = 2
 _TRAIN_DEPTH = [28]            # main() sets TRAIN_LAYERS for the whole run
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, TRAIN_WARMUP = 8, 256, 2e-3, 20
 TRAIN_LOG = 10
@@ -4756,7 +4767,7 @@ def train_main(dev, smi) -> int:
 # off and int8, each held to the same steps on one rank of the card
 TRAIN_MP_LAYERS = 2
 TRAIN_MP_DP, TRAIN_MP_TP = 2, 2
-TRAIN_MP_BATCH, TRAIN_MP_SEQ, TRAIN_MP_MB, TRAIN_MP_STEPS = 4, 256, 2, 3
+TRAIN_MP_BATCH, TRAIN_MP_SEQ, TRAIN_MP_MB, TRAIN_MP_STEPS = 4, 256, 2, 2
 TRAIN_MP_LR, TRAIN_MP_WARMUP = TRAIN_LR, 2      # the training protocol's
 TRAIN_MP_DIR = ROOT / "build" / "train_mp_ckpt"
 # Each mesh step starts from the one-rank run's state (every rank runs
@@ -4782,10 +4793,36 @@ MP_LOSS_RTOL, MP_GNORM_RTOL, MP_LR_RTOL = 1e-5, 1e-4, 1e-6
 MP_TREE_TOL, MP_INT8_OFF, MP_OFF = 1e-3, 5e-3, 1e-6
 
 
+# The phase's Mixtral leg: mixtral-8x7b at its published widths (d_model
+# 4096, 32 heads over 8 KV at hd 128, 8 experts of d_ff 14336, top-2,
+# vocab 32000) cut to TRAIN_MP_MOE_LAYERS layer: 1.713e9 fp32 params (6.85
+# GB; the experts 1.409e9), on the same mesh, experts whole over the
+# model axis (4 a rank) and the router's expert counts gathered over the
+# data axis (``models/moe.py``); a global batch of TRAIN_MP_MOE_BATCH x
+# TRAIN_MP_MOE_SEQ in one microbatch at the published capacity factor,
+# TRAIN_MP_MOE_STEPS steps with grad_compression off, each from one
+# device's state.  One device's state with its gradients and AdamW's
+# temporaries takes about 50 GB of the card and the mesh about 60, so no
+# rank keeps one: the ranks take turns with the card to themselves
+# (``in_turns``), each running one device's steps from the seeded init
+# and keeping its shards of the result, while the others hold theirs in
+# host memory.
+TRAIN_MP_MOE_ARCH = "mixtral-8x7b"
+TRAIN_MP_MOE_LAYERS = 1
+TRAIN_MP_MOE_BATCH, TRAIN_MP_MOE_SEQ, TRAIN_MP_MOE_STEPS = 2, 256, 2
+
+
+def cut_config(arch: str, layers: int):
+    cfg = get_config(arch)
+    return cfg.with_(n_layers=layers, mixer_pattern=cfg.mixer_pattern[:layers])
+
+
 def train_mp_config():
-    return get_config(TRAIN_ARCH).with_(
-        n_layers=TRAIN_MP_LAYERS,
-        mixer_pattern=get_config(TRAIN_ARCH).mixer_pattern[:TRAIN_MP_LAYERS])
+    return cut_config(TRAIN_ARCH, TRAIN_MP_LAYERS)
+
+
+def train_mp_moe_config():
+    return cut_config(TRAIN_MP_MOE_ARCH, TRAIN_MP_MOE_LAYERS)
 
 
 def train_mp_params(cfg, dev) -> dict:
@@ -4794,8 +4831,8 @@ def train_mp_params(cfg, dev) -> dict:
                           device=dev)
 
 
-def train_mp_step(cfg, comp, mesh=None):
-    return make_train_step(cfg, microbatches=TRAIN_MP_MB,
+def train_mp_step(cfg, comp, mesh=None, microbatches=TRAIN_MP_MB):
+    return make_train_step(cfg, microbatches=microbatches,
                            peak_lr=TRAIN_MP_LR, warmup=TRAIN_MP_WARMUP,
                            total_steps=TRAIN_MP_STEPS + 2,
                            grad_compression=comp, mesh=mesh)
@@ -4807,22 +4844,35 @@ def mp_metrics(m) -> dict:
 
 def mp_shard_errors(layout, got, want_full) -> dict:
     """This rank's shards ``got`` (params, AdamWState) against its shards
-    of the one-device state ``want_full``: per tree the elements past
+    of the one-device state ``want_full`` (``shard_errors``)."""
+    return shard_errors(got, layout.shard_state(want_full),
+                        leaf_scales(want_full))
+
+
+def leaf_scales(state) -> dict:
+    """Each leaf's largest |value| (1.0 for a zero leaf) by tree of a
+    one-device (params, AdamWState)."""
+    return {name: [float(t.abs().max()) or 1.0 for t in ptree.leaves(tree)]
+            for name, tree in (("params", state[0]), ("mu", state[1].mu),
+                               ("nu", state[1].nu))}
+
+
+def shard_errors(got, want, scales) -> dict:
+    """Shards ``got`` against shards ``want`` (both (params, AdamWState))
+    with their full leaves' ``scales``: per tree the elements past
     MP_TREE_TOL of their full leaf's largest |value| (in all and by leaf),
     the compared elements, the worst ratio and the largest |error|."""
     from repro_torch.runtime.sharding import _leaf_paths
-    want = layout.shard_state(want_full)
     out = {}
-    for name, g, w, full in (("params", got[0], want[0], want_full[0]),
-                             ("mu", got[1].mu, want[1].mu, want_full[1].mu),
-                             ("nu", got[1].nu, want[1].nu, want_full[1].nu)):
+    for name, g, w in (("params", got[0], want[0]),
+                       ("mu", got[1].mu, want[1].mu),
+                       ("nu", got[1].nu, want[1].nu)):
         off = n = 0
         worst = move = 0.0
         by_leaf = {}
-        for path, a, b, f in zip(_leaf_paths(full), ptree.leaves(g),
-                                 ptree.leaves(w), ptree.leaves(full)):
-            err = (a.float() - b.float()).abs()
-            scale = float(f.abs().max()) or 1.0
+        for path, a, b, scale in zip(_leaf_paths(g), ptree.leaves(g),
+                                     ptree.leaves(w), scales[name]):
+            err = (a.float() - b.to(a.device).float()).abs()
             k = int((err > MP_TREE_TOL * scale).sum())
             if k:
                 by_leaf[".".join(path)] = k
@@ -4862,14 +4912,128 @@ def timed_collectives(seconds: dict):
             setattr(tpmod, n, f)
 
 
-def train_mp_rank(tmesh, batches: list) -> dict:
+def state_to(state, device):
+    """(params, AdamWState) with every tensor moved to ``device``."""
+    params, opt = state
+
+    def move(tree):
+        return ptree.tree_map(lambda t: t.to(device), tree)
+    return move(params), opt._replace(step=opt.step.to(device),
+                                      mu=move(opt.mu), nu=move(opt.nu))
+
+
+def in_turns(tmesh, fn):
+    """``fn()`` on one rank at a time, in rank order, each with the card
+    to itself but for what the others hold (each frees its cached blocks
+    first) -> this rank's result."""
+    torch.cuda.empty_cache()
+    tmesh.barrier()
+    out = None
+    for r in range(tmesh.size):
+        if r == tmesh.rank:
+            out = fn()
+            torch.cuda.empty_cache()
+        tmesh.barrier()
+    return out
+
+
+def train_mp_moe_rank(tmesh, batches: list) -> dict:
+    """The Mixtral leg on one rank: from its shards of the seeded init,
+    TRAIN_MP_MOE_STEPS mesh steps (the first counted by
+    ``hlocost.CostCounter`` for its collective bytes, the others timed),
+    each held shard by shard (``shard_errors``) to one device's step from
+    the same state.  After the first mesh step each rank in its turn
+    (``in_turns``) runs one device's steps from the seeded init: it holds
+    its first result to that, and keeps on the host its shards of one
+    device's state after each step but the last (the next mesh step's
+    input) and after each later one, with its leaves' scales (that mesh
+    step's target).  Returns the rank's report, with
+    the MoE's dropped assignments of each mesh step and of one device's
+    (the recompute's included in both), and the seconds of the turns."""
+    from repro_torch.runtime.sharding import TrainLayout
+    t_leg = time.monotonic()
+    dev = tmesh.device
+    cfg = train_mp_moe_config()
+    layout = TrainLayout(cfg, tmesh)
+    step = train_mp_step(cfg, None, tmesh, microbatches=1)
+    one_step = train_mp_step(cfg, None, microbatches=1)
+    dev_batches = [{"tokens": torch.from_numpy(b).to(dev)} for b in batches]
+    shards = layout.shard(train_mp_params(cfg, dev))
+    state = (shards, adamw_init(shards))
+    del shards
+    run = {"metrics": [], "one_device": [], "host_ms": [], "errors": [],
+           "dropped": [], "one_device_dropped": [], "peak_gib": []}
+    inputs, targets = {}, {}
+    coll_s = {}
+    for i, b in enumerate(dev_batches):
+        if i:
+            state = state_to(inputs.pop(i), dev)
+        dropped = torch.zeros((), dtype=torch.int64, device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with (hlocost.CostCounter() if i == 0
+              else timed_collectives(coll_s)) as cc, \
+                moemod.count_overflow(dropped):
+            p, o, m = step(*state, b)
+        torch.cuda.synchronize(dev)
+        run["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        run["peak_gib"].append(torch.cuda.max_memory_allocated(dev) / 2**30)
+        run["metrics"].append(mp_metrics(m))
+        run["dropped"].append(int(dropped))
+        del state, m
+        if i == 0:
+            counted = cc.totals()
+            got = state_to((p, o), "cpu")
+            del p, o
+
+            def turn():
+                t1 = time.monotonic()
+                full = train_mp_params(cfg, dev)
+                ostate = (full, adamw_init(full))
+                del full
+                for k, ob in enumerate(dev_batches, start=1):
+                    d = torch.zeros((), dtype=torch.int64, device=dev)
+                    with moemod.count_overflow(d):
+                        op, oo, om = one_step(*ostate, ob)
+                    ostate = (op, oo)
+                    run["one_device"].append(mp_metrics(om))
+                    run["one_device_dropped"].append(int(d))
+                    mine = layout.shard_state(ostate)
+                    if k == 1:
+                        errs = shard_errors(state_to(got, dev), mine,
+                                            leaf_scales(ostate))
+                    else:
+                        targets[k] = (state_to(mine, "cpu"),
+                                      leaf_scales(ostate))
+                    if k < len(dev_batches):
+                        inputs[k] = state_to(mine, "cpu")
+                    del mine
+                return errs, time.monotonic() - t1
+            err, run["turn_s"] = in_turns(tmesh, turn)
+            del got
+        else:
+            want, scales = targets.pop(i + 1)
+            err = shard_errors((p, o), want, scales)
+            del p, o, want
+        run["errors"].append(err)
+        torch.cuda.empty_cache()
+    run.update(coll_by_axis=counted["coll_by_axis"], flops=counted["flops"],
+               coll_ms_a_step={k: v * 1e3 / (TRAIN_MP_MOE_STEPS - 1)
+                               for k, v in coll_s.items()},
+               leg_s=time.monotonic() - t_leg)
+    return run
+
+
+def train_mp_rank(tmesh, batches: list, moe_batches: list) -> dict:
     """One rank of the train_mp phase: for grad_compression off and int8,
     TRAIN_MP_STEPS steps of one rank's run here, and before each one the
     mesh's step from its state (the first counted by
     ``hlocost.CostCounter`` for its collective bytes, the others timed),
     held to it shard by shard (``mp_shard_errors``).  With compression off
     the mesh then writes its checkpoint (``ShardedCheckpointManager``) and
-    takes one step more.  Returns the rank's report."""
+    takes one step more.  Then the Mixtral leg (``train_mp_moe_rank``).
+    Returns the rank's report."""
     from repro_torch.checkpoint import ShardedCheckpointManager
     from repro_torch.runtime.sharding import TrainLayout
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4917,6 +5081,95 @@ def train_mp_rank(tmesh, batches: list) -> dict:
         out["off" if comp is None else comp] = run
         del mstate, ostate, one
         torch.cuda.empty_cache()
+    del full
+    out["moe"] = train_mp_moe_rank(tmesh, moe_batches)
+    return out
+
+
+def summed_errors(ranks, name: str, steps: int) -> list:
+    """Every rank's comparisons of run ``name``, added up step by step (a
+    leaf replicated over the model axis is compared on each of its
+    holders)."""
+    errs = []
+    for i in range(steps):
+        tot = {}
+        for r in ranks:
+            for tree, e in r[name]["errors"][i].items():
+                t = tot.setdefault(tree, {"off": 0, "elements": 0,
+                                          "worst_ratio": 0.0,
+                                          "max_move": 0.0,
+                                          "off_by_leaf": {}})
+                t["off"] += e["off"]
+                t["elements"] += e["elements"]
+                t["worst_ratio"] = max(t["worst_ratio"], e["worst_ratio"])
+                t["max_move"] = max(t["max_move"], e["max_move"])
+                for k, v in e["off_by_leaf"].items():
+                    t["off_by_leaf"][k] = t["off_by_leaf"].get(k, 0) + v
+        errs.append(tot)
+    return errs
+
+
+def mp_step_checks(what: str, run: dict, errs: list, off_share: float,
+                   want: str) -> None:
+    """Each step's loss, grad norm and lr against ``run[want]``'s, and
+    every tree's elements past MP_TREE_TOL within ``off_share``, none
+    moved by more than twice the step's lr."""
+    for i, (a, b, e) in enumerate(zip(run["metrics"], run[want], errs)):
+        for k, tol in (("loss", MP_LOSS_RTOL), ("grad_norm", MP_GNORM_RTOL),
+                       ("lr", MP_LR_RTOL)):
+            check(abs(a[k] - b[k]) <= tol * abs(b[k]),
+                  f"{what} step {i} {k}: mesh {a[k]!r} one device "
+                  f"{b[k]!r} (rtol {tol})")
+        for tree, t in e.items():
+            check(t["off"] <= off_share * t["elements"]
+                  and t["max_move"] <= 2 * b["lr"],
+                  f"{what} step {i} {tree} against one device: {t}")
+
+
+def train_mp_moe_report(ranks) -> dict:
+    """The Mixtral leg's report from every rank's, checked: each step's
+    metrics and shards as ``mp_step_checks`` (MP_OFF), and the data
+    ranks' dropped assignments (model rank 0 of each data row) adding up
+    to one device's, each model rank of a data row dropping the same."""
+    run = ranks[0]["moe"]
+    errs = summed_errors(ranks, "moe", TRAIN_MP_MOE_STEPS)
+    dropped = [[r["moe"]["dropped"][i] for r in ranks]
+               for i in range(TRAIN_MP_MOE_STEPS)]
+    out = dict(run, errors=errs, dropped_by_rank=dropped,
+               workers_host_ms=[r["moe"]["host_ms"] for r in ranks[1:]])
+    coll = {a: sum(k.values()) for a, k in run["coll_by_axis"].items()}
+    log(f"train_mp moe: {TRAIN_MP_MOE_ARCH} {TRAIN_MP_MOE_LAYERS} layer at "
+        f"published width, DP {TRAIN_MP_DP} x TP {TRAIN_MP_TP} (experts "
+        f"whole over model), each step from one device's state: losses "
+        f"{[round(m['loss'], 6) for m in run['metrics']]} (one device "
+        f"{[round(m['loss'], 6) for m in run['one_device']]}), grad norms "
+        f"{[round(m['grad_norm'], 5) for m in run['metrics']]} (one device "
+        f"{[round(m['grad_norm'], 5) for m in run['one_device']]}); "
+        f"params / mu / nu worst |err| / leaf max "
+        f"{[round(max(e[t]['worst_ratio'] for e in errs), 8) for t in ('params', 'mu', 'nu')]}"
+        f", elements past {MP_TREE_TOL} "
+        f"{[sum(e[t]['off'] for t in e) for e in errs]} of "
+        f"{sum(errs[0][t]['elements'] for t in errs[0])} a step; dropped "
+        f"assignments by rank {dropped} (one device "
+        f"{run['one_device_dropped']}, the recompute's included); host ms a "
+        f"step {[round(t, 1) for t in run['host_ms']]} (the first counted), "
+        f"of it in collectives "
+        f"{json.dumps({k: round(v, 1) for k, v in run['coll_ms_a_step'].items()})}"
+        f"; collective bytes a step {json.dumps(coll)} "
+        f"({json.dumps(run['coll_by_axis'])}); a rank's peak GiB "
+        f"{[round(g, 2) for g in run['peak_gib']]}; one device's steps in "
+        f"turns {max(r['moe']['turn_s'] for r in ranks):.1f} s at most a "
+        f"rank; the leg {run['leg_s']:.1f} s")
+    mp_step_checks("train_mp moe", run, errs, MP_OFF, "one_device")
+    for i, d in enumerate(dropped):
+        # rank = data * tp + model
+        rows = [d[k * TRAIN_MP_TP:(k + 1) * TRAIN_MP_TP]
+                for k in range(TRAIN_MP_DP)]
+        check(all(len(set(row)) == 1 for row in rows)
+              and sum(row[0] for row in rows)
+              == run["one_device_dropped"][i],
+              f"train_mp moe step {i}: dropped assignments by rank {d}, one "
+              f"device {run['one_device_dropped'][i]}")
     return out
 
 
@@ -4935,29 +5188,34 @@ def train_mp_phase(dev) -> dict:
     loader = LMBatchLoader(corpus, TRAIN_MP_BATCH, TRAIN_MP_SEQ, seed=SEED)
     batches = [loader.next_batch() for _ in range(TRAIN_MP_STEPS + 1)]
     shutil.rmtree(TRAIN_MP_DIR, ignore_errors=True)
-    ranks = mesh.spawn(train_mp_rank, TRAIN_MP_TP, batches, dp=TRAIN_MP_DP,
-                       backend="gloo", device=dev, threads=1)
+    mcfg = train_mp_moe_config()
+    mloader = LMBatchLoader(make_corpus_tokens(mcfg.vocab, 2000, seed=SEED),
+                            TRAIN_MP_MOE_BATCH, TRAIN_MP_MOE_SEQ, seed=SEED)
+    moe_batches = [mloader.next_batch() for _ in range(TRAIN_MP_MOE_STEPS)]
+    torch.cuda.empty_cache()
+    log(f"train_mp: this process holds "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+        f"({torch.cuda.memory_reserved(dev) / 2**30:.2f} reserved) of the "
+        f"card before the ranks start")
+    # the four ranks' Mixtral steps fill most of the card: each rank's
+    # allocator grows its segments rather than holding fragments
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = mesh.spawn(train_mp_rank, TRAIN_MP_TP, batches, moe_batches,
+                           dp=TRAIN_MP_DP, backend="gloo", device=dev,
+                           threads=1)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     spawn_s = time.monotonic() - t0
     runs = {}
     for name, run in ranks[0].items():
-        # every rank's comparisons, added up (a leaf replicated over the
-        # model axis is compared on each of its holders)
-        errs = []
-        for i in range(TRAIN_MP_STEPS):
-            tot = {}
-            for r in ranks:
-                for tree, e in r[name]["errors"][i].items():
-                    t = tot.setdefault(tree, {"off": 0, "elements": 0,
-                                              "worst_ratio": 0.0,
-                                              "max_move": 0.0,
-                                              "off_by_leaf": {}})
-                    t["off"] += e["off"]
-                    t["elements"] += e["elements"]
-                    t["worst_ratio"] = max(t["worst_ratio"], e["worst_ratio"])
-                    t["max_move"] = max(t["max_move"], e["max_move"])
-                    for k, v in e["off_by_leaf"].items():
-                        t["off_by_leaf"][k] = t["off_by_leaf"].get(k, 0) + v
-            errs.append(tot)
+        if name == "moe":
+            continue
+        errs = summed_errors(ranks, name, TRAIN_MP_STEPS)
         runs[name] = dict(run, errors=errs, workers_host_ms=[
             r[name]["host_ms"] for r in ranks[1:]])
         coll = {a: sum(k.values()) for a, k in run["coll_by_axis"].items()}
@@ -4982,22 +5240,11 @@ def train_mp_phase(dev) -> dict:
             f"({json.dumps(run['coll_by_axis'])})")
     out = {"runs": runs, "spawn_s": spawn_s}
     for name, run in runs.items():
-        int8 = name == "int8"
-        for i, (a, b, e) in enumerate(zip(run["metrics"], run["one_rank"],
-                                          run["errors"])):
-            for k, tol in (("loss", MP_LOSS_RTOL),
-                           ("grad_norm", MP_GNORM_RTOL),
-                           ("lr", MP_LR_RTOL)):
-                check(abs(a[k] - b[k]) <= tol * abs(b[k]),
-                      f"train_mp {name} step {i} {k}: mesh {a[k]!r} one "
-                      f"rank {b[k]!r} (rtol {tol})")
-            for tree, t in e.items():
-                check(t["off"] <= (MP_INT8_OFF if int8 else MP_OFF)
-                      * t["elements"] and t["max_move"] <= 2 * b["lr"],
-                      f"train_mp {name} step {i} {tree} against one rank: "
-                      f"{t}")
+        mp_step_checks(f"train_mp {name}", run, run["errors"],
+                       MP_INT8_OFF if name == "int8" else MP_OFF, "one_rank")
         check(run["metrics"][-1]["loss"] < run["metrics"][0]["loss"],
               f"train_mp {name}: the loss did not fall")
+    out["moe"] = train_mp_moe_report(ranks)
     # the mesh's checkpoint, restored on one rank here
     t1 = time.monotonic()
     full = train_mp_params(cfg, dev)

@@ -37,11 +37,13 @@ model axis's all-reduces).  The params are built in bf16, sliced and
 sharded for rank 0 (``sharding.TrainLayout``), the moments are
 ``adamw_init``'s on the shards, and the step takes the rank's rows of the
 global batch (256 -> 8) in ``--microbatches`` parts (the reference's
-flag, default 4); the counter sees the backward too.  The dense attention
-decoders count; the MoE, MLA, RWKV6, RG-LRU and Whisper train cells are
-``skip`` with the ROADMAP item their families wait for (Queue 1 item 11:
-MoE's aux loss under data parallelism and expert parallelism's
-all-to-all, the recurrent mixers' TP layout).  A cell that the port
+flag, default 4); the counter sees the backward too.  The attention and
+MLA decoders count, dense and MoE: an MoE's experts go whole over the
+model axis (expert parallelism, its combine all-reduced over model) and
+its expert counts are all-gathered over data (``models/moe.py``).  The
+RWKV6, RG-LRU and Whisper train cells are ``skip`` with the ROADMAP item
+their families wait for (Queue 1 item 11: the recurrent mixers' and the
+encoder-decoder's TP layout).  A cell that the port
 cannot run is recorded as ``error`` with its reason.  The reference's
 variants (``--remat-attention``, ``--expand-kv``, ``--seqshard``,
 ``--shard-kv``, ``--shard-qkv``) are refused: the port's models do not

@@ -30,7 +30,9 @@ shapes only, nothing allocated); the counts are the same either way.
     result) per collective: the result, for a gather); the training
     collectives (``runtime/tp.py``) report ``all-gather`` (the result),
     ``reduce-scatter`` (the operand) and ``all-reduce`` (the tensor), each
-    under its mesh axis (``coll_by_axis``: axis -> kind -> bytes).  The
+    under its mesh axis (``coll_by_axis``: axis -> kind -> bytes; an MoE
+    adds its expert counts' all-gather over data and its combine's
+    all-reduce over model).  The
     backward of a train step dispatches through the counter too (autograd
     carries the dispatch mode into its engine), so it is counted.
 

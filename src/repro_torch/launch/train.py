@@ -18,15 +18,18 @@ sync on the card.  It prints ``step N loss L gnorm G Tms`` every
 equal text streams); an encoder-decoder arch (whisper-large-v3) is
 refused, as the reference's loop has no encoder frames for it either.
 
-``--tp N --dp M`` trains a dense attention decoder on a (data M, model N)
-mesh: ``launch/mesh.spawn`` starts M * N ranks (gloo where they share a
-card, one thread each), every rank draws the same params and batches and
-keeps its ZeRO shards of its tensor-parallel slices
+``--tp N --dp M`` trains an attention or MLA decoder, dense or MoE
+(llama2, qwen3, mixtral-8x7b, deepseek-v2-236b, ...), on a (data M,
+model N) mesh: ``launch/mesh.spawn`` starts M * N ranks (gloo where they
+share a card, one thread each), every rank draws the same params and
+batches and keeps its ZeRO shards of its tensor-parallel slices
 (``runtime/sharding.TrainLayout``), rank 0 prints the report lines, and
 ``--ckpt-dir`` writes and resumes the one-device checkpoint format
 (``ShardedCheckpointManager``).  The losses equal ``--tp 1 --dp 1``'s
-within round-off.  A mesh whose model axis does not divide the heads, or
-whose data axis and microbatches do not divide the batch, is refused.
+within round-off.  A mesh whose model axis does not divide the heads
+(MLA's too), or whose data axis and microbatches do not divide the
+batch, is refused; so are the RWKV6 and RG-LRU families
+(``runtime/tp.check_trainable``).
 
     python -m repro_torch.launch.train --device cpu --tiny --steps 20 \
         --tp 2 --dp 2
@@ -45,6 +48,7 @@ from repro_torch.configs import get_config, get_tiny
 from repro_torch.data import LMBatchLoader, make_corpus_tokens
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw_init
+from repro_torch.runtime import tp as tpmod
 from repro_torch.runtime.fault import FaultTolerantLoop, LoopConfig
 from repro_torch.runtime.steps import make_train_step
 from repro_torch.tree import leaves, tree_map
@@ -57,13 +61,18 @@ def _sync(dev: torch.device) -> None:
 
 def check_mesh(cfg, tp: int, dp: int, batch: int, microbatches: int):
     """Raise ValueError for a mesh the run cannot use: a model axis that
-    does not divide the attention heads, or a data axis and microbatches
-    that do not divide the batch."""
+    does not divide the attention (or MLA) heads, a data axis and
+    microbatches that do not divide the batch, or a family the mesh does
+    not train yet."""
     if tp < 1 or dp < 1:
         raise ValueError(f"--tp {tp} --dp {dp}: both must be >= 1")
     if cfg.n_heads % tp or cfg.n_kv % tp:
         raise ValueError(f"--tp {tp} does not divide {cfg.name}'s "
                          f"{cfg.n_heads} heads and {cfg.n_kv} KV heads")
+    if cfg.mla is not None and cfg.mla.n_heads % tp:
+        raise ValueError(f"--tp {tp} does not divide {cfg.name}'s "
+                         f"{cfg.mla.n_heads} MLA heads")
+    tpmod.check_trainable(cfg)
     if batch % (dp * microbatches):
         raise ValueError(f"--batch {batch} does not split into --dp {dp} "
                          f"ranks x --microbatches {microbatches}")

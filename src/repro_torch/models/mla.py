@@ -14,6 +14,13 @@ The reference's einsums contract against the cache in its storage dtype
 with f32 results (``preferred_element_type``); here the operands are
 rounded to that dtype and contracted in f32, the same products.
 
+Under model-parallel training (``runtime/tp.py``'s training layout)
+``wq_b`` and ``wkv_b`` hold the rank's heads and ``wo`` their rows: the
+rank attends over its heads and ``wo``'s partial sums are all-reduced.
+The latent projections replicate, and ``copy_to_model`` on their outputs
+(cq, c_kv, k_rope) sums the heads' gradients into them, so ``wq_a``,
+``wkv_a`` and the norms get one device's gradient on every rank.
+
 Caches are written in place (the lockstep decode at ``pos % cap``, the
 paged decode at each active slot's position, a prompt chunk into its slot's
 row), so a captured serving step keeps reading the storage it was captured
@@ -24,6 +31,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.runtime.tp import (copy_to_model, model_sliced,
+                                    reduce_from_model)
 
 from . import attention as attn
 from .common import LinearCtx, apply_rope, linear, rms_norm
@@ -42,23 +52,32 @@ class MLACache:
             k_rope=torch.zeros((b, cap, qk_rope), dtype=dtype, device=device))
 
 
-def _project_q(p: dict, x: torch.Tensor, mcfg, positions, ctx, name):
+def _project_q(p: dict, x: torch.Tensor, mcfg, positions, ctx, name,
+               sliced: bool = False):
+    """(q_nope, q_rope) of the heads ``wq_b`` holds; ``sliced``: a
+    model-parallel rank's heads, so the replicated latent's gradient is
+    summed over the ranks."""
     cq = rms_norm(linear(p["wq_a"], x, ctx, f"{name}.wq_a"), p["q_norm"])
+    if sliced:
+        cq = copy_to_model(cq)
     q = linear(p["wq_b"], cq, ctx, f"{name}.wq_b")
     b, s = x.shape[:2]
-    q = q.reshape(b, s, mcfg.n_heads, mcfg.qk_nope + mcfg.qk_rope)
+    q = q.reshape(b, s, -1, mcfg.qk_nope + mcfg.qk_rope)
     q_nope, q_rope = q[..., :mcfg.qk_nope], q[..., mcfg.qk_nope:]
     q_rope = apply_rope(q_rope, positions)
     return q_nope, q_rope
 
 
-def _project_kv_latent(p: dict, x: torch.Tensor, mcfg, positions, ctx, name):
+def _project_kv_latent(p: dict, x: torch.Tensor, mcfg, positions, ctx, name,
+                       sliced: bool = False):
     kv_a = linear(p["wkv_a"], x, ctx, f"{name}.wkv_a")
     c_kv = rms_norm(kv_a[..., :mcfg.kv_lora], p["kv_norm"])
     k_rope = kv_a[..., mcfg.kv_lora:]
     b, s = x.shape[:2]
     k_rope = apply_rope(k_rope.reshape(b, s, 1, mcfg.qk_rope),
                         positions)[:, :, 0]
+    if sliced:
+        c_kv, k_rope = copy_to_model(c_kv), copy_to_model(k_rope)
     return c_kv, k_rope
 
 
@@ -69,11 +88,14 @@ def mla_full(p: dict, x: torch.Tensor, mcfg, positions: torch.Tensor,
     ``return_latent`` -> (out, (c_kv, k_rope)): the latent rows a prefill
     caches, from the same ``wkv_a`` projection (the reference projects
     twice and XLA merges the two; run eagerly, that would be a second
-    GEMM)."""
+    GEMM).  Under model-parallel training (``wo`` sliced by input row) the
+    rank runs its heads and all-reduces ``wo``'s partial sums."""
     b, s, _ = x.shape
-    h, dn, dr, dv = mcfg.n_heads, mcfg.qk_nope, mcfg.qk_rope, mcfg.v_head
-    q_nope, q_rope = _project_q(p, x, mcfg, positions, ctx, name)
-    c_kv, k_rope = _project_kv_latent(p, x, mcfg, positions, ctx, name)
+    dn, dr, dv = mcfg.qk_nope, mcfg.qk_rope, mcfg.v_head
+    row = model_sliced(p["wo"], mcfg.n_heads * dv, axis=0)
+    q_nope, q_rope = _project_q(p, x, mcfg, positions, ctx, name, row)
+    c_kv, k_rope = _project_kv_latent(p, x, mcfg, positions, ctx, name, row)
+    h = q_nope.shape[2]
     kv = linear(p["wkv_b"], c_kv, ctx, f"{name}.wkv_b").reshape(b, s, h,
                                                                  dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
@@ -82,6 +104,8 @@ def mla_full(p: dict, x: torch.Tensor, mcfg, positions: torch.Tensor,
                   dim=-1)
     out = attn.flash_attention(q, k, v, causal=True)
     out = linear(p["wo"], out.reshape(b, s, h * dv), ctx, f"{name}.wo")
+    if row:
+        out = reduce_from_model(out)
     return (out, (c_kv, k_rope)) if return_latent else out
 
 

@@ -247,10 +247,18 @@ def _ffn_apply(cfg: ModelConfig, lp: dict, h2: torch.Tensor,
     row = fk in ("glu", "gelu") and tpmod.model_sliced(
         lp["mlp"]["wo"], cfg.d_ff, axis=0)
     if fk == "moe":
-        return moemod.moe_ffn(lp["moe"], h2, n_experts=cfg.moe.n_experts,
-                              top_k=cfg.moe.top_k,
-                              capacity_factor=cfg.moe.capacity_factor,
-                              act=cfg.act, ctx=ctx, name=f"{name}.moe")
+        mo, mp = cfg.moe, lp["moe"]
+        # model-parallel training: experts whole over the ranks or sliced
+        # within each, the shared experts by column and row
+        experts = (tpmod.model_sliced(mp["wo"], mo.n_experts, axis=0)
+                   or tpmod.model_sliced(mp["wo"], mo.d_ff_expert, axis=1))
+        shared = "swo" in mp and tpmod.model_sliced(
+            mp["swo"], mo.d_ff_expert * mo.n_shared, axis=0)
+        return moemod.moe_ffn(mp, h2, n_experts=mo.n_experts,
+                              top_k=mo.top_k,
+                              capacity_factor=mo.capacity_factor,
+                              act=cfg.act, ctx=ctx, name=f"{name}.moe",
+                              experts_sliced=experts, shared_sliced=shared)
     if fk == "cm":
         return rwkvmod.channel_mix(lp["cm"], h2, None, ctx, f"{name}.cm"), 0.0
     if fk == "gelu":
@@ -343,19 +351,20 @@ def _default_positions(cfg: ModelConfig, b: int, s: int, device,
     return pos.expand(b, s)
 
 
-def _scoped_layer(group, *args):
-    with tpmod.scope(group):
+def _scoped_layer(groups, *args):
+    with tpmod.scope(*groups):
         return layer_seq(*args)
 
 
 def _layer(remat: bool, *args):
     """``layer_seq(*args)``, under ``torch.utils.checkpoint`` with
     ``remat``.  The recompute runs in autograd's device thread on the
-    card, which does not see this thread's TP scope, so the scope's group
-    goes in as an argument."""
+    card, which does not see this thread's TP scope, so the scope's model
+    and data groups go in as an argument."""
     if remat:
         return torch.utils.checkpoint.checkpoint(
-            _scoped_layer, tpmod.current_group(), *args,
+            _scoped_layer,
+            (tpmod.current_group(), tpmod.current_data_group()), *args,
             use_reentrant=False)
     return layer_seq(*args)
 

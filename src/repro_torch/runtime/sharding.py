@@ -343,31 +343,41 @@ def _unit_of(tree, dp: int) -> _Unit:
 
 def _gather_leaves(unit: _Unit, group, shards) -> list:
     """A unit's shards -> its full (TP-slice) leaves, all-gathered over the
-    data group, one collective per dtype."""
-    from repro_torch.runtime.tp import all_gather_flat
+    data group, one collective per dtype.  Where the collective runs on a
+    host copy (gloo), the leaves are cut from it there, so the card holds
+    each one once."""
+    from repro_torch.runtime.tp import all_gather_flat, through_host
     outs = [None] * len(shards)
     for idx in unit.buckets:
         total = sum(unit.shard_lens[i] for i in idx)
         flat = torch.cat([shards[i].reshape(-1) for i in idx])
+        dev = flat.device
+        if group.size > 1 and through_host(group, flat):
+            flat = flat.cpu()
         g = all_gather_flat(flat, group).view(group.size, total)
+        del flat
         off = 0
         for i in idx:
             s = unit.shard_lens[i]
             outs[i] = (g[:, off:off + s].reshape(-1)[:unit.numels[i]]
-                       .reshape(unit.shapes[i]).clone())
+                       .reshape(unit.shapes[i]).to(dev, copy=True))
             off += s
     return outs
 
 
 def _scatter_grads(unit: _Unit, group, grads) -> list:
     """A unit's full gradients -> the rank's shards of their mean over the
-    data group (a reduce-scatter per dtype, divided by dp)."""
-    from repro_torch.runtime.tp import reduce_scatter_flat
+    data group (a reduce-scatter per dtype, divided by dp).  Where the
+    collective runs on a host copy (gloo), its buffer is built there."""
+    from repro_torch.runtime.tp import reduce_scatter_flat, through_host
     dp = group.size
     out = [None] * len(grads)
     for idx in unit.buckets:
         total = sum(unit.shard_lens[i] for i in idx)
-        buf = grads[idx[0]].new_zeros((dp, total))
+        dev = grads[idx[0]].device
+        host = dp > 1 and through_host(group, grads[idx[0]])
+        buf = grads[idx[0]].new_zeros((dp, total),
+                                      device="cpu" if host else dev)
         off = 0
         for i in idx:
             s, n = unit.shard_lens[i], unit.numels[i]
@@ -377,8 +387,10 @@ def _scatter_grads(unit: _Unit, group, grads) -> list:
             buf[:, off:off + s] = flat.view(dp, s)
             off += s
         mine = reduce_scatter_flat(buf.view(-1), group)
+        del buf
         if dp > 1:
-            mine = mine / dp
+            mine = mine.div_(dp)      # a new tensor: divide in place
+        mine = mine.to(dev)
         off = 0
         for i in idx:
             s = unit.shard_lens[i]
@@ -451,9 +463,11 @@ def _at(tree, key):
 
 
 class TrainLayout:
-    """How a (dp, tp) mesh holds a dense decoder's params on one rank: the
-    TP slice of each leaf (``runtime/tp.train_slice``) and its ZeRO shard
+    """How a (dp, tp) mesh holds a decoder's params on one rank: the TP
+    slice of each leaf (``runtime/tp.train_slice``) and its ZeRO shard
     over the data axis.  Built from ``cfg``'s shapes alone (meta tensors).
+    A layer's unit holds the rank's slices only, so an expert-parallel
+    layer gathers its E / tp experts, never the whole layer's.
 
       * ``shard(full)``: the rank's tree (1-D shards in the full tree's
         structure) from a full one-device tree, no collective;
@@ -470,7 +484,7 @@ class TrainLayout:
         from repro_torch.tree import flatten
         tpmod.check_trainable(cfg)
         self.cfg, self.mesh = cfg, mesh
-        self.plan = tpmod.plan_for(cfg, mesh.tp)
+        self.plan = tpmod.train_plan_for(cfg, mesh.tp)
         full = tf.init_params(cfg, torch.Generator(), device="meta")
         local = tpmod.prepare_train_params(cfg, full, mesh.model.rank,
                                            mesh.tp)
@@ -604,7 +618,9 @@ class TrainLayout:
     def sq_total(self, sq: list) -> torch.Tensor:
         """The global squared norm from each shard's squared norm (flatten
         order): summed over the data group, and over the model group for
-        the sliced leaves only (a replicated leaf counts once)."""
+        the sliced leaves only (an expert-parallel leaf's experts are
+        disjoint over the model axis; a replicated leaf, the router too,
+        counts once)."""
         from repro_torch.runtime.tp import all_reduce
         zero = sq[0].new_zeros(())
         sl = sum((q for q, s in zip(sq, self.sliced) if s), zero)

@@ -135,9 +135,13 @@ def _mesh_train_step(cfg, mesh, microbatches, peak_lr, warmup, total_steps,
 
     Each microbatch's loss is the rank's share of the global one: its
     tokens' mean (or, with a mask, their masked sum over 1/dp of the
-    microbatch's global token count), so the gathers' backward, a mean
-    over dp, gives the global microbatch's gradient.  The metric is the
-    mean of the ranks' losses over the data group."""
+    microbatch's global token count), plus the MoE's aux loss of its
+    router means against the whole microbatch's expert counts
+    (``models/moe.py``), so the gathers' backward, a mean over dp, gives
+    the global microbatch's gradient.  The union of the ranks' k-th parts
+    is one device's microbatch k, so the MoE's capacity is that
+    microbatch's, as in the reference.  The metric is the mean of the
+    ranks' losses over the data group."""
     layout = TrainLayout(cfg, mesh)
     dp = mesh.dp
     amax = layout.amax_total if grad_compression == "int8" else None
@@ -160,10 +164,10 @@ def _mesh_train_step(cfg, mesh, microbatches, peak_lr, warmup, total_steps,
         # on fake tensors one counts for all (``kernels.repeated``)
         fake = kernels.is_fake(flat[0])
         trips = 1 if fake else microbatches
-        loss_acc = flat[0].new_zeros((), dtype=torch.float32)
-        gacc = [p.new_zeros(p.shape, dtype=torch.float32)
-                for p in flat + roots]
-        with tpmod.scope(mesh.model), kernels.repeated(
+        # the first microbatch's gradients start the sums, as one
+        # device's do (no zeros held through the first backward)
+        loss_acc, gacc = None, None
+        with tpmod.scope(mesh.model, mesh.data), kernels.repeated(
                 microbatches if fake else 1):
             for part, total in zip(parts[:trips], totals[:trips]):
                 live = [p.detach().requires_grad_(True)
@@ -175,9 +179,13 @@ def _mesh_train_step(cfg, mesh, microbatches, peak_lr, warmup, total_steps,
                                       mask_total=total)
                     grads = torch.autograd.grad(loss, live,
                                                 materialize_grads=True)
-                loss_acc = loss_acc + loss.detach()
-                torch._foreach_add_(gacc, [g.to(torch.float32)
-                                           for g in grads])
+                g32 = [g.to(torch.float32) for g in grads]
+                if gacc is None:
+                    loss_acc, gacc = loss.detach(), g32
+                else:
+                    loss_acc = loss_acc + loss.detach()
+                    torch._foreach_add_(gacc, g32)
+                del grads, g32
         del roots, live, view
         if microbatches > 1:
             scale = 1.0 / microbatches

@@ -107,22 +107,32 @@ class TPGroup:
 
 _GROUP: contextvars.ContextVar[TPGroup | None] = contextvars.ContextVar(
     "repro_torch_tp_group", default=None)
+_DATA: contextvars.ContextVar[TPGroup | None] = contextvars.ContextVar(
+    "repro_torch_data_group", default=None)
 
 
 @contextlib.contextmanager
-def scope(group: TPGroup | None):
+def scope(group: TPGroup | None, data: TPGroup | None = None):
     """Scoped: the gathers run over ``group`` (None: no group, so a gather
-    of a sliced tensor raises).  Nests and unwinds."""
-    token = _GROUP.set(group)
+    of a sliced tensor raises); ``data`` is a training mesh's data group,
+    over which the MoE's router statistics are gathered (None: serving,
+    or one device).  Nests and unwinds."""
+    token, dtoken = _GROUP.set(group), _DATA.set(data)
     try:
         yield
     finally:
+        _DATA.reset(dtoken)
         _GROUP.reset(token)
 
 
 def current_group() -> TPGroup | None:
     """The group of the innermost ``scope`` (None outside one)."""
     return _GROUP.get()
+
+
+def current_data_group() -> TPGroup | None:
+    """The data group of the innermost ``scope`` (None outside one)."""
+    return _DATA.get()
 
 
 DRYRUN = "dryrun"
@@ -135,6 +145,12 @@ def dryrun_group(tp: int, device, axis: str = "model") -> TPGroup:
     ``axis`` (``launch/dryrun.py``)."""
     return TPGroup(rank=0, size=tp, backend=DRYRUN,
                    device=torch.device(device), axis=axis)
+
+
+def through_host(group: TPGroup, x: torch.Tensor) -> bool:
+    """Whether a collective of ``x`` over ``group`` runs on a host copy
+    (gloo takes no CUDA tensor)."""
+    return group.backend == "gloo" and x.is_cuda
 
 
 def _all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -156,7 +172,7 @@ def _all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
                            group.axis)
         return out
     send = x.contiguous()
-    host = group.backend == "gloo" and send.is_cuda
+    host = through_host(group, send)
     if host:
         send = send.cpu()
     parts = [torch.empty_like(send) for _ in range(group.size)]
@@ -319,28 +335,57 @@ def prepare_params(cfg, params: dict, rank: int, tp: int) -> dict:
 # ------------------------------------------------------- training layout
 #
 # Training weights are dense, so the training layout is the reference's
-# GSPMD rules (``runtime/sharding.py``'s ``_COL_KEYS`` / ``_ROW_KEYS``):
-# wq/wk/wv and the fused gate|up ``wi`` by output column, the attention and
-# FFN ``wo`` by input row, ``lm_head`` by vocab column.  A row-sliced
-# ``wo`` yields a partial sum on each rank, which ``reduce_from_model``
-# all-reduces; ``copy_to_model`` in front of each column-sliced linear
-# all-reduces its input's gradient.  Attention stays all-or-nothing by
-# ``plan_for``, as in serving; a family the plan leaves whole replicates.
+# GSPMD rules (``runtime/sharding.py``'s ``_param_rule``): wq/wk/wv and the
+# fused gate|up ``wi`` by output column, the attention and FFN ``wo`` by
+# input row, ``lm_head`` by vocab column.  A row-sliced ``wo`` yields a
+# partial sum on each rank, which ``reduce_from_model`` all-reduces;
+# ``copy_to_model`` in front of each column-sliced linear all-reduces its
+# input's gradient.  Attention stays all-or-nothing by ``plan_for``, as in
+# serving; a family the plan leaves whole replicates.
+#
+# The MoE's routed experts go whole over the model axis when it divides
+# their count (expert parallelism: ``wi`` / ``wo`` on their expert axis),
+# else by column and row within each expert (``wi`` by glu-permuted
+# column, ``wo`` by row), the reference's ``_fit`` fallback; the router
+# replicates; the shared experts' ``swi`` / ``swo`` go by column and row.
+# MLA's ``wq_b`` / ``wkv_b`` go by whole heads (their columns are
+# head-major) and its ``wo`` by row; the latent projections ``wq_a`` /
+# ``wkv_a`` and their norms replicate (the reference shards ``wq_a`` and
+# ``wkv_a`` by column too, but a normed latent cannot be split without a
+# partitioner: each rank would need the whole latent's norm).
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPlan(TPPlan):
+    """The training layout's plan: ``TPPlan``'s flags (``moe`` now the
+    intra-expert fallback only) and the two that serving has no use for."""
+    ep: bool         # routed experts whole over model (E % tp == 0)
+    mla: bool        # MLA wq_b / wkv_b by head, wo by row
+
+
+def train_plan_for(cfg, tp: int) -> TrainPlan:
+    """Which weight families the training layout slices at ``tp``."""
+    base = plan_for(cfg, tp)
+    moe = cfg.moe
+    ep = tp > 1 and moe is not None and moe.n_experts % tp == 0
+    return TrainPlan(**dict(base.asdict(), moe=base.moe and not ep), ep=ep,
+                     mla=(tp > 1 and cfg.mla is not None
+                          and cfg.mla.n_heads % tp == 0))
+
 
 def check_trainable(cfg) -> None:
-    """Model-parallel training covers the dense attention decoders: raise
-    for the other families."""
-    fam = ((["MoE"] if cfg.moe is not None else [])
-           + sorted(k.upper() for k in set(cfg.pattern) - {"attn"})
+    """Model-parallel training covers the attention and MLA decoders, with
+    dense or MoE FFNs: raise for the other families."""
+    fam = (sorted(k.upper() for k in set(cfg.pattern) - {"attn", "mla"})
            + (["encoder-decoder"] if cfg.enc_dec else []))
     if fam:
         raise ValueError(
             f"{cfg.name}: {'/'.join(fam)} model-parallel training waits for "
-            f"ROADMAP Queue 1 item 11 (this slice trains the dense "
-            f"attention decoders)")
+            f"ROADMAP Queue 1 item 11 (this slice trains the attention and "
+            f"MLA decoders, dense and MoE)")
 
 
-def train_slice(plan: TPPlan, names: list[str]):
+def train_slice(plan: TrainPlan, names: list[str]):
     """(axis, glu_permute) along which the training layout slices the leaf
     at path ``names`` over the model axis, or None (replicated)."""
     key = names[-1] if names else ""
@@ -352,9 +397,23 @@ def train_slice(plan: TPPlan, names: list[str]):
         return (1, True) if plan.ffn else None
     if "mlp" in names and key == "wo":
         return (0, False) if plan.ffn else None
+    if "moe" in names and key in ("wi", "wo"):     # (E, d, 2f), (E, f, d)
+        if plan.ep:
+            return (0, False)
+        if plan.moe:
+            return (2, True) if key == "wi" else (1, False)
+        return None
+    if "moe" in names and key == "swi":
+        return (1, True) if plan.shared else None
+    if "moe" in names and key == "swo":
+        return (0, False) if plan.shared else None
+    if "mla" in names and key in ("wq_b", "wkv_b"):
+        return (1, False) if plan.mla else None
+    if "mla" in names and key == "wo":
+        return (0, False) if plan.mla else None
     if key == "lm_head":
         return (1, False) if plan.lm_head else None
-    return None                 # embed, norms, q/k norms: replicated
+    return None       # embed, norms, router, MLA latents: replicated
 
 
 def slice_leaf(t: torch.Tensor, axis: int, rank: int, tp: int,
@@ -383,7 +442,7 @@ def prepare_train_params(cfg, params: dict, rank: int, tp: int) -> dict:
     carry no biases; ``q_norm`` / ``k_norm`` act per head with one (hd,)
     scale, so they replicate (``copy_to_model`` sums their gradients)."""
     check_trainable(cfg)
-    plan = plan_for(cfg, tp)
+    plan = train_plan_for(cfg, tp)
     glu = cfg.ffn_kind() != "gelu"
 
     def cut(names, leaf):
@@ -443,7 +502,7 @@ def all_reduce(x: torch.Tensor, group: TPGroup, op: str = "sum"
     import torch.distributed as dist
     from repro_torch import kernels
     kernels.collective("all-reduce", nbytes, group.axis)
-    host = group.backend == "gloo" and x.is_cuda
+    host = through_host(group, x)
     y = x.detach().to("cpu") if host else x.detach().clone()
     dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max"
                     else dist.ReduceOp.SUM, group=group.pg)
@@ -460,7 +519,7 @@ def all_gather_flat(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
         return _dry(group, x, "all-gather", out_shape, nbytes)
     from repro_torch import kernels
     kernels.collective("all-gather", nbytes, group.axis)
-    host = group.backend == "gloo" and x.is_cuda
+    host = through_host(group, x)
     send = x.detach().reshape(-1)
     send = send.to("cpu") if host else send.contiguous()
     out = send.new_empty(out_shape)
@@ -478,7 +537,7 @@ def gather_flat_to_root(x: torch.Tensor, group: TPGroup):
     from repro_torch import kernels
     nbytes = group.size * x.numel() * x.element_size()
     kernels.collective("gather", nbytes, group.axis)
-    host = group.backend == "gloo" and x.is_cuda
+    host = through_host(group, x)
     send = x.detach().reshape(-1)
     send = send.to("cpu") if host else send.contiguous()
     parts = ([torch.empty_like(send) for _ in range(group.size)]
@@ -503,7 +562,7 @@ def reduce_scatter_flat(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
     import torch.distributed as dist
     from repro_torch import kernels
     kernels.collective("reduce-scatter", nbytes, group.axis)
-    host = group.backend == "gloo" and x.is_cuda
+    host = through_host(group, x)
     send = x.detach().reshape(-1)
     send = send.to("cpu") if host else send.contiguous()
     out = send.new_empty((n,))

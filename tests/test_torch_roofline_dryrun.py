@@ -8,10 +8,11 @@ reference by ``jax.eval_shape``).  ``analyze`` equals the reference's on
 the same record when the hardware constants are the reference's.
 ``run_cell`` on tiny configs (``device="cpu"``, a (2, 2) mesh) writes
 the reference's record keys for the serve shapes and the dense decoders'
-train_4k cells, and skips where the reference skips (long_500k on
+train_4k cells, the MoE and MLA families' too (experts whole over the
+model axis), and skips where the reference skips (long_500k on
 full-attention archs) and where the port does not run yet (the train
-cells of the MoE, MLA, RWKV6, RG-LRU and Whisper families, ROADMAP Queue
-1 item 11); ``memory.argument`` equals the bytes of the rank's tensors;
+cells of the RWKV6, RG-LRU and Whisper families, ROADMAP Queue 1 item
+11); ``memory.argument`` equals the bytes of the rank's tensors;
 the CLI refuses the variants that need ``runtime/actsharding.py``;
 ``report`` renders and ``reanalyze`` reproduces a record from its op
 trace.
@@ -62,9 +63,11 @@ from repro_torch.runtime import steps as tsteps  # noqa: E402
 MESH = ProductionMesh(("data", "model"), (2, 2))
 ONE = ProductionMesh(("data", "model"), (1, 1))
 # the train cells the port does not count yet, one per family
-TRAIN_SKIPS = {"mixtral-8x7b": "MoE", "deepseek-v2-236b": "MoE/MLA",
-               "rwkv6-3b": "RWKV", "recurrentgemma-2b": "RGLRU",
+TRAIN_SKIPS = {"rwkv6-3b": "RWKV", "recurrentgemma-2b": "RGLRU",
                "whisper-large-v3": "encoder-decoder"}
+# the MoE and MLA families' train cells: the plan flags they need
+TRAIN_MOE = {"mixtral-8x7b": ("ep",), "deepseek-v2-236b": ("ep", "shared",
+                                                           "mla")}
 # the reference's count_params traces the full-width init on every call
 _ref_counts = functools.lru_cache(maxsize=None)(jroof.count_params)
 
@@ -256,6 +259,24 @@ def test_train_cells_of_the_other_families_skip(arch, tmp_path):
     assert rec["reason"].startswith(f"SKIP: {TRAIN_SKIPS[arch]} "
                                     "model-parallel training waits for "
                                     "ROADMAP Queue 1 item 11")
+
+
+@pytest.mark.parametrize("arch", sorted(TRAIN_MOE))
+def test_train_cells_of_the_moe_and_mla_families_count(arch, tmp_path):
+    """Experts whole over the model axis (and MLA's heads): the counts
+    all-gather and the ZeRO collectives over data, the combine's and the
+    heads' all-reduces over model."""
+    rec = dryrun.run_cell(arch, "train_4k", mesh=MESH, tiny=True,
+                          device="cpu", art_dir=_art(tmp_path))
+    assert rec["status"] == "ok", rec.get("error")
+    assert OK_KEYS <= set(rec)
+    assert all(rec["tp_plan"][k] for k in TRAIN_MOE[arch])
+    assert not rec["tp_plan"]["moe"]           # no intra-expert fallback
+    by = rec["coll_by_axis"]
+    assert set(by["data"]) >= {"all-gather", "reduce-scatter"}
+    assert set(by["model"]) == {"all-reduce"} and by["model"][
+        "all-reduce"] > 0
+    assert rec["flops"] > 0 and rec["memory"]["peak"] > 0
 
 
 B_TRAIN, S_TRAIN = 4, 32

@@ -24,6 +24,7 @@ Tolerances (each with the largest error measured on a CPU):
     by more than lr (measured 5.9e-3);
   * ``remat`` on and off: identical numbers, bit for bit.
 """
+import dataclasses
 import os
 import re
 
@@ -270,6 +271,23 @@ def test_train_cli_on_a_mesh(capfd, tmp_path):
             ttrain.main(argv[:-2] + flags)
         assert e.value.code == 2
         assert msg in capfd.readouterr().err
+
+
+def test_check_mesh_takes_the_moe_and_mla_families():
+    """``--tp 2 --dp 2`` takes tiny Mixtral and DeepSeek-V2; a model axis
+    that does not divide the MLA heads and the recurrent families are
+    refused."""
+    ds = get_tiny("deepseek-v2-236b")
+    for cfg in (get_tiny("mixtral-8x7b"), ds):
+        ttrain.check_mesh(cfg, 2, 2, 4, 1)
+    odd = ds.with_(mla=dataclasses.replace(ds.mla, n_heads=6))
+    with pytest.raises(ValueError, match="does not divide deepseek-v2-tiny's "
+                       "6 MLA heads"):
+        ttrain.check_mesh(odd, 4, 1, 4, 1)
+    for arch, fam in (("rwkv6-3b", "RWKV"), ("recurrentgemma-2b", "RGLRU")):
+        with pytest.raises(ValueError, match=f"{fam} model-parallel "
+                           "training waits for ROADMAP Queue 1 item 11"):
+            ttrain.check_mesh(get_tiny(arch), 1, 2, 4, 1)
 
 
 def test_train_needs_a_card_unless_asked_for_the_host():
